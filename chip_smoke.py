@@ -23,6 +23,9 @@ visited table) once.  Each phase prints one JSON line:
            clientserver c3-w4 (1723 / 17292), the Paxos twin n3-c1-s2 to
            depth 6 (7540 / 26389), the flagship to depth 4 (713 / 2457),
            the last also through the port's plain path on the CPU;
+  profile  the flagship to depth 8 under torch.profiler: the device's busy
+           share (summed kernel time over wall time), the ported kernels'
+           device time and the top kernels by device time;
   search   the main path at full size (strict, visited_cap 2^24,
            frontier_cap 2^20, chunk 4096, depth 10 or SEARCH_MAX_SECS):
            outcome, unique states/min, peak device memory, and the launch
@@ -40,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,17 +58,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # sheet's 67 TFLOP/s float32 figure (132 x 128 x 2 x 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 logic/shift/add operations per lane of the fingerprint that no
-# other unit can take: each of the 4 mixes is 1 xor with the position
-# product, 3 shifts and 3 xors (its 3 shift-adds x + (x << k) are
-# multiplies by 1 + 2^k, which issue as IMAD on the FMA pipe), plus 4
-# accumulating adds: 4 x 7 + 4 = 32.
-FP_OPS_PER_LANE = 32
+# int32 operations per lane of the fingerprint that only the ALU pipe can
+# take: each of the 4 mixes is 1 xor with the position product, 3 right
+# shifts and 3 xors, so 4 x 7 = 28.  The rest runs on the FMA pipe and
+# does not bind: the mixes' shift-adds x + (x << k) are multiplies by
+# 1 + 2^k (IMAD), the position products are IMULs, and the 4
+# accumulating adds can issue as IMAD.IADD.
+FP_OPS_PER_LANE = 28
 
 # Wave-loop budget of the search phase: with the parity phases and the
 # build this keeps the whole script well inside its 1200 s limit even if
 # the wave that starts just before the budget is the largest one.
 SEARCH_MAX_SECS = 240.0
+# Depth of the profiled flagship search: deep enough that most chunks are
+# full (4096 states).
+PROFILE_DEPTH = 8
 
 
 def emit(obj) -> None:
@@ -274,6 +282,59 @@ def flagship_protocol():
         goals={})
 
 
+# CUDA kernels of each ported function, as torch.profiler names them.
+PORT_KERNELS = {
+    "fingerprint_rows": re.compile(r"\bfingerprint_rows_kernel\("),
+    "insert": re.compile(
+        r"\b(init|reserve|claim|select_tail|finalize)_kernel\("),
+}
+
+
+def phase_profile(torch, mods, depth: int):
+    """The flagship search to ``depth`` under torch.profiler: the device's
+    busy share (summed kernel time over wall time), the time of the two
+    ported kernels, and the kernels that take the most device time."""
+    engine = mods["engine"]
+    ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
+                             frontier_cap=1 << 20, chunk=4096,
+                             max_depth=depth)
+    warm = ts.run()                            # warm-up, unprofiled
+    # Device activity only: host-side op events would multiply the trace
+    # (about four per kernel) and its processing time.
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        o = ts.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check((o.unique_states, o.states_explored, o.depth)
+          == (warm.unique_states, warm.states_explored, warm.depth),
+          f"profiled search differs from its warm-up: {o} vs {warm}")
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    busy_ms = sum(dev_ms(e) for e in kern)
+    check(busy_ms > 0, "torch.profiler recorded no device time")
+    port_ms = {name: sum(dev_ms(e) for e in kern if pat.search(e.key))
+               for name, pat in PORT_KERNELS.items()}
+    check(all(v > 0 for v in port_ms.values()),
+          f"profiled search ran no ported kernel: {port_ms}")
+    emit({"phase": "profile", "depth": o.depth, "end": o.end_condition,
+          "unique": o.unique_states, "explored": o.states_explored,
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / wall_ms,
+          "port_kernels_ms": port_ms,
+          "device_launches": sum(e.count for e in kern),
+          "top_kernels": [[e.key[:80], e.count, dev_ms(e)]
+                          for e in sorted(kern, key=dev_ms,
+                                          reverse=True)[:10]]})
+
+
 def phase_search(torch, mods, max_secs: float):
     engine, kernels, visited = mods["engine"], mods["kernels"], \
         mods["visited"]
@@ -341,6 +402,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kres = phase_kernels(torch, mods, gen)
     phase_parity(torch, mods)
+    phase_profile(torch, mods, PROFILE_DEPTH)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)
 
     replaces = {

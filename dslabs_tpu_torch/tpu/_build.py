@@ -12,6 +12,9 @@ in ``.gitignore``), keyed by a digest of the sources and flags: a checkout
 that holds only the committed files builds itself.  PyTorch's own
 extension builder is not used because a source that includes PyTorch's
 headers takes minutes to compile.
+
+:func:`resolve_device` is the one place where the port's entry points pick
+their device: the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import tempfile
 import time
 from typing import Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -137,3 +142,15 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another.  No CUDA and no explicit device is an error, never a
+    quiet move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path")
+    return dev

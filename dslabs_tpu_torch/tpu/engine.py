@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from dslabs_tpu_torch.tpu import kernels, visited as visited_mod
+from dslabs_tpu_torch.tpu._build import resolve_device
 # The plain fingerprint lives beside its kernel; re-exported here where the
 # reference engine defines it.
 from dslabs_tpu_torch.tpu.kernels import row_fingerprints
@@ -57,18 +58,6 @@ class CapacityOverflow(RuntimeError):
     table, live-send budget) overflowed.  Overflow would silently corrupt
     verdicts and state counts, so the engine counts drops on the device
     and raises."""
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another.  No CUDA and no explicit device is an error, never a
-    quiet move to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {dev} requested but CUDA is not available; pass "
-            "device='cpu' to run the plain PyTorch path")
-    return dev
 
 
 # --------------------------------------------------------------------- state

@@ -5,13 +5,16 @@ a search state that the JAX package produced (for example a
 ``SearchOutcome.goal_state``, or a table from ``visited.build_table``)
 comes in here, so a search can continue in the port from where the
 reference left off and both compute the same thing.  Only numpy crosses
-the boundary; uint32 arrays become int32 tensors with the same bits.
+the boundary; uint32 arrays become int32 tensors with the same bits, on
+the card unless the caller names another device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from dslabs_tpu_torch.tpu._build import resolve_device
 
 __all__ = ["table_from_numpy", "table_to_numpy", "keys_from_numpy",
            "state_from_numpy"]
@@ -28,12 +31,12 @@ def _u32_bits(a) -> np.ndarray:
     raise TypeError(f"expected uint32 or int32, got {a.dtype}")
 
 
-def table_from_numpy(table, device="cpu") -> torch.Tensor:
+def table_from_numpy(table, device=None) -> torch.Tensor:
     """[V+1, 4] uint32 visited table -> int32 tensor with the same bits."""
     t = _u32_bits(table)
     if t.ndim != 2 or t.shape[1] != 4:
         raise ValueError(f"visited table must be [V+1, 4], got {t.shape}")
-    return torch.from_numpy(t.copy()).to(device)
+    return torch.from_numpy(t.copy()).to(resolve_device(device))
 
 
 def table_to_numpy(table: torch.Tensor) -> np.ndarray:
@@ -41,19 +44,20 @@ def table_to_numpy(table: torch.Tensor) -> np.ndarray:
     return table.detach().cpu().numpy().view(np.uint32)
 
 
-def keys_from_numpy(keys, device="cpu") -> torch.Tensor:
+def keys_from_numpy(keys, device=None) -> torch.Tensor:
     """[N, 4] uint32 keys -> int32 tensor with the same bits."""
     k = _u32_bits(keys).reshape(-1, 4)
-    return torch.from_numpy(k.copy()).to(device)
+    return torch.from_numpy(k.copy()).to(resolve_device(device))
 
 
-def state_from_numpy(state: dict, device="cpu") -> dict:
+def state_from_numpy(state: dict, device=None) -> dict:
     """A batch-1 state dict of numpy arrays (``nodes`` [1, NW], ``net``
     [1, CAP, MW], ``timers`` [1, NN, T, TW], ``exc`` [1]) -> the port's
     state dict of int32 tensors on ``device``."""
     missing = [k for k in _STATE_KEYS if k not in state]
     if missing:
         raise KeyError(f"state is missing {missing}")
+    device = resolve_device(device)
     out = {}
     for k in _STATE_KEYS:
         a = np.asarray(state[k])

@@ -27,14 +27,16 @@ import torch
 
 from dslabs_tpu_torch.tpu import _build
 
-__all__ = ["BKT", "MAXU32", "LAUNCHES", "check_cap", "empty_table",
-           "sanitize_keys", "host_sanitize_key", "host_home_slot",
+__all__ = ["BKT", "MAXU32", "MAX_ITERS", "LAUNCHES", "check_cap",
+           "empty_table", "sanitize_keys", "host_sanitize_key", "host_home_slot",
            "host_occupied", "build_table", "insert", "insert_plain"]
 
 # Slots per bucket: one probe reads one 128-byte line of 8 x 16-byte keys.
 BKT = 8
 MAXU32 = np.uint32(0xFFFFFFFF)
 EMPTY = -1                 # MAXU32 in the int32 view
+# Probe rounds of each phase (the reference's ``max_iters`` default).
+MAX_ITERS = 64
 # Launches of kernel 2 (one per insert call on CUDA tensors).
 LAUNCHES = {"insert": 0}
 
@@ -46,10 +48,12 @@ def check_cap(cap: int) -> None:
             f"(hash-table slot arithmetic), got {cap}")
 
 
-def empty_table(cap: int, device="cpu") -> torch.Tensor:
-    """A fresh ``[cap + 1, 4]`` all-EMPTY table (+1 dump row)."""
+def empty_table(cap: int, device=None) -> torch.Tensor:
+    """A fresh ``[cap + 1, 4]`` all-EMPTY table (+1 dump row), on the card
+    unless ``device`` names another."""
     check_cap(cap)
-    return torch.full((cap + 1, 4), EMPTY, dtype=torch.int32, device=device)
+    return torch.full((cap + 1, 4), EMPTY, dtype=torch.int32,
+                      device=_build.resolve_device(device))
 
 
 def sanitize_keys(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -84,11 +88,13 @@ def host_occupied(table) -> np.ndarray:
     return table[~(table == MAXU32).all(axis=1)]
 
 
-def build_table(cap: int, keys: torch.Tensor, device="cpu"
+def build_table(cap: int, keys: torch.Tensor, device=None
                 ) -> Tuple[torch.Tensor, int, int]:
-    """A fresh table with ``keys`` ([K, 4] int32 bits) inserted.  Returns
-    ``(table, n_inserted, n_unresolved)``; callers treat a nonzero
-    unresolved count as CapacityOverflow."""
+    """A fresh table with ``keys`` ([K, 4] int32 bits) inserted, on the
+    card unless ``device`` names another.  Returns ``(table, n_inserted,
+    n_unresolved)``; callers treat a nonzero unresolved count as
+    CapacityOverflow."""
+    device = _build.resolve_device(device)
     keys = keys.to(device=device, dtype=torch.int32).reshape(-1, 4)
     table, ins, unres = insert(
         empty_table(cap, device), keys,
@@ -132,7 +138,7 @@ def _probe_iter(table, keys, bkt_i, ps, unres, idx, V, RT, batch_n):
 
 
 def insert_plain(table: torch.Tensor, keys: torch.Tensor,
-                 valid: torch.Tensor, max_iters: int = 64
+                 valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Membership + insert of a key batch, the plain PyTorch version of
     kernel 2 (the reference's ``insert_jnp``).  ``table`` [V+1, 4] int32
@@ -160,7 +166,7 @@ def insert_plain(table: torch.Tensor, keys: torch.Tensor,
     it = 0
     while True:
         left = int((~resolved).sum())
-        if not ((it < 1 or left > T) and it < max_iters and left > 0):
+        if not ((it < 1 or left > T) and it < MAX_ITERS and left > 0):
             break
         bkt_i, newly, winner = _probe_iter(table, skeys, bkt_i, pstep,
                                            ~resolved, ridx, V, RT, n)
@@ -175,7 +181,7 @@ def insert_plain(table: torch.Tensor, keys: torch.Tensor,
     t_unres = torch.ones(tail.shape[0], dtype=torch.bool, device=dev)
     t_ins = torch.zeros(tail.shape[0], dtype=torch.bool, device=dev)
     it = 0
-    while it < max_iters and bool(t_unres.any()):
+    while it < MAX_ITERS and bool(t_unres.any()):
         t_bkt, newly, winner = _probe_iter(table, t_keys, t_bkt, t_ps,
                                            t_unres, t_id, V, RT, n)
         t_unres = t_unres & ~newly
@@ -188,15 +194,14 @@ def insert_plain(table: torch.Tensor, keys: torch.Tensor,
 
 # ------------------------------------------------------------- the kernel
 
-def insert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
-           max_iters: int = 64
+def insert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The probe/insert entry point.  CPU tensors run
     :func:`insert_plain`; CUDA tensors launch kernel 2, which updates
     ``table`` in place on the current stream with no host synchronisation,
     or raise.  Same contract and results either way."""
     if table.device.type == "cpu":
-        return insert_plain(table, keys, valid, max_iters)
+        return insert_plain(table, keys, valid)
     if table.device.type != "cuda":
         raise ValueError(f"visited.insert: unsupported device {table.device}")
     V = table.shape[0] - 1
@@ -223,12 +228,12 @@ def insert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
     probe = torch.empty((n,), dtype=torch.int32, device=dev)
     state = torch.empty((n,), dtype=torch.uint8, device=dev)
     res = torch.full((RT,), -1, dtype=torch.int64, device=dev)
-    ctl = torch.zeros((2 + 2 * max_iters,), dtype=torch.int32, device=dev)
+    ctl = torch.zeros((2 + 2 * MAX_ITERS,), dtype=torch.int32, device=dev)
     rc = _build.lib().dsl_visited_insert(
         table.data_ptr(), keys.data_ptr(), valid.data_ptr(),
         inserted.data_ptr(), unresolved.data_ptr(), bkt.data_ptr(),
         probe.data_ptr(), state.data_ptr(), res.data_ptr(), ctl.data_ptr(),
-        n, V, RT, T, max_iters, torch.cuda.current_stream(dev).cuda_stream)
+        n, V, RT, T, MAX_ITERS, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "visited.insert")
     LAUNCHES["insert"] += 1
     return table, inserted, unresolved

@@ -95,27 +95,75 @@ def _key_batch(n=300, seed=0):
 
 
 def _port_insert(table_np, keys, valid, fn=tvis.insert_plain):
-    t = interop.table_from_numpy(table_np)
-    t2, ins, unres = fn(t, interop.keys_from_numpy(keys),
+    t = interop.table_from_numpy(table_np, "cpu")
+    t2, ins, unres = fn(t, interop.keys_from_numpy(keys, "cpu"),
                         torch.from_numpy(valid))
     return interop.table_to_numpy(t2), ins.numpy(), unres.numpy()
 
 
-@pytest.mark.parametrize("cap,overflows", [(1 << 9, False),
-                                           (jvis.BKT * 2, True)])
-def test_insert_plain_matches_jax(cap, overflows):
+def _empty_case(cap):
     keys, valid = _key_batch()
-    table = jvis.empty_table(cap)
-    tj, ij, uj = jvis.insert_jnp(table, jnp.asarray(keys),
+    return np.asarray(jvis.empty_table(cap)), keys, valid
+
+
+def _crowded_case(seed=8):
+    """A 2^10-slot table full except one bucket X, and 2048 keys that all
+    step by one bucket a round from homes 1..20 buckets past X: they
+    first reach X in tail rounds 44..63, so more than T = 256 keys stay
+    unresolved through all 64 full rounds, and which keys the tail takes
+    (the lowest-index T) decides which win X's 8 slots.  Adds invalid
+    rows, keys already in the table, in-batch duplicates and the all-MAX
+    key."""
+    rng = np.random.default_rng(seed)
+    cap, X, n = 1 << 10, 5, 2048
+    vb = cap // jvis.BKT
+    table = rng.integers(0, 2 ** 32, size=(cap + 1, 4), dtype=np.uint32)
+    home = np.arange(cap) // jvis.BKT           # each stored key at home
+    table[:cap, 2] = (table[:cap, 2] & ~np.uint32(vb - 1)) | home
+    table[X * jvis.BKT:(X + 1) * jvis.BKT] = 0xFFFFFFFF
+    table[cap] = 0xFFFFFFFF                      # dump row
+    keys = rng.integers(0, 2 ** 32, size=(n, 4), dtype=np.uint32)
+    keys[:, 1] &= 1                              # probe step 1
+    near = (X + 1 + rng.integers(0, 20, size=n)) % vb
+    keys[:, 2] = (keys[:, 2] & ~np.uint32(vb - 1)) | near.astype(np.uint32)
+    keys[200:210] = table[300:310]               # already present
+    keys[100:120] = keys[1000:1020]              # in-batch duplicates
+    keys[7] = 0xFFFFFFFF
+    valid = rng.random(n) > 0.2
+    valid[7] = True
+    return table, keys, valid
+
+
+def _crowded_outcome(it, ut):
+    return (int(ut.sum()) > 256                  # U > T after the tail
+            and 0 < int(it.sum()) <= jvis.BKT    # X's slots, in the tail
+            and not (it[200:210] | ut[200:210]).any())  # present
+
+
+@pytest.mark.parametrize("case,outcome", [
+    pytest.param(lambda: _empty_case(1 << 9),
+                 lambda it, ut: not ut.any(), id="512-False"),
+    pytest.param(lambda: _empty_case(jvis.BKT * 2),
+                 lambda it, ut: ut.any(), id="16-True"),      # overflows
+    pytest.param(_crowded_case, _crowded_outcome, id="many-rounds"),
+])
+def test_insert_plain_matches_jax(case, outcome):
+    """The port's insert_plain against insert_jnp and the Pallas kernel
+    (interpret mode) on the table, inserted and unresolved: on an empty
+    table, on one that overflows, and on a crowded one where more than T
+    keys stay unresolved through every full round and the tail cuts to
+    the lowest-index T of them."""
+    table, keys, valid = case()
+    tj, ij, uj = jvis.insert_jnp(jnp.asarray(table), jnp.asarray(keys),
                                  jnp.asarray(valid))
-    tp, ip, up = jvis.pallas_insert(table, jnp.asarray(keys),
+    tp, ip, up = jvis.pallas_insert(jnp.asarray(table), jnp.asarray(keys),
                                     jnp.asarray(valid), interpret=True)
-    tt, it, ut = _port_insert(np.asarray(table), keys, valid)
+    tt, it, ut = _port_insert(table, keys, valid)
     for ref_t, ref_i, ref_u in ((tj, ij, uj), (tp, ip, up)):
         np.testing.assert_array_equal(np.asarray(ref_t)[:-1], tt[:-1])
         np.testing.assert_array_equal(np.asarray(ref_i), it)
         np.testing.assert_array_equal(np.asarray(ref_u), ut)
-    assert (int(ut.sum()) > 0) == overflows
+    assert outcome(it, ut)
     # Invalid rows are never inserted nor unresolved; each distinct new
     # key is inserted once.
     assert not (it & ~valid).any() and not (ut & ~valid).any()
@@ -152,7 +200,8 @@ def test_insert_continues_a_jax_table():
 def test_build_table_and_host_helpers_match_jax():
     keys, _ = _key_batch(n=120, seed=4)
     tj, nij, nuj = jvis.build_table(1 << 8, keys)
-    tt, nit, nut = tvis.build_table(1 << 8, interop.keys_from_numpy(keys))
+    tt, nit, nut = tvis.build_table(
+        1 << 8, interop.keys_from_numpy(keys, "cpu"), "cpu")
     assert (nij, nuj) == (nit, nut)
     np.testing.assert_array_equal(np.asarray(tj)[:-1], _u32(tt)[:-1])
     np.testing.assert_array_equal(jvis.host_occupied(np.asarray(tj)),
@@ -168,13 +217,13 @@ def test_sanitize_keys_matches_jax():
     keys, valid = _key_batch(seed=6)
     ref = np.asarray(jvis.sanitize_keys(jnp.asarray(keys),
                                         jnp.asarray(valid)))
-    port = tvis.sanitize_keys(interop.keys_from_numpy(keys),
+    port = tvis.sanitize_keys(interop.keys_from_numpy(keys, "cpu"),
                               torch.from_numpy(valid))
     np.testing.assert_array_equal(ref, _u32(port))
 
 
 def test_check_cap_rejects_non_power_of_two():
     with pytest.raises(ValueError):
-        tvis.empty_table(24)
+        tvis.empty_table(24, "cpu")
     with pytest.raises(ValueError):
-        tvis.empty_table(4)
+        tvis.empty_table(4, "cpu")

@@ -132,7 +132,7 @@ def test_search_from_jax_goal_state():
     ref = jeng.TensorSearch(_no_goals(j_cs(2, 1)), **SMALL).run(
         initial=state)
     out = _port(_no_goals(t_cs(2, 1))).run(
-        initial=interop.state_from_numpy(state))
+        initial=interop.state_from_numpy(state, "cpu"))
     assert _key(out) == _key(ref)
     assert out.end_condition == "SPACE_EXHAUSTED"
 
@@ -170,6 +170,31 @@ def test_no_cpu_fallback_without_cuda():
         teng.TensorSearch(t_pp(2))
     with pytest.raises(RuntimeError, match="CUDA"):
         teng.TensorSearch(t_pp(2), device="cuda")
+
+
+_KEYS_NP = np.zeros((3, 4), dtype=np.uint32)
+_STATE_NP = {"nodes": np.zeros((1, 2), np.int32),
+             "net": np.zeros((1, 1, 1), np.int32),
+             "timers": np.zeros((1, 1, 1, 1), np.int32),
+             "exc": np.zeros((1,), np.int32)}
+
+
+@pytest.mark.parametrize("make", [
+    lambda: visited.empty_table(16),
+    lambda: visited.build_table(16, torch.zeros((3, 4), dtype=torch.int32)),
+    lambda: interop.table_from_numpy(np.zeros((17, 4), np.uint32)),
+    lambda: interop.keys_from_numpy(_KEYS_NP),
+    lambda: interop.state_from_numpy(_STATE_NP),
+], ids=["empty_table", "build_table", "table_from_numpy", "keys_from_numpy",
+        "state_from_numpy"])
+def test_helpers_default_to_the_card(make):
+    """The table and interop helpers also place their tensors on the card
+    unless told otherwise: with no card and no device they raise instead
+    of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
 
 
 @pytest.mark.parametrize("kw,proto", [
