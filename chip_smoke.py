@@ -16,16 +16,22 @@ visited table) once.  Each phase prints one JSON line:
   build    nvcc build of csrc/*.cu for sm_90a: seconds and the compiler's
            per-kernel register / shared-memory report;
   kernels  per kernel: bit-exact comparisons with the plain version at the
-           main path's shapes, then timings (CUDA events, median of 20
-           runs after warm-up) beside the least time the card could take
-           (bound) and the plain version's time;
+           main path's shapes (for the insert also two crowded cases from
+           tests/torch_insert_cases.py where the tail cut decides), then
+           timings (CUDA events, median of 20 runs after warm-up) beside
+           the least time the card could take (bound) and the plain
+           version's time; for the insert also the time per call of 19
+           calls issued back to back (pipelined_ms), where the wrapper's
+           host work overlaps the device;
   parity   TensorSearch(device="cuda").run() against pinned counts: lab1
            clientserver c3-w4 (1723 / 17292), the Paxos twin n3-c1-s2 to
            depth 6 (7540 / 26389), the flagship to depth 4 (713 / 2457),
            the last also through the port's plain path on the CPU;
   profile  the flagship to depth 8 under torch.profiler: the device's busy
            share (summed kernel time over wall time), the ported kernels'
-           device time and the top kernels by device time;
+           device time, the insert's device launches beside its calls
+           (must be equal: one launch per insert) and the top kernels by
+           device time;
   search   the main path at full size (strict, visited_cap 2^24,
            frontier_cap 2^20, chunk 4096, depth 10 or SEARCH_MAX_SECS):
            outcome, unique states/min, peak device memory, and the launch
@@ -112,6 +118,21 @@ def cuda_ms(torch, fn, setup=None, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def pipelined_ms(torch, fn, args) -> float:
+    """Milliseconds per call of ``fn(arg)`` for each of ``args`` issued
+    back to back between two CUDA events."""
+    fn(args[-1])                                 # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for arg in args[:-1]:
+        fn(arg)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (len(args) - 1)
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / INT32_OPS_PER_S * 1e3
@@ -123,6 +144,7 @@ def bound_ms(n_bytes: float, n_ops: float):
 def phase_kernels(torch, mods, gen):
     kernels, visited, engine = mods["kernels"], mods["visited"], \
         mods["engine"]
+    insert_cases = mods["insert_cases"]
     dev = "cuda"
     C, B, L = 4096, 94, 842          # flagship chunk x events x lanes
     n_main = C * B
@@ -196,6 +218,16 @@ def phase_kernels(torch, mods, gen):
                 torch.ones(512, dtype=torch.bool, device=dev))
     check(r[2] > 0, "nearly_full case left no key unresolved")
     results["nearly_full"] = r
+    # Crowded: more than T keys outlive the 64 full rounds, so the tail's
+    # cut to the lowest-index T decides the winners (numpy-built).
+    for name, build in (("many_rounds", insert_cases.many_rounds_case),
+                        ("crowded_2^16", insert_cases.crowded_case)):
+        table, keys, valid = build()
+        r = compare(name, torch.from_numpy(table.view("int32")).to(dev),
+                    torch.from_numpy(keys.view("int32")).to(dev),
+                    torch.from_numpy(valid).to(dev))
+        check(r[2] > len(keys) // 8, f"{name}: tail cut not reached")
+        results[name] = r
     # Flagship shape: 2^24 slots holding 2^20 keys, one chunk's worth of
     # successor keys (30% already present, in-batch duplicates, 20%
     # invalid).
@@ -214,6 +246,12 @@ def phase_kernels(torch, mods, gen):
                      setup=lambda: base.clone())
     ins_plain = cuda_ms(torch, lambda t: visited.insert_plain(t, keys, valid),
                         setup=lambda: base.clone(), reps=20, warmup=1)
+    # The same calls back to back on fresh copies of the table: each
+    # call's host work then overlaps the device work of the one before,
+    # so this is the device time per call while the host keeps ahead.
+    ins_piped = pipelined_ms(
+        torch, lambda t: visited.insert(t, keys, valid),
+        [base.clone() for _ in range(20)])
     n_valid = int(valid.sum())
     n_ins = results["flagship"][1]
     # Least work: every key's 16 B and valid byte read once, each valid
@@ -224,7 +262,8 @@ def phase_kernels(torch, mods, gen):
     out["insert"] = dict(
         cases={k: dict(max_abs_err=v[0], inserted=v[1], unresolved=v[2])
                for k, v in results.items()},
-        max_abs_err=ins_err, ms=ins_ms, plain_ms=ins_plain, bound_ms=b_ms,
+        max_abs_err=ins_err, ms=ins_ms, pipelined_ms=ins_piped,
+        plain_ms=ins_plain, bound_ms=b_ms,
         bound_by=b_by, shape=dict(V=1 << 24, N=n_main, valid=n_valid))
     del base
     torch.cuda.empty_cache()
@@ -285,16 +324,16 @@ def flagship_protocol():
 # CUDA kernels of each ported function, as torch.profiler names them.
 PORT_KERNELS = {
     "fingerprint_rows": re.compile(r"\bfingerprint_rows_kernel\("),
-    "insert": re.compile(
-        r"\b(init|reserve|claim|select_tail|finalize)_kernel\("),
+    "insert": re.compile(r"\binsert_coop_kernel\("),
 }
 
 
 def phase_profile(torch, mods, depth: int):
     """The flagship search to ``depth`` under torch.profiler: the device's
     busy share (summed kernel time over wall time), the time of the two
-    ported kernels, and the kernels that take the most device time."""
-    engine = mods["engine"]
+    ported kernels, the insert's device launches beside its calls (one
+    each), and the kernels that take the most device time."""
+    engine, visited = mods["engine"], mods["visited"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
                              frontier_cap=1 << 20, chunk=4096,
                              max_depth=depth)
@@ -302,12 +341,14 @@ def phase_profile(torch, mods, depth: int):
     # Device activity only: host-side op events would multiply the trace
     # (about four per kernel) and its processing time.
     torch.cuda.synchronize()
+    calls0 = visited.LAUNCHES["insert"]
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         o = ts.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    insert_calls = visited.LAUNCHES["insert"] - calls0
     check((o.unique_states, o.states_explored, o.depth)
           == (warm.unique_states, warm.states_explored, warm.depth),
           f"profiled search differs from its warm-up: {o} vs {warm}")
@@ -324,11 +365,18 @@ def phase_profile(torch, mods, depth: int):
                for name, pat in PORT_KERNELS.items()}
     check(all(v > 0 for v in port_ms.values()),
           f"profiled search ran no ported kernel: {port_ms}")
+    insert_launches = sum(e.count for e in kern
+                          if PORT_KERNELS["insert"].search(e.key))
+    check(insert_launches == insert_calls,
+          f"insert: {insert_launches} device launches for {insert_calls} "
+          "calls (one each expected)")
     emit({"phase": "profile", "depth": o.depth, "end": o.end_condition,
           "unique": o.unique_states, "explored": o.states_explored,
           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / wall_ms,
           "port_kernels_ms": port_ms,
+          "insert_calls": insert_calls,
+          "insert_device_launches": insert_launches,
           "device_launches": sum(e.count for e in kern),
           "top_kernels": [[e.key[:80], e.count, dev_ms(e)]
                           for e in sorted(kern, key=dev_ms,
@@ -382,8 +430,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from dslabs_tpu_torch.tpu import _build, engine, kernels, visited
+    from tests import torch_insert_cases
 
-    mods = {"engine": engine, "kernels": kernels, "visited": visited}
+    mods = {"engine": engine, "kernels": kernels, "visited": visited,
+            "insert_cases": torch_insert_cases}
     t_start = time.time()
     card = smi()
     name = torch.cuda.get_device_name(0)

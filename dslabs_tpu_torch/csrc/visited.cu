@@ -14,11 +14,11 @@
 //
 // Semantics, round by round as in _probe_iter: every unresolved key reads
 // its whole bucket line and computes eq / has_empty / first_empty from
-// the table as it stood at the start of the round (the reserve kernel
-// reads, the claim kernel writes).  A key that wants a slot does an
-// atomicMin of its batch index into res[bucket & (RT - 1)]; the minimum
-// wins and writes its key to the first empty slot; losers stay on the
-// bucket; keys of a full bucket move on by their step.  Phases:
+// the table as it stood at the start of the round.  A key that wants a
+// slot does an atomicMin of its batch index into res[bucket & (RT - 1)];
+// the minimum wins and writes its key to the first empty slot; losers
+// stay on the bucket; keys of a full bucket move on by their step.
+// Phases:
 //   full: at least one round, then on while more than
 //         T = max(N / 8, min(256, N)) keys are unresolved, at most
 //         max_iters rounds;
@@ -27,229 +27,366 @@
 // Ranking tail keys by their batch index is the same tie-break order as
 // the reference's rank inside the compacted tail, so winners agree.
 //
-// Structure: a fixed schedule of per-round launches (reserve, claim) for
-// up to max_iters full rounds and max_iters tail rounds, all enqueued by
-// one C call.  Each launch reads the counters the previous rounds left in
-// `ctl` and exits at once when its round is not active, so the host never
-// synchronises inside an insert.  The reservation cells hold 64-bit
-// values (~round << 32 | index): a later round always beats a stale
-// entry, so `res` is filled once per call instead of once per round.
+// Structure: one persistent cooperative launch per insert.  The grid is
+// as many blocks as the card holds at once (occupancy x SMs, computed
+// once per device), and no more than the batch needs; it is launched
+// with cudaLaunchCooperativeKernel, which makes grid-wide barriers legal
+// and refuses a grid that could not be resident (the wrapper raises).
+// Steps, separated by grid barriers:
+//   init     inserted = 0, unresolved = valid, reservation cells all
+//            ones, round counters zero;
+//   reserve  each key of the round's list reads its bucket line and takes
+//            its atomicMin reservation; the table is only read;
+//   claim    winners write their key, resolved keys clear `unresolved`,
+//            the others are appended to the next round's list; the table
+//            is only written;
+//   select   only when more than T keys outlive the full phase: each
+//            block counts the unresolved keys of its own index tile, adds
+//            the counts of the blocks before it, and ranks its keys, so
+//            the tail list holds the lowest-index T in index order.
+// After each claim every block reads the same per-round counter and takes
+// the same branch: the rounds end on the device, and the host never
+// synchronises inside an insert.
 //
-// Bound: memory.  Per valid key a round reads 16 B of key and one 128 B
-// bucket line; an insert writes 16 B; every key writes its two flags.
-// This first version is simple and right; TMA loads and warp-specialised
-// probing are later work.
+// Worklist: round 0 walks the batch; each later round reads only the
+// (index, bucket) entries the previous claim appended (a block-wide scan,
+// then one atomicAdd per block and pass), in no particular order.  Order
+// does not change the result: at most one key per reservation cell, so
+// per bucket, wins a round; the winner is the minimum batch index; and
+// every key reads its line as it stood at the start of the round.
+//
+// Probe: eight lanes share a key and each loads one 16-byte slot, so a
+// warp reads four whole 128-byte lines per load instruction.  Ballots
+// give the eq and empty masks; __ffs gives the lowest empty slot, the
+// reference's argmax.  Each group fetches its next entry and key while
+// its current line is in flight.  Data that the kernel itself writes is
+// read with __ldcg (L2, not a block's L1), so no block sees a line older
+// than the last barrier.
+//
+// Reservation cells hold (~round << 32) | index: a later round always
+// beats a stale entry, so `res` is filled once per call.
+//
+// Bound: bytes.  The least traffic reads each key (16 B) and valid byte
+// once and one 128-byte bucket line per valid key, and writes each
+// inserted key (16 B) and two flag bytes per key.  What still keeps the
+// kernel from it: round 0 reads one random 128-byte line per valid key,
+// and random lines come from memory well below its streaming rate; the
+// winners' 16-byte writes land on random lines too; the reservation
+// cells (8 B per RT cell) are filled on every call; and every round
+// costs two grid barriers, each a few microseconds, so the tail rounds,
+// which hold few keys, cost their barriers and little else.  Later work:
+// finishing rounds that hold few keys inside one block (block barriers
+// instead of grid ones), a cheaper grid barrier, and deeper prefetch of
+// list entries and lines (cp.async or TMA gathers into shared memory).
 
+#include <cooperative_groups.h>
+#include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int BKT = 8;
-constexpr uint8_t RESOLVED = 1, INSERTED = 2, EXCLUDED = 4;
-constexpr int THREADS = 256;
-constexpr int SELECT_THREADS = 1024;
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+// 8-lane groups: keys probed by a warp, and by a block, per pass.
+constexpr int WARP_KEYS = 32 / BKT;
+constexpr int BLOCK_KEYS = THREADS / BKT;
+constexpr int MAX_DEVICES = 64;
 
-// ctl layout (int32, zeroed by the caller):
-//   ctl[0]                  valid keys (unresolved before full round 0)
-//   ctl[1]                  keys admitted to the tail phase
-//   ctl[2 + r]              keys left unresolved by full round r
-//   ctl[2 + max_iters + t]  tail keys left unresolved by tail round t
+struct Args {
+  uint4* table;
+  const uint4* keys;
+  const uint8_t* valid;
+  uint8_t* inserted;
+  uint8_t* unresolved;
+  int2* lists;  // [2, n] round lists of (index, bucket), used in turn
+  int2* probe;  // [n] per list position: (bucket, eq | has_empty << 1 |
+                // first_empty << 2); select reuses its first words
+  int* bkt;     // [n] select only: each listed key's bucket, by index
+  unsigned long long* res;  // [rt] reservation cells
+  int* ctl;     // [2 * max_iters] ctl[r]: keys left by full round r;
+                // ctl[max_iters + t]: by tail round t
+  int n, rt_mask, T, max_iters;
+  unsigned vb_mask;
+};
 
-__device__ __forceinline__ uint4 load_key(const uint4* __restrict__ keys,
-                                          const uint8_t* __restrict__ valid,
-                                          long long i) {
-  uint4 k = keys[i];
-  if (valid[i] && (k.x & k.y & k.z & k.w) == 0xffffffffu) k.w = 0xfffffffeu;
+typedef cub::BlockReduce<int, THREADS> Reduce;
+typedef cub::BlockScan<int, THREADS> Scan;
+struct Shared {
+  union {
+    typename Reduce::TempStorage reduce;
+    typename Scan::TempStorage scan;
+  } tmp;
+  int word;  // a block-wide value: a list offset, a count
+};
+
+// The key of a valid row as the table stores it.
+__device__ __forceinline__ uint4 sanitise(uint4 k) {
+  if ((k.x & k.y & k.z & k.w) == 0xffffffffu) k.w = 0xfffffffeu;
   return k;
 }
 
-__device__ __forceinline__ bool round_active(const int* ctl, int phase,
-                                             int r, int T, int max_iters) {
-  if (phase == 0) return r == 0 ? ctl[0] > 0 : ctl[2 + r - 1] > T;
-  return r == 0 ? ctl[1] > 0 : ctl[2 + max_iters + r - 1] > 0;
+__device__ __forceinline__ unsigned long long round_tag(int round) {
+  return (unsigned long long)(0xffffffffu - (unsigned)round) << 32;
 }
 
-__device__ __forceinline__ unsigned long long round_tag(int phase, int r,
-                                                        int max_iters) {
-  return (unsigned long long)(0xffffffffu -
-                              (unsigned)(phase * max_iters + r)) << 32;
-}
-
-__global__ void init_kernel(const uint4* __restrict__ keys,
-                            const uint8_t* __restrict__ valid,
-                            int* __restrict__ bkt,
-                            uint8_t* __restrict__ state, int* ctl,
-                            long long n, unsigned vb_mask) {
-  int cnt = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const bool v = valid[i] != 0;
-    const uint4 k = load_key(keys, valid, i);
-    bkt[i] = (int)(k.z & vb_mask);
-    state[i] = v ? 0 : RESOLVED;
-    cnt += v;
+// Entry p of a round's list: `lst`, or the batch when `lst` == nullptr
+// (round 0: entry p is key p at its home bucket, invalid rows skipped).
+// Sets the entry (index, bucket) and the raw key; returns whether it
+// holds a key to probe.
+__device__ __forceinline__ bool fetch(const Args& a, const int2* lst,
+                                      int len, long long p, int2& e,
+                                      uint4& k) {
+  if (p >= len) return false;
+  if (lst) {
+    e = __ldcg(lst + p);
+    k = __ldg(a.keys + e.x);
+    return true;
   }
-  cnt = __reduce_add_sync(0xffffffffu, cnt);
-  if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&ctl[0], cnt);
+  k = __ldg(a.keys + p);
+  e = make_int2((int)p, (int)(k.z & a.vb_mask));
+  return __ldg(a.valid + p);
 }
 
-__global__ void reserve_kernel(const uint4* __restrict__ table,
-                               const uint4* __restrict__ keys,
-                               const uint8_t* __restrict__ valid,
-                               const int* __restrict__ bkt,
-                               int* __restrict__ probe,
-                               const uint8_t* __restrict__ state,
-                               unsigned long long* res, const int* ctl,
-                               long long n, int rt_mask, int T,
-                               int max_iters, int phase, int r) {
-  if (!round_active(ctl, phase, r, T, max_iters)) return;
-  const unsigned long long tag = round_tag(phase, r, max_iters);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    if (state[i] & (RESOLVED | EXCLUDED)) continue;
-    const uint4 k = load_key(keys, valid, i);
-    const int b = bkt[i];
-    const uint4* line = table + (long long)b * BKT;
-    bool eq = false;
-    int fe = -1;
-#pragma unroll
-    for (int s = 0; s < BKT; ++s) {
-      const uint4 e = line[s];
-      eq |= (e.x == k.x) & (e.y == k.y) & (e.z == k.z) & (e.w == k.w);
-      if (fe < 0 && (e.x & e.y & e.z & e.w) == 0xffffffffu) fe = s;
+// Each 8-lane group probes one entry per pass and fetches its next entry
+// and key while the current line is in flight.
+__device__ void reserve(const Args& a, const int2* lst, int len,
+                        unsigned long long tag) {
+  const int lane = threadIdx.x & 31, g = lane >> 3, s = lane & 7;
+  const long long warp = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+  const long long stride = (long long)gridDim.x * WARPS * WARP_KEYS;
+  long long base = warp * WARP_KEYS;
+  int2 e = make_int2(0, 0);
+  uint4 k = make_uint4(0, 0, 0, 0);
+  bool act = fetch(a, lst, len, base + g, e, k);
+  for (; base < len; base += stride) {
+    uint4 slot = make_uint4(0, 0, 0, 0);
+    if (act) slot = __ldcg(a.table + (long long)e.y * BKT + s);
+    int2 e_next = make_int2(0, 0);
+    uint4 k_next = make_uint4(0, 0, 0, 0);
+    const bool act_next = fetch(a, lst, len, base + stride + g, e_next,
+                                k_next);
+    k = sanitise(k);
+    const unsigned eqm = __ballot_sync(
+        0xffffffffu, act && slot.x == k.x && slot.y == k.y &&
+                         slot.z == k.z && slot.w == k.w);
+    const unsigned emm = __ballot_sync(
+        0xffffffffu,
+        act && (slot.x & slot.y & slot.z & slot.w) == 0xffffffffu);
+    if (act && s == 0) {
+      const unsigned eq = (eqm >> (g * BKT)) & 0xffu;
+      const unsigned em = (emm >> (g * BKT)) & 0xffu;
+      const int fe = em ? __ffs(em) - 1 : 0;
+      a.probe[base + g] =
+          make_int2(e.y, (eq ? 1 : 0) | (em ? 2 : 0) | (fe << 2));
+      if (!eq && em)
+        atomicMin(a.res + (e.y & a.rt_mask), tag | (unsigned long long)e.x);
     }
-    const bool he = fe >= 0;
-    probe[i] = (eq ? 1 : 0) | (he ? 2 : 0) | ((he ? fe : 0) << 4);
-    if (!eq && he) atomicMin(&res[b & rt_mask], tag | (unsigned long long)i);
+    e = e_next;
+    k = k_next;
+    act = act_next;
   }
 }
 
-__global__ void claim_kernel(uint4* __restrict__ table,
-                             const uint4* __restrict__ keys,
-                             const uint8_t* __restrict__ valid,
-                             int* __restrict__ bkt,
-                             const int* __restrict__ probe,
-                             uint8_t* __restrict__ state,
-                             const unsigned long long* __restrict__ res,
-                             int* ctl, long long n, int rt_mask,
-                             unsigned vb_mask, int T, int max_iters,
-                             int phase, int r) {
-  if (!round_active(ctl, phase, r, T, max_iters)) return;
-  const unsigned long long tag = round_tag(phase, r, max_iters);
-  int left = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const uint8_t st = state[i];
-    if (st & (RESOLVED | EXCLUDED)) continue;
-    const int p = probe[i];
-    const bool eq = p & 1, he = (p & 2) != 0;
-    const int b = bkt[i];
-    const bool winner =
-        !eq && he && res[b & rt_mask] == (tag | (unsigned long long)i);
-    if (winner) table[(long long)b * BKT + (p >> 4)] = load_key(keys, valid, i);
-    if (eq || winner) {
-      state[i] = st | RESOLVED | (winner ? INSERTED : 0);
-    } else {
-      if (!he) {
-        const uint4 k = load_key(keys, valid, i);
-        bkt[i] = (int)(((unsigned)b + (k.y | 1u)) & vb_mask);
+// Appends the keys it leaves unresolved to `next`, counting them in
+// `*left` with one atomicAdd per block and pass.  Two dependent trips per
+// entry: the entry and its probe word, then the reservation cell and the
+// key.
+__device__ void claim(const Args& a, const int2* lst, int len, int2* next,
+                      int* left, unsigned long long tag, Shared& sh) {
+  for (long long base = (long long)blockIdx.x * THREADS; base < len;
+       base += (long long)gridDim.x * THREADS) {
+    const long long p = base + threadIdx.x;
+    bool keep = false;
+    int i = 0, nb = 0;
+    if (p < len) {
+      i = lst ? __ldcg(&lst[p].x) : (int)p;
+      const bool act = lst || __ldg(a.valid + p);
+      const int2 pr = __ldcg(a.probe + p);
+      const bool eq = pr.y & 1, he = (pr.y & 2) != 0;
+      if (act && !eq) {
+        const uint4 k = __ldg(a.keys + i);
+        const bool win = he && __ldcg(a.res + (pr.x & a.rt_mask)) ==
+                                   (tag | (unsigned long long)i);
+        if (win) {
+          a.table[(long long)pr.x * BKT + (pr.y >> 2)] = sanitise(k);
+          a.inserted[i] = 1;
+          a.unresolved[i] = 0;
+        } else {
+          keep = true;
+          nb = he ? pr.x : (int)(((unsigned)pr.x + (k.y | 1u)) & a.vb_mask);
+        }
+      } else if (act) {
+        a.unresolved[i] = 0;
       }
-      ++left;
     }
-  }
-  left = __reduce_add_sync(0xffffffffu, left);
-  if ((threadIdx.x & 31) == 0 && left)
-    atomicAdd(&ctl[phase == 0 ? 2 + r : 2 + max_iters + r], left);
-}
-
-// One block: U = keys left by the last full round.  The tail admits the
-// lowest-index min(U, T); when U > T the others are marked EXCLUDED by a
-// block-wide scan in index order.
-__global__ void __launch_bounds__(SELECT_THREADS)
-select_tail_kernel(uint8_t* __restrict__ state, int* ctl, long long n,
-                   int T, int max_iters) {
-  __shared__ int s_u;
-  typedef cub::BlockScan<int, SELECT_THREADS> Scan;
-  __shared__ typename Scan::TempStorage tmp;
-  if (threadIdx.x == 0) {
-    int u = 0;
-    if (ctl[0] > 0) {
-      int r = 0;
-      while (r + 1 < max_iters && ctl[2 + r] > T) ++r;
-      u = ctl[2 + r];
-    }
-    ctl[1] = u < T ? u : T;
-    s_u = u;
-  }
-  __syncthreads();
-  if (s_u <= T) return;
-  int base = 0;
-  for (long long off = 0; off < n; off += SELECT_THREADS) {
-    const long long i = off + threadIdx.x;
-    const int f = (i < n && !(state[i] & RESOLVED)) ? 1 : 0;
-    int excl, agg;
-    Scan(tmp).ExclusiveSum(f, excl, agg);
-    if (f && base + excl >= T) state[i] |= EXCLUDED;
-    base += agg;
+    int at, total;
+    Scan(sh.tmp.scan).ExclusiveSum(keep ? 1 : 0, at, total);
+    if (threadIdx.x == 0 && total) sh.word = atomicAdd(left, total);
+    __syncthreads();
+    if (keep) next[sh.word + at] = make_int2(i, nb);
     __syncthreads();
   }
 }
 
-__global__ void finalize_kernel(const uint8_t* __restrict__ state,
-                                uint8_t* __restrict__ inserted,
-                                uint8_t* __restrict__ unresolved,
-                                long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const uint8_t st = state[i];
-    inserted[i] = (st & INSERTED) ? 1 : 0;
-    unresolved[i] = (st & RESOLVED) ? 0 : 1;
+// The lowest-index T of the `len` keys listed in `cur` (the unresolved
+// ones), in index order, into `out`.
+__device__ void select_tail(const Args& a, const int2* cur, int len,
+                            int2* out, Shared& sh) {
+  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  for (long long p = tid; p < len; p += (long long)gridDim.x * THREADS) {
+    const int2 e = __ldcg(cur + p);
+    a.bkt[e.x] = e.y;
   }
+  const long long tile = (a.n + gridDim.x - 1) / gridDim.x;
+  const long long lo = (long long)blockIdx.x * tile;
+  const long long hi = lo + tile < a.n ? lo + tile : a.n;
+  int* counts = (int*)a.probe;
+  int cnt = 0;
+  for (long long i = lo + threadIdx.x; i < hi; i += THREADS)
+    cnt += __ldcg(a.unresolved + i);
+  cnt = Reduce(sh.tmp.reduce).Sum(cnt);
+  if (threadIdx.x == 0) counts[blockIdx.x] = cnt;
+  cg::this_grid().sync();
+  int before = 0;
+  for (int j = threadIdx.x; j < (int)blockIdx.x; j += THREADS)
+    before += __ldcg(counts + j);
+  __syncthreads();
+  before = Reduce(sh.tmp.reduce).Sum(before);
+  if (threadIdx.x == 0) sh.word = before;
+  __syncthreads();
+  before = sh.word;
+  for (long long off = lo; off < hi && before < a.T; off += THREADS) {
+    const long long i = off + threadIdx.x;
+    const int f = (i < hi && __ldcg(a.unresolved + i)) ? 1 : 0;
+    int excl, agg;
+    Scan(sh.tmp.scan).ExclusiveSum(f, excl, agg);
+    if (f && before + excl < a.T)
+      out[before + excl] = make_int2((int)i, __ldcg(a.bkt + i));
+    before += agg;
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+}
+
+// One round: reserve, barrier, claim, barrier.  Returns the keys left.
+__device__ __forceinline__ int run_round(const Args& a, const int2* lst,
+                                         int len, int2* next, int* left,
+                                         int round, Shared& sh) {
+  const unsigned long long tag = round_tag(round);
+  reserve(a, lst, len, tag);
+  cg::this_grid().sync();
+  claim(a, lst, len, next, left, tag, sh);
+  cg::this_grid().sync();
+  return __ldcg(left);
+}
+
+__global__ void __launch_bounds__(THREADS)
+insert_coop_kernel(Args a) {
+  __shared__ Shared sh;
+  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long nthr = (long long)gridDim.x * THREADS;
+  for (long long i = tid; i < a.n; i += nthr) {
+    a.inserted[i] = 0;
+    a.unresolved[i] = __ldg(a.valid + i);
+  }
+  for (long long c = tid; c <= a.rt_mask; c += nthr) a.res[c] = ~0ull;
+  for (long long c = tid; c < 2LL * a.max_iters; c += nthr) a.ctl[c] = 0;
+  cg::this_grid().sync();
+
+  // Two list buffers in turn: `out` is always the one `cur` is not.
+  int2* const lists[2] = {a.lists, a.lists + a.n};
+  const int2* cur = nullptr;  // round 0 walks the batch
+  int2* out = lists[0];
+  int len = a.n;
+  for (int r = 0;; ++r) {
+    len = run_round(a, cur, len, out, a.ctl + r, r, sh);
+    cur = out;
+    out = out == lists[0] ? lists[1] : lists[0];
+    if (len <= a.T || r + 1 == a.max_iters) break;
+  }
+  if (len > a.T) {
+    select_tail(a, cur, len, out, sh);
+    cur = out;
+    out = out == lists[0] ? lists[1] : lists[0];
+    len = a.T;
+  }
+  for (int t = 0; t < a.max_iters && len > 0; ++t) {
+    len = run_round(a, cur, len, out, a.ctl + a.max_iters + t,
+                    a.max_iters + t, sh);
+    cur = out;
+    out = out == lists[0] ? lists[1] : lists[0];
+  }
+}
+
+// Blocks of insert_coop_kernel the device holds at once, per device.
+cudaError_t resident_blocks(int* blocks) {
+  static int cache[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cache[dev] > 0) {
+    *blocks = cache[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, insert_coop_kernel, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  if (dev < MAX_DEVICES) cache[dev] = per_sm * sms;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // table [V+1, 4] u32 (updated in place), keys [n, 4] u32, valid [n] u8,
-// inserted / unresolved [n] u8 (out); scratch: bkt [n] i32, probe [n]
-// i32, state [n] u8, res [rt] u64 (all ones), ctl [2 + 2 * max_iters]
-// i32 (zeros).  Launches on `stream`; returns cudaGetLastError().
-extern "C" int dsl_visited_insert(void* table, const void* keys,
-                                  const void* valid, void* inserted,
-                                  void* unresolved, void* bkt, void* probe,
-                                  void* state, void* res, void* ctl,
-                                  long long n, long long V, long long rt,
-                                  long long T, int max_iters, void* stream) {
+// inserted / unresolved [n] u8 (out); scratch, uninitialised: bkt [n]
+// i32, probe [n, 2] i32, lists [2, n, 2] i32, res [rt] u64, ctl
+// [2 * max_iters] i32.  n <= 2^30, V <= 2^34.  One cooperative launch on
+// `stream`; returns the launch's error, else cudaGetLastError().
+extern "C" int dsl_visited_insert_coop(void* table, const void* keys,
+                                       const void* valid, void* inserted,
+                                       void* unresolved, void* bkt,
+                                       void* probe, void* lists, void* res,
+                                       void* ctl, long long n, long long V,
+                                       long long rt, long long T,
+                                       int max_iters, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 132LL * 8) blocks = 132LL * 8;
-  const unsigned vb_mask = (unsigned)(V / BKT - 1);
-  const int rt_mask = (int)(rt - 1);
-  const int t = (int)T;
-  uint4* tb = (uint4*)table;
-  const uint4* kb = (const uint4*)keys;
-  const uint8_t* vb = (const uint8_t*)valid;
-  int* bk = (int*)bkt;
-  int* pr = (int*)probe;
-  uint8_t* st = (uint8_t*)state;
-  unsigned long long* rs = (unsigned long long*)res;
-  int* c = (int*)ctl;
-  init_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(kb, vb, bk, st, c, n,
-                                                   vb_mask);
-  for (int phase = 0; phase < 2; ++phase) {
-    if (phase == 1)
-      select_tail_kernel<<<1, SELECT_THREADS, 0, s>>>(st, c, n, t, max_iters);
-    for (int r = 0; r < max_iters; ++r) {
-      reserve_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-          tb, kb, vb, bk, pr, st, rs, c, n, rt_mask, t, max_iters, phase, r);
-      claim_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-          tb, kb, vb, bk, pr, st, rs, c, n, rt_mask, vb_mask, t, max_iters,
-          phase, r);
-    }
-  }
-  finalize_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-      st, (uint8_t*)inserted, (uint8_t*)unresolved, n);
-  return (int)cudaGetLastError();
+  if (n > (1LL << 30) || rt > (1LL << 31) || V / BKT > (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = resident_blocks(&resident);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (n + BLOCK_KEYS - 1) / BLOCK_KEYS;
+  if (blocks > resident) blocks = resident;
+  Args a;
+  a.table = (uint4*)table;
+  a.keys = (const uint4*)keys;
+  a.valid = (const uint8_t*)valid;
+  a.inserted = (uint8_t*)inserted;
+  a.unresolved = (uint8_t*)unresolved;
+  a.bkt = (int*)bkt;
+  a.probe = (int2*)probe;
+  a.lists = (int2*)lists;
+  a.res = (unsigned long long*)res;
+  a.ctl = (int*)ctl;
+  a.n = (int)n;
+  a.rt_mask = (int)(rt - 1);
+  a.T = (int)T;
+  a.max_iters = max_iters;
+  a.vb_mask = (unsigned)(V / BKT - 1);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)insert_coop_kernel,
+                                    dim3((unsigned)blocks), dim3(THREADS),
+                                    params, 0, (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }

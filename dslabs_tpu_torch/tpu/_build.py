@@ -49,8 +49,8 @@ _I = ctypes.c_int
 # C entry points and their argument types (return type is always int).
 SIGNATURES = {
     "dsl_fingerprint_rows": [_P, _P, _LL, _I, _P],
-    "dsl_visited_insert": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _LL, _LL, _LL, _LL, _I, _P],
+    "dsl_visited_insert_coop": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _LL, _LL, _LL, _LL, _I, _P],
 }
 
 

@@ -13,6 +13,18 @@ runs :func:`insert_plain`, the plain PyTorch version with the reference's
 probe order, reservation tie-breaks and two phases, so tables, insert
 flags and unresolved flags agree bit for bit.
 
+Kernel 2 is one persistent cooperative launch per call: a grid of as many
+blocks as the card holds at once runs every probe round, with grid-wide
+barriers between a round's reserve (read the table, take an ``atomicMin``
+reservation) and its claim (winners write).  The rounds end on the
+device's own per-round counters, round 0 walks the batch and each later
+round only the worklist of keys the previous one left, and eight lanes
+share a key so that a warp reads four whole 128-byte bucket lines per
+load.  It is bound by bytes on the card; random bucket lines, scattered
+winner writes and two grid barriers per round keep it from that bound
+(``PERF.md``).  The wrapper allocates its outputs and one scratch buffer
+with ``torch.empty`` only, so one call is one device launch.
+
 Overflow contract: a key whose probe exhausts is *unresolved*: not
 inserted, and the caller must treat it as fresh while surfacing the count
 (strict searches raise :class:`~dslabs_tpu_torch.tpu.engine.CapacityOverflow`).
@@ -219,20 +231,25 @@ def insert(table: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor
     keys = keys.contiguous()
     valid = valid.contiguous()
     dev = table.device
-    inserted = torch.empty((n,), dtype=torch.bool, device=dev)
-    unresolved = torch.empty((n,), dtype=torch.bool, device=dev)
+    flags = torch.empty((2, n), dtype=torch.bool, device=dev)
+    inserted, unresolved = flags[0], flags[1]
     if n == 0:
         return table, inserted, unresolved
     RT, T = _sizes(n)
-    bkt = torch.empty((n,), dtype=torch.int32, device=dev)
-    probe = torch.empty((n,), dtype=torch.int32, device=dev)
-    state = torch.empty((n,), dtype=torch.uint8, device=dev)
-    res = torch.full((RT,), -1, dtype=torch.int64, device=dev)
-    ctl = torch.zeros((2 + 2 * MAX_ITERS,), dtype=torch.int32, device=dev)
-    rc = _build.lib().dsl_visited_insert(
+    # Scratch, one allocation that the kernel initialises itself (no fill
+    # launches), in int32 words: reservation cells [RT] int64, probe
+    # words [n, 2], two round lists [2, n, 2], buckets by index [n],
+    # round counters [2 * MAX_ITERS].
+    scratch = torch.empty((2 * RT + 7 * n + 2 * MAX_ITERS,),
+                          dtype=torch.int32, device=dev)
+    res = scratch.data_ptr()
+    probe = res + 8 * RT
+    lists = probe + 8 * n
+    bkt = lists + 16 * n
+    ctl = bkt + 4 * n
+    rc = _build.lib().dsl_visited_insert_coop(
         table.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-        inserted.data_ptr(), unresolved.data_ptr(), bkt.data_ptr(),
-        probe.data_ptr(), state.data_ptr(), res.data_ptr(), ctl.data_ptr(),
+        flags.data_ptr(), flags.data_ptr() + n, bkt, probe, lists, res, ctl,
         n, V, RT, T, MAX_ITERS, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "visited.insert")
     LAUNCHES["insert"] += 1

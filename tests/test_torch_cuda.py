@@ -18,6 +18,8 @@ from dslabs_tpu_torch.tpu import kernels, visited  # noqa: E402
 from dslabs_tpu_torch.tpu.engine import TensorSearch  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.clientserver import \
     make_clientserver_protocol  # noqa: E402
+from tests.torch_insert_cases import (  # noqa: E402
+    crowded_case, many_rounds_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -48,18 +50,52 @@ def test_fingerprint_kernel_matches_plain(b, l):
     assert kernels.LAUNCHES["fingerprint_rows"] == n0 + 1
 
 
-@pytest.mark.parametrize("cap", [1 << 9, visited.BKT * 2])
-def test_insert_kernel_matches_plain(cap):
+def _empty_case(cap, n=300):
+    keys, valid = _key_batch(n)
+    return visited.empty_table(cap, "cuda"), keys, valid
+
+
+def _numpy_case(build):
+    table, keys, valid = build()
+    return (torch.from_numpy(table.view(np.int32)).cuda(),
+            torch.from_numpy(keys.view(np.int32)).cuda(),
+            torch.from_numpy(valid).cuda())
+
+
+def _one_key():
+    keys = torch.full((1, 4), -1, dtype=torch.int32, device="cuda")
+    return (visited.empty_table(1 << 9, "cuda"), keys,
+            torch.ones((1,), dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.parametrize("case,outcome", [
+    pytest.param(lambda: _empty_case(1 << 9), lambda i, u: not u.any(),
+                 id="512"),
+    pytest.param(lambda: _empty_case(visited.BKT * 2), lambda i, u: u.any(),
+                 id="16"),                                      # overflows
+    # More than T keys outlive the full phase; the tail cut decides.
+    pytest.param(lambda: _numpy_case(many_rounds_case),
+                 lambda i, u: int(u.sum()) > 256, id="many-rounds"),
+    pytest.param(lambda: _numpy_case(crowded_case),
+                 lambda i, u: int(u.sum()) > (1 << 15) // 8 and i.any(),
+                 id="crowded-2^16"),
+    pytest.param(_one_key, lambda i, u: bool(i.all()), id="n=1"),
+    # n a multiple of neither the block (512 threads) nor its 64 probes.
+    pytest.param(lambda: _empty_case(1 << 12, n=1001),
+                 lambda i, u: not u.any(), id="n=1001"),
+])
+def test_insert_kernel_matches_plain(case, outcome):
+    """The kernel against insert_plain on table rows [0, V), inserted and
+    unresolved, with exactly one launch per call."""
     _need_card()
-    keys, valid = _key_batch()
+    table, keys, valid = case()
     n0 = visited.LAUNCHES["insert"]
-    ta, ia, ua = visited.insert(visited.empty_table(cap, "cuda"), keys, valid)
-    tb, ib, ub = visited.insert_plain(visited.empty_table(cap, "cuda"), keys,
-                                      valid)
+    ta, ia, ua = visited.insert(table.clone(), keys, valid)
+    tb, ib, ub = visited.insert_plain(table.clone(), keys, valid)
     assert torch.equal(ta[:-1], tb[:-1])
     assert torch.equal(ia, ib) and torch.equal(ua, ub)
     assert visited.LAUNCHES["insert"] == n0 + 1
-    assert (int(ua.sum()) > 0) == (cap < 64)
+    assert outcome(ia, ua)
 
 
 def test_search_through_kernels_matches_plain_path():
