@@ -1,6 +1,6 @@
 """Crowded key batches for the visited-table insert, built with numpy
 from a seed and shared by the card tests (``tests/test_torch_cuda.py``)
-and ``chip_smoke.py``.  Each builder returns ``(table, keys, valid)``: a
+and ``chip_smoke.py``.  Each function returns ``(table, keys, valid)``: a
 ``[cap + 1, 4]`` uint32 table (trailing dump row EMPTY), ``[n, 4]``
 uint32 keys and ``[n]`` bool valid flags.  Both make more than T keys
 outlive the 64 full rounds, so the tail's cut to the lowest-index T
