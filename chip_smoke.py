@@ -26,12 +26,25 @@ visited table) once.  Each phase prints one JSON line:
   parity   TensorSearch(device="cuda").run() against pinned counts: lab1
            clientserver c3-w4 (1723 / 17292), the Paxos twin n3-c1-s2 to
            depth 6 (7540 / 26389), the flagship to depth 4 (713 / 2457),
-           the last also through the port's plain path on the CPU;
+           the last also through the port's plain path on the CPU; and the
+           lab2 primary-backup twin with runtime delivery masks that cut
+           the client off, through both loops on the card, against the
+           plain path on the CPU;
   profile  the flagship to depth 8 under torch.profiler: the device's busy
            share (summed kernel time over wall time), the ported kernels'
            device time, the insert's device launches beside its calls
            (must be equal: one launch per insert) and the top kernels by
            device time;
+  trace    the trace-recording host loop (record_trace=True, run_host):
+           the flagship to depth 8 twice between two device-loop runs to
+           the same depth, with equal counts, seconds, unique states/min,
+           peak device memory and the launches of each kernel during the
+           traced runs (the fingerprint's must be > 0; the host keeps the
+           visited set, so the insert's must be 0), then once more under
+           torch.profiler (busy share, top kernels); the Paxos twin's goal
+           search with its pinned trace, replayed by decode_trace to the
+           goal state; and the lab2 twin's goal search with a trace, equal
+           on the card and on the CPU;
   search   the main path at full size (strict, visited_cap 2^24,
            frontier_cap 2^20, chunk 4096, depth 10 or SEARCH_MAX_SECS):
            outcome, unique states/min, peak device memory, and the launch
@@ -309,8 +322,59 @@ def phase_parity(torch, mods):
     runs["flagship_d4_plain_cpu"] = key(o) + [time.time() - t]
     check(key(o) == ["DEPTH_EXHAUSTED", 713, 2457, 4],
           f"flagship plain-path parity: {key(o)}")
+    masked = masked_pb_protocol()
+    marr, tarr = pb_link_matrix()
+    for name, dev, kw in (
+            ("pb_masked_d6_device", "cuda", dict(chunk=4096)),
+            ("pb_masked_d6_host", "cuda",
+             dict(chunk=4096, use_host_visited=True)),
+            ("pb_masked_d6_plain_cpu", "cpu", dict(chunk=64))):
+        t = time.time()
+        ts = engine.TensorSearch(masked, max_depth=6, visited_cap=1 << 16,
+                                 device=dev, **kw)
+        ts.set_runtime_masks(marr, tarr)
+        o = ts.run()
+        runs[name] = key(o) + [time.time() - t]
+    t = time.time()
+    o = engine.TensorSearch(masked, max_depth=6, chunk=4096,
+                            visited_cap=1 << 16).run()
+    runs["pb_unmasked_d6"] = key(o) + [time.time() - t]
+    check(runs["pb_masked_d6_device"][:4] == runs["pb_masked_d6_host"][:4]
+          == runs["pb_masked_d6_plain_cpu"][:4]
+          == ["DEPTH_EXHAUSTED", 209, 874, 6]
+          and o.unique_states > 209,
+          f"masked lab2 parity: {runs}")
     emit({"phase": "parity", "runs": runs,
           "fields": ["end", "unique", "explored", "depth", "secs"]})
+
+
+def pb_link_matrix():
+    """Runtime masks of the lab2 twin (ViewServer, two servers, client 3):
+    a link matrix with every link to and from the client cut, and every
+    node's timers deliverable."""
+    import numpy as np
+
+    marr = np.ones((4, 4), bool)
+    marr[3, :] = False
+    marr[:, 3] = False
+    return marr.reshape(-1), np.ones(4, bool)
+
+
+def masked_pb_protocol():
+    """The lab2 twin (ns=2, 1 client, w=1) with runtime delivery masks
+    over [tag, frm, to, ...] records, batched over leading dimensions."""
+    from dslabs_tpu_torch.tpu.protocols.primarybackup import make_pb_protocol
+
+    def msg_mask(msg, marr):
+        k = msg[..., 1].clamp(0, 3) * 4 + msg[..., 2].clamp(0, 3)
+        return marr[k.long()]
+
+    def tmr_mask(node, tarr):
+        return tarr[node.long()]
+
+    return dataclasses.replace(make_pb_protocol(2, 1, 1), goals={},
+                               deliver_message_rt=msg_mask,
+                               deliver_timer_rt=tmr_mask)
 
 
 def flagship_protocol():
@@ -328,6 +392,36 @@ PORT_KERNELS = {
 }
 
 
+def dev_ms(e) -> float:
+    """Device milliseconds of one key_averages() entry."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def profiled_run(torch, ts):
+    """``ts.run()`` under torch.profiler -> (outcome, wall ms, CUDA kernel
+    entries of key_averages(), summed device ms).  Device activity only:
+    host-side op events would multiply the trace (about four per kernel)
+    and its processing time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        o = ts.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_ms = sum(dev_ms(e) for e in kern)
+    check(busy_ms > 0, "torch.profiler recorded no device time")
+    return o, wall_ms, kern, busy_ms
+
+
+def top_kernels(kern, n: int = 10):
+    return [[e.key[:80], e.count, dev_ms(e)]
+            for e in sorted(kern, key=dev_ms, reverse=True)[:n]]
+
+
 def phase_profile(torch, mods, depth: int):
     """The flagship search to ``depth`` under torch.profiler: the device's
     busy share (summed kernel time over wall time), the time of the two
@@ -338,29 +432,12 @@ def phase_profile(torch, mods, depth: int):
                              frontier_cap=1 << 20, chunk=4096,
                              max_depth=depth)
     warm = ts.run()                            # warm-up, unprofiled
-    # Device activity only: host-side op events would multiply the trace
-    # (about four per kernel) and its processing time.
-    torch.cuda.synchronize()
     calls0 = visited.LAUNCHES["insert"]
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        o = ts.run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    o, wall_ms, kern, busy_ms = profiled_run(torch, ts)
     insert_calls = visited.LAUNCHES["insert"] - calls0
     check((o.unique_states, o.states_explored, o.depth)
           == (warm.unique_states, warm.states_explored, warm.depth),
           f"profiled search differs from its warm-up: {o} vs {warm}")
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    busy_ms = sum(dev_ms(e) for e in kern)
-    check(busy_ms > 0, "torch.profiler recorded no device time")
     port_ms = {name: sum(dev_ms(e) for e in kern if pat.search(e.key))
                for name, pat in PORT_KERNELS.items()}
     check(all(v > 0 for v in port_ms.values()),
@@ -378,9 +455,106 @@ def phase_profile(torch, mods, depth: int):
           "insert_calls": insert_calls,
           "insert_device_launches": insert_launches,
           "device_launches": sum(e.count for e in kern),
-          "top_kernels": [[e.key[:80], e.count, dev_ms(e)]
-                          for e in sorted(kern, key=dev_ms,
-                                          reverse=True)[:10]]})
+          "top_kernels": top_kernels(kern)})
+
+
+def phase_trace(torch, mods, depth: int):
+    """The trace-recording host loop on the card: the flagship to
+    ``depth`` through run_host (twice) between two device-loop runs to the
+    same depth, then two goal searches whose traces are checked."""
+    engine, kernels, visited = mods["engine"], mods["kernels"], \
+        mods["visited"]
+    from dslabs_tpu_torch.tpu.protocols.paxos import make_paxos_protocol
+    from dslabs_tpu_torch.tpu.protocols.primarybackup import make_pb_protocol
+    from dslabs_tpu_torch.tpu.trace import decode_trace
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    def flagship_search(trace: bool):
+        return engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
+                                   frontier_cap=1 << 20, chunk=4096,
+                                   max_depth=depth, record_trace=trace)
+
+    def timed(trace: bool):
+        ts = flagship_search(trace)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES["fingerprint_rows"] = 0
+        visited.LAUNCHES["insert"] = 0
+        t0 = time.time()
+        o = ts.run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        return dict(
+            loop="host" if trace else "device", key=key(o), secs=secs,
+            unique_per_min=o.unique_states / secs * 60,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches={"fingerprint_rows": kernels.LAUNCHES["fingerprint_rows"],
+                      "insert": visited.LAUNCHES["insert"]})
+
+    flagship = [timed(False), timed(True), timed(True), timed(False)]
+    check(all(r["key"] == flagship[0]["key"] for r in flagship)
+          and flagship[0]["key"][0] == "DEPTH_EXHAUSTED",
+          f"flagship run_host and device loop differ: {flagship}")
+    for r in flagship:
+        want_insert = r["loop"] == "device"
+        check(r["launches"]["fingerprint_rows"] > 0
+              and (r["launches"]["insert"] > 0) == want_insert,
+              f"{r['loop']} loop launches: {r['launches']}")
+    # One more traced run under the profiler: where its time goes.
+    o, wall_ms, kern, busy_ms = profiled_run(torch, flagship_search(True))
+    check(key(o) == flagship[0]["key"], f"profiled run_host: {key(o)}")
+    host_profile = dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_busy_share=busy_ms / wall_ms,
+        device_launches=sum(e.count for e in kern),
+        fingerprint_ms=sum(dev_ms(e) for e in kern if
+                           PORT_KERNELS["fingerprint_rows"].search(e.key)),
+        top_kernels=top_kernels(kern, 6))
+
+    def replay_end(ts, o):
+        row = engine.flatten_state({k: torch.as_tensor(v).cuda() for k, v
+                                    in ts._trace_root.items()})[0]
+        for ev in o.trace:
+            row, valid, _ = ts._step_one(row, ev)
+            check(bool(valid), f"trace event {ev} undeliverable on replay")
+        return row.cpu()
+
+    def goal_row(o):
+        return engine.flatten_state({k: torch.as_tensor(v) for k, v in
+                                     o.goal_state.items()})[0]
+
+    goals = {}
+    t = time.time()
+    ts = engine.TensorSearch(make_paxos_protocol(
+        n=3, n_clients=1, max_slots=2, net_cap=48, timer_cap=6),
+        chunk=1024, max_depth=12, record_trace=True)
+    o = ts.run()
+    recs = decode_trace(ts, o)
+    goals["paxos_c1s2"] = key(o) + [o.trace, time.time() - t]
+    check(key(o) == ["GOAL_FOUND", 7540, 77101, 7]
+          and o.trace == [48, 3, 5, 0, 6, 8, 11] and len(recs) == 7
+          and torch.equal(replay_end(ts, o), goal_row(o)),
+          f"paxos goal trace: {goals['paxos_c1s2']}")
+    pb = {}
+    for dev in ("cuda", "cpu"):
+        t = time.time()
+        ts = engine.TensorSearch(make_pb_protocol(2, 1, 1), chunk=256,
+                                 max_depth=12, record_trace=True, device=dev)
+        o = ts.run()
+        pb[dev] = (o, [(r[0], r[1][-1].tolist()) for r in
+                       decode_trace(ts, o)])
+        goals[f"pb_s2c1_{dev}"] = key(o) + [o.trace, time.time() - t]
+    (oc, rc), (oh, rh) = pb["cuda"], pb["cpu"]
+    check(key(oc) == key(oh) == ["GOAL_FOUND", 299, 2887, 6]
+          and oc.trace == oh.trace == [0, 2, 3, 4, 5, 6] and rc == rh
+          and torch.equal(goal_row(oc), goal_row(oh)),
+          f"lab2 goal trace, card vs CPU: {goals}")
+    emit({"phase": "trace", "depth": depth, "flagship": flagship,
+          "host_profile": host_profile, "goals": goals,
+          "goal_fields": ["end", "unique", "explored", "depth", "trace",
+                          "secs"]})
 
 
 def phase_search(torch, mods, max_secs: float):
@@ -453,6 +627,7 @@ def main() -> int:
     kres = phase_kernels(torch, mods, gen)
     phase_parity(torch, mods)
     phase_profile(torch, mods, PROFILE_DEPTH)
+    phase_trace(torch, mods, PROFILE_DEPTH)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)
 
     replaces = {

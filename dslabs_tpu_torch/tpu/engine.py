@@ -9,6 +9,11 @@ runs this cycle on the device:
   visited-table probe/insert (visited.py) --> fresh rows appended to the
   next frontier (``index_copy_``)
 
+The trace-recording loop (``run_host``) expands on the device the same
+way, prefilters each chunk by an in-chunk sort-unique, and keeps the
+visited set, the level-wide dedup and the per-level (parent, event)
+record on the host, from which ``SearchOutcome.trace`` is rebuilt.
+
 Checker semantics are those of the reference engine: the network is a set
 of fixed-width message records kept in canonical sorted order, delivery
 never removes a message, timer queues keep insertion order under the
@@ -33,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +51,20 @@ from dslabs_tpu_torch.tpu.kernels import row_fingerprints
 
 __all__ = ["TensorProtocol", "TensorState", "TensorSearch", "SearchOutcome",
            "CapacityOverflow", "SENTINEL", "row_fingerprints",
-           "flatten_state", "host_keys", "resolve_device"]
+           "flatten_state", "host_keys", "resolve_device",
+           "drop_pending_messages", "sorted_member"]
 
 # Empty slots in the network / timer arrays hold SENTINEL in every lane, so
 # they sort after every real record and hash consistently.
 SENTINEL = 2 ** 31 - 1
+
+
+def drop_pending_messages(state: dict) -> dict:
+    """The staged-search ``dropPendingMessages`` analog: a copy of the
+    state with an empty network (timers survive, so retry timers re-drive
+    the protocol).  Takes tensors or numpy arrays."""
+    return {**state, "net": torch.full_like(torch.as_tensor(state["net"]),
+                                            SENTINEL)}
 
 
 class CapacityOverflow(RuntimeError):
@@ -87,9 +101,15 @@ class TensorProtocol:
     is its target node.  ``msg_dest(msg [P, MW]) -> [P]``; predicates take
     a batched state dict and return ``[N]`` bool.
 
-    A protocol that sets a field this slice does not port (runtime masks
-    ``deliver_*_rt``, packing ``lane_domains``, a ``fault`` model) makes
-    :class:`TensorSearch` raise."""
+    Runtime delivery masks take the same leading batch dimension and the
+    arrays installed by :meth:`TensorSearch.set_runtime_masks`, which are
+    tensors on the search's device: ``deliver_message_rt(msg [..., MW],
+    marr) -> bool [...]`` and ``deliver_timer_rt(node [...], tarr) ->
+    bool [...]``.  Like the reference, they gate the event tables only.
+
+    A protocol that sets a field this slice does not port (packing
+    ``lane_domains``, a ``fault`` model) makes :class:`TensorSearch`
+    raise."""
 
     name: str
     n_nodes: int
@@ -113,6 +133,7 @@ class TensorProtocol:
     # deliver_timer(node_idx [...]) -> bool [...]
     deliver_message: Optional[Callable] = None
     deliver_timer: Optional[Callable] = None
+    # runtime variants, fed the arrays of set_runtime_masks (see above)
     deliver_message_rt: Optional[Callable] = None
     deliver_timer_rt: Optional[Callable] = None
     # Max simultaneous valid send rows of one transition; sends are
@@ -137,6 +158,9 @@ class SearchOutcome:
     goal_state: Optional[dict] = None
     predicate_name: Optional[str] = None
     exception_code: int = 0
+    # Root-first grid event ids leading to the terminal state
+    # (record_trace runs; decoded by tpu/trace.py).
+    trace: Optional[list] = None
     # Keys whose probe exhausted (table effectively full), treated as
     # fresh.  Strict searches raise instead.
     visited_overflow: int = 0
@@ -174,6 +198,27 @@ def _keys_to_rows(visited: Tuple[np.ndarray, np.ndarray]) -> np.ndarray:
     rows[:, 2] = (h2 >> np.uint64(32)).astype(np.uint32)
     rows[:, 3] = (h2 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return rows
+
+
+def sorted_member(vh1: np.ndarray, vh2: np.ndarray,
+                  h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+    """Membership of query keys (h1, h2) in a visited set sorted by
+    (h1, h2).  Scans forward over the whole run of equal h1, so three or
+    more keys sharing an h1 cannot cause re-exploration."""
+    seen = np.zeros(len(h1), dtype=bool)
+    if not len(vh1):
+        return seen
+    pos = np.searchsorted(vh1, h1, side="left")
+    off = 0
+    while True:
+        q = pos + off
+        inb = q < len(vh1)
+        qc = np.where(inb, q, 0)
+        eq1 = inb & (vh1[qc] == h1)
+        if not eq1.any():
+            return seen
+        seen |= eq1 & (vh2[qc] == h2)
+        off += 1
 
 
 # ------------------------------------------------------------ net/timer ops
@@ -361,6 +406,24 @@ def append_timers(timers: torch.Tensor, new_timers: torch.Tensor
     return buf[:, :nn * cap].reshape(p, nn, cap, tw), dropped
 
 
+def _first_of_each_key(fp: torch.Tensor, valids: torch.Tensor
+                       ) -> torch.Tensor:
+    """The in-chunk sort-unique prefilter: True at the first (lowest-index)
+    occurrence of each 128-bit key ``fp`` [N, 4] among the valid rows.
+    Invalid rows sort last and are never unique.  The int32 lanes sort in
+    signed order where the reference sorts uint32, which changes the order
+    of the runs but not which rows share one; the sorts are stable, so a
+    run starts at its lowest row index as in ``jnp.lexsort``."""
+    inv = (~valids).to(torch.int32)
+    order = _lex_order([inv, fp[:, 0], fp[:, 1], fp[:, 2], fp[:, 3]])
+    fps = fp[order]
+    first = torch.ones_like(valids)
+    first[1:] = torch.any(fps[1:] != fps[:-1], dim=1)
+    unique = torch.zeros_like(valids)
+    unique[order] = first & valids[order]
+    return unique
+
+
 def _normalize_step(out, p: int, device) -> tuple:
     """Protocol step fns return a 3-tuple (no exception lane) or a 4-tuple
     with a trailing int32 exception code per pair."""
@@ -389,15 +452,17 @@ class TensorSearch:
     """Single-device BFS with the visited table and the frontier resident
     on ``device`` (the card unless the caller asks for another).
 
-    Ports the device-resident wave loop of the reference
-    (``run`` -> ``_run_device``).  Options of the reference engine that
-    this slice does not port raise ``NotImplementedError`` naming the
-    slice that brings them: ``record_trace`` / ``use_host_visited``
-    (run_host and traces), ``checkpoint_path`` / ``checkpoint_every`` /
-    ``spill`` (spill and checkpoint), ``telemetry`` (supervisor and
-    telemetry), ``packed=True`` or a protocol with ``lane_domains``
-    (spec compiler and packing), ``symmetry=True`` or a protocol with a
-    ``fault`` model (symmetry and faults), runtime masks."""
+    Ports both loops of the reference: the device-resident wave loop
+    (``_run_device``) and the trace-recording host-dedup loop
+    (``run_host``, taken when ``record_trace`` or ``use_host_visited`` is
+    set), with runtime delivery masks in both.  Options of the reference
+    engine that the port does not have yet raise ``NotImplementedError``
+    naming the slice that brings them: ``checkpoint_path`` /
+    ``checkpoint_every`` / ``spill`` / ``run(resume=True)`` (spill and
+    checkpoint), ``telemetry`` (supervisor and telemetry),
+    ``packed=True`` or a protocol with ``lane_domains`` (spec compiler
+    and packing), ``symmetry=True`` or a protocol with a ``fault`` model
+    (symmetry and faults)."""
 
     def __init__(self, protocol: TensorProtocol,
                  frontier_cap: int = 1 << 16,
@@ -417,13 +482,6 @@ class TensorSearch:
                  packed: Optional[bool] = None,
                  symmetry: Optional[bool] = None,
                  device=None):
-        if record_trace:
-            raise _later("record_trace", "run_host + traces")
-        if use_host_visited:
-            raise _later("use_host_visited (run_host)", "run_host + traces")
-        if not in_chunk_dedup:
-            raise _later("in_chunk_dedup=False (the prefilter only feeds "
-                         "run_host)", "run_host + traces")
         if checkpoint_path is not None or checkpoint_every:
             raise _later("checkpoint_path / checkpoint_every",
                          "spill + checkpoint")
@@ -438,19 +496,26 @@ class TensorSearch:
             raise _later("symmetry=True", "symmetry + faults")
         if protocol.fault is not None:
             raise _later("fault models", "symmetry + faults")
-        if (protocol.deliver_message_rt is not None
-                or protocol.deliver_timer_rt is not None):
-            raise _later("runtime delivery masks (deliver_*_rt)",
-                         "harness binding")
         self.p = protocol
         self.device = resolve_device(device)
         self.frontier_cap = frontier_cap
         self.chunk = chunk
         self.max_depth = max_depth
         self.max_secs = max_secs
+        self.record_trace = record_trace
         visited_mod.check_cap(visited_cap)
         self.visited_cap = visited_cap
         self.strict = strict
+        # use_host_visited forces the host loop (run_host) without traces.
+        self.use_host_visited = use_host_visited
+        # When False, _expand_chunk marks every valid successor unique and
+        # the caller dedups everything (the level-wide host dedup does).
+        self._in_chunk_dedup = in_chunk_dedup
+        # Per-run delivery masks (set_runtime_masks): None = not applied.
+        self._rt_masks = None
+        # Per-level (parent rows, event ids) record of run_host with
+        # record_trace, read by _reconstruct.
+        self._levels: List[dict] = []
         # Occupancy-compacted event enumeration: each state's valid events
         # packed into per-kind pair slots.  ev_budget None = full grid per
         # kind; int b caps message slots; (bm, bt) caps both.  A state
@@ -479,8 +544,12 @@ class TensorSearch:
                             + [f"goal:{n}" for n in protocol.goals])
 
     def set_runtime_masks(self, marr, tarr) -> None:
-        raise _later("runtime delivery masks (deliver_*_rt)",
-                     "harness binding")
+        """Install per-run delivery masks: ``marr`` / ``tarr`` (arrays or
+        tensors) are moved to the search's device and handed to the
+        protocol's ``deliver_message_rt`` / ``deliver_timer_rt`` by both
+        loops, so staged phases with different masks share one protocol."""
+        self._rt_masks = (torch.as_tensor(marr, device=self.device),
+                          torch.as_tensor(tarr, device=self.device))
 
     # -------------------------------------------------------------- states
 
@@ -523,6 +592,10 @@ class TensorSearch:
                 n, p.n_nodes, p.timer_cap, p.timer_width),
             "exc": rows[:, o2],
         }
+
+    def _slice_state(self, row) -> dict:
+        """[lanes] row -> ONE unbatched state dict (views)."""
+        return {k: v[0] for k, v in self.unflatten_rows(row[None]).items()}
 
     def _num_events(self) -> int:
         """Pair slots per state (the successor-row stride)."""
@@ -589,6 +662,26 @@ class TensorSearch:
         over = (net_over + send_over + t_over) * ok.to(torch.int32)
         return rows, over
 
+    def _step_one(self, row: torch.Tensor, event_idx):
+        """Expand ONE state row [lanes] by ONE grid event id (message slot
+        ``< net_cap``, else ``net_cap`` + timer grid index) -> (successor
+        row [lanes], valid, over): the batched handler halves and merge
+        tail at P = 1.  Trace replay (tpu/trace.py) steps with it."""
+        p = self.p
+        ev = int(event_idx)
+        tgrid = p.n_nodes * p.timer_cap
+        if not 0 <= ev < p.net_cap + tgrid:
+            raise ValueError(f"{p.name}: event id {ev} outside the "
+                             f"message + timer grid ({p.net_cap + tgrid})")
+        cs = self.unflatten_rows(row[None])
+        par = torch.zeros((1,), dtype=torch.int64, device=row.device)
+        if ev < p.net_cap:
+            raw = self._msg_step_raw(cs, par, par + ev)
+        else:
+            raw = self._tmr_step_raw(cs, par, par + (ev - p.net_cap))
+        rows, over = self._batched_tail(cs, par, *raw)
+        return rows[0], raw[4][0], over[0]
+
     @staticmethod
     def _compact_ids(valid_ev: torch.Tensor, budget: int, offset: int = 0):
         """[C, G] validity grid -> ([C, budget] indices into G, -1 = empty
@@ -611,11 +704,14 @@ class TensorSearch:
         return ids[:, :budget], remaining
 
     def _event_tables(self, chunk_rows: torch.Tensor,
-                      chunk_valid: torch.Tensor, ev_pass: int = 0):
+                      chunk_valid: torch.Tensor, ev_pass: int = 0,
+                      masks=None):
         """[C, lanes] chunk -> (msg_ids [C, Bm] net-slot indices, tmr_ids
         [C, Bt] timer grid indices, ev_remaining): each state's valid
         events (occupied network rows + deliverable timers, masked by the
-        protocol's deliver_* settings) packed into per-kind pair slots."""
+        protocol's deliver_* settings and, when ``masks`` = (marr, tarr)
+        is given, its deliver_*_rt masks) packed into per-kind pair
+        slots."""
         p = self.p
         c = chunk_valid.shape[0]
         cs = self.unflatten_rows(chunk_rows)
@@ -623,10 +719,18 @@ class TensorSearch:
         if p.deliver_message is not None:
             msg_ok = msg_ok & p.deliver_message(
                 cs["net"].reshape(-1, p.msg_width)).reshape(c, p.net_cap)
+        if p.deliver_message_rt is not None and masks is not None:
+            msg_ok = msg_ok & p.deliver_message_rt(
+                cs["net"].reshape(-1, p.msg_width),
+                masks[0]).reshape(c, p.net_cap)
         tmask = timer_deliverable_mask(cs["timers"])         # [C, NN, T]
         if p.deliver_timer is not None:
             dt = p.deliver_timer(torch.arange(p.n_nodes,
                                               device=chunk_rows.device))
+            tmask = tmask & dt[None, :, None]
+        if p.deliver_timer_rt is not None and masks is not None:
+            dt = p.deliver_timer_rt(torch.arange(
+                p.n_nodes, device=chunk_rows.device), masks[1])
             tmask = tmask & dt[None, :, None]
         msg_ids, m_rem = self._compact_ids(
             msg_ok & chunk_valid[:, None], self._ev_msg,
@@ -655,20 +759,23 @@ class TensorSearch:
 
     def _expand_chunk(self, chunk_rows: torch.Tensor,
                       chunk_valid: torch.Tensor, ev_pass: int = 0,
-                      dedup: bool = False):
+                      masks=None, dedup: Optional[bool] = None):
         """[C, lanes] chunk rows -> (rows [C*B, lanes], valids [C*B],
         fp [C*B, 4] int32 keys, unique [C*B], overflow scalar,
         ev_remaining scalar, event_ids [C, B], flags dict), all on the
         chunk's device with no host sync.  B = Bm + Bt, message slots
-        first per state (successor row = chunk_row * B + slot)."""
-        if dedup:
-            raise _later("the in-chunk sort-unique prefilter (dedup=True)",
-                         "run_host + traces")
+        first per state (successor row = chunk_row * B + slot).
+
+        ``masks`` are the runtime delivery masks (see
+        :meth:`set_runtime_masks`).  ``dedup`` (default: the
+        constructor's ``in_chunk_dedup``) marks only the first occurrence
+        of each key among the valid rows unique; without it every valid
+        row is."""
         p = self.p
         c = chunk_valid.shape[0]
         bm, bt = self._ev_msg, self._ev_tmr
-        msg_ids, tmr_ids, ev_rem = self._event_tables(chunk_rows,
-                                                      chunk_valid, ev_pass)
+        msg_ids, tmr_ids, ev_rem = self._event_tables(
+            chunk_rows, chunk_valid, ev_pass, masks)
         cs = self.unflatten_rows(chunk_rows)
         rows_m, val_m, over_m = self._expand_kind(cs, msg_ids,
                                                   self._msg_step_raw)
@@ -690,9 +797,12 @@ class TensorSearch:
         overflow = (overs * valids.to(torch.int32)).sum()
         # Kernel 1 on CUDA rows, its plain version on CPU rows.
         fp = kernels.fingerprint_rows(rows)
-        # The visited table is the dedup authority: it resolves in-batch
-        # duplicates itself, so every valid successor goes to it.
-        unique = valids
+        if self._in_chunk_dedup if dedup is None else dedup:
+            unique = _first_of_each_key(fp, valids)
+        else:
+            # The caller dedups every valid successor (the device table
+            # resolves in-batch duplicates itself).
+            unique = valids
         flags = {}
         succ = self.unflatten_rows(rows)
         for kind, preds in (("inv", p.invariants), ("goal", p.goals),
@@ -733,10 +843,235 @@ class TensorSearch:
         """Run the BFS.  ``initial`` (a batch-1 state dict, for example
         ``interop.state_from_numpy`` of a prior outcome's ``goal_state``)
         starts the search from that state instead of the protocol's
-        initial state."""
+        initial state.
+
+        Dispatch: the device-resident wave loop (:meth:`_run_device`)
+        unless ``record_trace`` or ``use_host_visited`` ask for the host
+        loop (:meth:`run_host`)."""
         if resume:
             raise _later("resume (checkpoints)", "spill + checkpoint")
+        if self.record_trace or self.use_host_visited:
+            return self.run_host(check_initial, initial)
         return self._run_device(check_initial, initial)
+
+    def _initial_or(self, initial: Optional[dict]) -> dict:
+        """The batch-1 start state on the search's device: ``initial``
+        (tensors or arrays) or the protocol's initial state."""
+        if initial is None:
+            return self.initial_state()
+        return {k: torch.as_tensor(v).to(device=self.device,
+                                          dtype=torch.int32)
+                for k, v in initial.items()}
+
+    # ------------------------------------------------------------ host loop
+
+    def _terminal_outcome(self, rows: torch.Tensor, np_valids: np.ndarray,
+                          np_exc: np.ndarray, flags: dict, explored: int,
+                          visited_n: int, depth: int, t0: float,
+                          level_base_row: int = 0
+                          ) -> Optional[SearchOutcome]:
+        """checkState order over one chunk's successors: exception, then
+        invariants, then goals.  Returns a SearchOutcome (with the trace
+        when recording) or None."""
+
+        def found(idx, end, **kw):
+            return SearchOutcome(
+                end, explored, visited_n, depth, time.time() - t0,
+                trace=self._reconstruct(level_base_row + idx), **kw)
+
+        def state(idx):
+            return self._host_state(rows[idx:idx + 1].cpu().numpy())
+
+        exc_hit = np_valids & (np_exc != 0)
+        if exc_hit.any():
+            idx = int(np.nonzero(exc_hit)[0][0])
+            return found(idx, "EXCEPTION_THROWN", violating_state=state(idx),
+                         exception_code=int(np_exc[idx]))
+        for kind in ("inv", "goal"):
+            for name, f in flags.items():
+                if not name.startswith(kind + ":"):
+                    continue
+                fa = f.cpu().numpy()
+                pname = name.split(":", 1)[1]
+                if kind == "inv" and not fa[np_valids].all():
+                    idx = int(np.nonzero(np_valids & ~fa)[0][0])
+                    return found(idx, "INVARIANT_VIOLATED",
+                                 violating_state=state(idx),
+                                 predicate_name=pname)
+                if kind == "goal" and fa[np_valids].any():
+                    idx = int(np.nonzero(np_valids & fa)[0][0])
+                    return found(idx, "GOAL_FOUND", goal_state=state(idx),
+                                 predicate_name=pname)
+        return None
+
+    def _reconstruct(self, row: int) -> Optional[list]:
+        """Walk the per-level (parent, event) record back from a successor
+        row of the current level to the root -> [grid event ids], root
+        first."""
+        if not self.record_trace or not self._levels:
+            return None
+        ne = self._num_events()
+        events = []
+        for lvl in reversed(self._levels):
+            parent_chunk_row = row // ne
+            if isinstance(lvl["event_ids"], list):
+                lvl["event_ids"] = np.concatenate(lvl["event_ids"], axis=0)
+            # The pair slot is a compacted rank; the level's event table
+            # maps it back to the grid event id.
+            events.append(int(lvl["event_ids"][parent_chunk_row, row % ne]))
+            # Back through the previous level's kept-state compaction.
+            row = int(lvl["parent_rows"][parent_chunk_row])
+        events.reverse()
+        return events
+
+    def run_host(self, check_initial: bool = True,
+                 initial: Optional[dict] = None) -> SearchOutcome:
+        """The host-dedup BFS: device expand with the in-chunk sort-unique
+        prefilter, then one level-wide dedup against a sorted host visited
+        set (``sorted_member``).  The trace-recording path: per-level
+        (parent row, event id) records stay on the host.  Same contract
+        as :meth:`run`.
+
+        One deliberate difference from the reference, which copies every
+        successor row of a chunk to the host and then indexes it: here
+        the rows the prefilter keeps are gathered on the device and only
+        they are copied (the same rows, a fraction of the bytes)."""
+        t0 = time.time()
+        dev = self.device
+        state = self._initial_or(initial)
+        # The root this run's trace event ids are relative to (a staged
+        # search starts from an arbitrary state; tpu/trace.py replays
+        # from here).
+        self._trace_root = {k: v.cpu().numpy() for k, v in state.items()}
+        self._levels = []
+        frontier = flatten_state(state)                  # [1, lanes] rows
+        visited = host_keys(kernels.fingerprint_rows(frontier).cpu().numpy())
+        # The exact visited set, sorted by (h1, h2); tests compare it.
+        self._host_visited = visited
+        explored = 0
+        depth = 0
+        if check_initial:
+            out = self._check_initial(state, t0)
+            if out is not None:
+                return out
+        # parent_rows[i] = the successor row (in the previous level's
+        # enumeration) that produced frontier state i; -1 at the root.
+        parent_rows = np.array([-1], dtype=np.int64)
+        frontier_n = 1
+        ne = self._num_events()
+        C = self.chunk
+        # Every level either returns or leaves a non-empty frontier.
+        while True:
+            if self.max_depth is not None and depth >= self.max_depth:
+                return SearchOutcome("DEPTH_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+            if (self.max_secs is not None
+                    and time.time() - t0 > self.max_secs):
+                return SearchOutcome("TIME_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+            depth += 1
+            if self.record_trace:
+                self._levels.append({"parent_rows": parent_rows,
+                                     "event_ids": []})
+            # ---- expand every chunk (device), gather the kept rows
+            lvl_states: List[np.ndarray] = []
+            lvl_keys: List[Tuple[np.ndarray, np.ndarray]] = []
+            lvl_pruned: List[np.ndarray] = []
+            lvl_rows: List[np.ndarray] = []
+            for start in range(0, frontier_n, C):
+                c = min(start + C, frontier_n) - start
+                pad = C - c
+                chunk_rows = frontier[start:start + c]
+                if pad:
+                    chunk_rows = torch.cat(
+                        [chunk_rows, frontier[:1].expand(pad, -1)])
+                chunk_valid = torch.arange(C, device=dev) < c
+                (rows, valids, fp, unique, overflow, ev_rem, event_ids,
+                 flags) = self._expand_chunk(chunk_rows, chunk_valid, 0,
+                                             self._rt_masks)
+                n_over, n_rem = (int(x) for x in
+                                 torch.stack([overflow, ev_rem]).cpu())
+                if n_over:
+                    raise CapacityOverflow(
+                        f"{self.p.name}: net_cap={self.p.net_cap}, "
+                        f"timer_cap={self.p.timer_cap}, or max_live_sends="
+                        f"{self.p.max_live_sends} overflowed at depth "
+                        f"{depth} ({n_over} drops); raise the caps")
+                if n_rem:
+                    raise CapacityOverflow(
+                        f"{self.p.name}: ev_budget={self._ev_slots} < "
+                        f"valid events of some state at depth {depth} "
+                        f"({n_rem} skipped); raise the budget")
+                if self.record_trace:
+                    self._levels[-1]["event_ids"].append(
+                        event_ids.cpu().numpy())
+                np_valids = valids.cpu().numpy()
+                explored += int(np_valids.sum())
+                out = self._terminal_outcome(
+                    rows, np_valids, rows[:, -1].cpu().numpy(), flags,
+                    explored, len(visited[0]), depth, t0,
+                    level_base_row=start * ne)
+                if out is not None:
+                    return out
+                pruned = torch.zeros_like(valids)
+                for name, f in flags.items():
+                    if name.startswith("prune:"):
+                        pruned = pruned | f
+                idx_dev = torch.nonzero(unique).squeeze(1)
+                if idx_dev.numel():
+                    h1, h2 = host_keys(fp[idx_dev].cpu().numpy())
+                    lvl_keys.append((h1, h2))
+                    lvl_pruned.append(pruned[idx_dev].cpu().numpy())
+                    lvl_rows.append(idx_dev.cpu().numpy() + start * ne)
+                    lvl_states.append(rows[idx_dev].cpu().numpy())
+            if not lvl_keys:
+                return SearchOutcome("SPACE_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+
+            # ---- one level-wide dedup (sort-unique + visited membership)
+            h1 = np.concatenate([k[0] for k in lvl_keys])
+            h2 = np.concatenate([k[1] for k in lvl_keys])
+            pruned = np.concatenate(lvl_pruned)
+            rows_np = np.concatenate(lvl_rows)
+            order = np.lexsort((h2, h1))
+            h1s, h2s = h1[order], h2[order]
+            first = np.ones(len(order), dtype=bool)
+            first[1:] = (h1s[1:] != h1s[:-1]) | (h2s[1:] != h2s[:-1])
+            unique_mask = np.zeros(len(order), dtype=bool)
+            unique_mask[order] = first
+            fresh = unique_mask & ~sorted_member(visited[0], visited[1],
+                                                 h1, h2)
+            # ---- merge visited (stays sorted by (h1, h2))
+            if fresh.any():
+                nk = np.nonzero(fresh)[0]
+                no = np.lexsort((h2[nk], h1[nk]))
+                mh1 = np.concatenate([visited[0], h1[nk][no]])
+                mh2 = np.concatenate([visited[1], h2[nk][no]])
+                mo = np.lexsort((mh2, mh1))
+                visited = (mh1[mo], mh2[mo])
+                self._host_visited = visited
+            expand = fresh & ~pruned
+            if not expand.any():
+                return SearchOutcome("SPACE_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+            keep_idx = np.nonzero(expand)[0]
+            parent_rows = rows_np[keep_idx]
+            frontier_n = len(keep_idx)
+            if frontier_n > self.frontier_cap:
+                return SearchOutcome("CAPACITY_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+            # The next frontier: each chunk's selected rows, in order
+            # (keep_idx is ascending over the chunks' concatenation).
+            ends = np.cumsum([len(s) for s in lvl_states])
+            parts = np.split(keep_idx, np.searchsorted(keep_idx, ends[:-1]))
+            frontier = torch.cat([
+                torch.from_numpy(s[k - (e - len(s))]).to(dev)
+                for s, k, e in zip(lvl_states, parts, ends) if len(k)])
 
     def _build_dev_step(self, cap: int):
         """One wave step over frontier chunk ``j``: expand -> visited-table
@@ -754,7 +1089,7 @@ class TensorSearch:
             valid = (start + torch.arange(C, device=dev)) < carry["cur_n"]
             (rows, valids, fp, unique, overflow, ev_rem, _event_ids,
              flags) = self._expand_chunk(rows_chunk, valid, ev_pass,
-                                         dedup=False)
+                                         self._rt_masks, dedup=False)
             # ---- terminal flags, checkState order (exception first);
             # the first-hit successor row is kept per flag.
             hit_list = [valids & (rows[:, -1] != 0)]
@@ -891,12 +1226,7 @@ class TensorSearch:
         to ``frontier_cap``; overflowing at the cap is
         CAPACITY_EXHAUSTED."""
         t0 = time.time()
-        if initial is not None:
-            state = {k: torch.as_tensor(v).to(device=self.device,
-                                              dtype=torch.int32)
-                     for k, v in initial.items()}
-        else:
-            state = self.initial_state()
+        state = self._initial_or(initial)
         if check_initial:
             out = self._check_initial(state, t0)
             if out is not None:

@@ -13,11 +13,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several workers on a few cores, and
+# torch's default of one thread per core oversubscribes them, which slows
+# the other workers' time-limited searches past their limits.
+torch.set_num_threads(1)
 
 from dslabs_tpu_torch.tpu import kernels, visited  # noqa: E402
 from dslabs_tpu_torch.tpu.engine import TensorSearch  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.clientserver import \
     make_clientserver_protocol  # noqa: E402
+from dslabs_tpu_torch.tpu.trace import decode_trace  # noqa: E402
 from tests.torch_insert_cases import (  # noqa: E402
     crowded_case, many_rounds_case)
 
@@ -111,3 +116,37 @@ def test_search_through_kernels_matches_plain_path():
     for out in (card, plain):
         assert (out.end_condition, out.unique_states, out.states_explored,
                 out.depth) == key
+
+
+@pytest.mark.parametrize("kw", [
+    dict(record_trace=True),                     # goal search with trace
+    dict(use_host_visited=True, max_depth=6),    # before the goal (depth 8)
+], ids=["trace", "host_visited"])
+def test_run_host_on_card_matches_cpu_path(kw):
+    """run_host through the fingerprint kernel equals the plain path on
+    the CPU: counts, the visited set, the trace and its decoded records;
+    the host keeps the visited set, so the insert kernel never runs."""
+    _need_card()
+    p = make_clientserver_protocol(2, 2)
+    n0 = (kernels.LAUNCHES["fingerprint_rows"], visited.LAUNCHES["insert"])
+    card_ts = TensorSearch(p, chunk=64, **kw)
+    card = card_ts.run()
+    assert kernels.LAUNCHES["fingerprint_rows"] > n0[0]
+    assert visited.LAUNCHES["insert"] == n0[1]
+    cpu_ts = TensorSearch(p, chunk=64, device="cpu", **kw)
+    cpu = cpu_ts.run()
+    assert (card.end_condition, card.unique_states, card.states_explored,
+            card.depth, card.trace) == (cpu.end_condition, cpu.unique_states,
+                                        cpu.states_explored, cpu.depth,
+                                        cpu.trace)
+    for a, b in zip(card_ts._host_visited, cpu_ts._host_visited):
+        np.testing.assert_array_equal(a, b)
+    if card.trace is not None:
+        assert card.end_condition == "GOAL_FOUND"
+        for k in cpu.goal_state:
+            np.testing.assert_array_equal(card.goal_state[k],
+                                          cpu.goal_state[k])
+        for (ka, pa), (kb, pb) in zip(decode_trace(card_ts, card),
+                                      decode_trace(cpu_ts, cpu)):
+            assert ka == kb
+            np.testing.assert_array_equal(pa[-1], pb[-1])

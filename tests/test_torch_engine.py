@@ -16,6 +16,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several workers on a few cores, and
+# torch's default of one thread per core oversubscribes them, which slows
+# the other workers' time-limited searches past their limits.
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from dslabs_tpu.tpu import engine as jeng  # noqa: E402
@@ -184,10 +188,12 @@ def test_initial_state_and_layout_match_jax(make_j, make_t, kw):
 # ------------------------------------------------------------ chunk expand
 
 def _frontiers(js, chunk, levels):
-    """[(chunk_rows, chunk_valid, jax outputs)] for the root and the next
-    ``levels`` BFS frontiers, each expanded by ONE compiled JAX program;
-    frontiers are deduplicated on the host by fingerprint."""
+    """[(chunk_rows, chunk_valid, jax outputs, jax dedup=True unique)] for
+    the root and the next ``levels`` BFS frontiers, each expanded by ONE
+    compiled JAX program (and the in-chunk prefilter's unique mask by a
+    second); frontiers are deduplicated on the host by fingerprint."""
     expand = jax.jit(functools.partial(js._expand_chunk, dedup=False))
+    expand_dedup = jax.jit(functools.partial(js._expand_chunk, dedup=True))
     lanes = js.lanes
     root = np.asarray(jeng.flatten_state(js.initial_state()))
     seen = {np.asarray(jeng.row_fingerprints(jnp.asarray(root)))[0]
@@ -201,7 +207,9 @@ def _frontiers(js, chunk, levels):
         valid = np.arange(chunk) < len(frontier)
         res = jax.tree.map(np.asarray,
                            expand(jnp.asarray(rows), jnp.asarray(valid)))
-        out.append((rows, valid, res))
+        uniq = np.asarray(expand_dedup(jnp.asarray(rows),
+                                       jnp.asarray(valid))[3])
+        out.append((rows, valid, res, uniq))
         succ, vals, fp = res[0], res[1], res[2]
         nxt = []
         for i in np.nonzero(vals)[0]:
@@ -229,7 +237,7 @@ def test_expand_chunk_matches_jax(expand_case, level):
     """Root and depth-1/2 frontiers: rows, valids, fingerprints, event ids
     and predicate flags all equal, invalid pair slots included."""
     ts, cases = expand_case
-    rows, valid, ref = cases[level]
+    rows, valid, ref = cases[level][:3]
     out = ts._expand_chunk(_t(rows), _t(valid), dedup=False)
     (rows_j, val_j, fp_j, uniq_j, over_j, rem_j, ev_j, flags_j) = ref
     rows_t, val_t, fp_t, uniq_t, over_t, rem_t, ev_t, flags_t = out
@@ -266,8 +274,27 @@ def test_expand_chunk_windowed_budget():
     assert ev_pass > 0 and keys == keys_ref
 
 
-def test_dedup_prefilter_is_not_ported():
-    ts = teng.TensorSearch(t_pp(2), device="cpu")
-    rows = teng.flatten_state(ts.initial_state())
-    with pytest.raises(NotImplementedError, match="run_host"):
-        ts._expand_chunk(rows, torch.tensor([True]), dedup=True)
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_dedup_prefilter_matches_jax(expand_case, level):
+    """The in-chunk sort-unique prefilter (dedup=True): the port's unique
+    mask equals the JAX engine's, with in-chunk duplicates present from
+    depth 1 on; in_chunk_dedup=True makes it the default."""
+    ts, cases = expand_case
+    rows, valid, ref, uniq_j = cases[level]
+    uniq_t = ts._expand_chunk(_t(rows), _t(valid), dedup=True)[3]
+    _eq(uniq_j, uniq_t)
+    _eq(uniq_j, ts._expand_chunk(_t(rows), _t(valid))[3])
+    assert uniq_t.any()
+    if level:
+        assert (uniq_j != ref[1]).any()         # duplicates were dropped
+
+
+def test_dedup_prefilter_keeps_lowest_index():
+    """Equal keys keep their lowest valid row; invalid rows and keys whose
+    int32 lanes are negative (uint32 >= 2^31) sort like any other."""
+    fp = torch.tensor([[-1, 5, 0, 0], [3, 3, 3, 3], [-1, 5, 0, 0],
+                       [3, 3, 3, 3], [7, -8, 9, -10], [-1, 5, 0, 0]],
+                      dtype=torch.int32)
+    valids = torch.tensor([False, True, True, True, True, True])
+    out = teng._first_of_each_key(fp, valids)
+    assert out.tolist() == [False, True, True, False, True, False]

@@ -14,6 +14,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several workers on a few cores, and
+# torch's default of one thread per core oversubscribes them, which slows
+# the other workers' time-limited searches past their limits.
+torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from dslabs_tpu.tpu import engine as jeng  # noqa: E402

@@ -20,6 +20,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs several workers on a few cores, and
+# torch's default of one thread per core oversubscribes them, which slows
+# the other workers' time-limited searches past their limits.
+torch.set_num_threads(1)
 
 from dslabs_tpu.tpu import engine as jeng  # noqa: E402
 from dslabs_tpu.tpu.protocols.clientserver import \
@@ -198,9 +202,6 @@ def test_helpers_default_to_the_card(make):
 
 
 @pytest.mark.parametrize("kw,proto", [
-    (dict(record_trace=True), None),
-    (dict(use_host_visited=True), None),
-    (dict(in_chunk_dedup=False), None),
     (dict(checkpoint_path="ck.npz"), None),
     (dict(checkpoint_every=2), None),
     (dict(spill=True), None),
@@ -209,7 +210,6 @@ def test_helpers_default_to_the_card(make):
     (dict(symmetry=True), None),
     ({}, dict(lane_domains={"nodes": []})),
     ({}, dict(fault=object())),
-    ({}, dict(deliver_message_rt=lambda m, a: m[:, 0] >= 0)),
 ])
 def test_unported_options_raise(kw, proto):
     p = t_pp(2) if proto is None else dataclasses.replace(t_pp(2), **proto)
@@ -221,8 +221,6 @@ def test_unported_run_options_raise():
     ts = _port(t_pp(2))
     with pytest.raises(NotImplementedError):
         ts.run(resume=True)
-    with pytest.raises(NotImplementedError):
-        ts.set_runtime_masks(None, None)
 
 
 def _import_roots(path):
@@ -241,6 +239,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "dslabs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10 and files[-1].exists()
+    for name in ("tpu/trace.py", "tpu/protocols/primarybackup.py"):
+        assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):
             root = mod.split(".")[0]
