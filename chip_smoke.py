@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the hand-written CUDA kernels from ``dslabs_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, reproduces the
 reference's pinned search counts through the kernels, and drives the main
-path (the device-resident BFS of the flagship Paxos twin with a 2^24-slot
-visited table) once.  Each phase prints one JSON line:
+path (the device-resident BFS of the flagship: the lab3 multi-Paxos twin
+compiled from its spec, ``specs_lab3.make_paxos_protocol`` at bench.py's
+configuration, with bit-packed frontier rows and a 2^24-slot visited
+table) once.  Each phase prints one JSON line:
 
   device   the card (torch.cuda.get_device_name) and nvidia-smi's name and
            power limit;
@@ -24,17 +26,30 @@ visited table) once.  Each phase prints one JSON line:
            calls issued back to back (pipelined_ms), where the wrapper's
            host work overlaps the device;
   parity   TensorSearch(device="cuda").run() against pinned counts: lab1
-           clientserver c3-w4 (1723 / 17292), the Paxos twin n3-c1-s2 to
-           depth 6 (7540 / 26389), the flagship to depth 4 (713 / 2457),
-           the last also through the port's plain path on the CPU; and the
-           lab2 primary-backup twin with runtime delivery masks that cut
-           the client off, through both loops on the card, against the
-           plain path on the CPU;
-  profile  the flagship to depth 8 under torch.profiler: the device's busy
-           share (summed kernel time over wall time), the ported kernels'
-           device time, the insert's device launches beside its calls
-           (must be equal: one launch per insert) and the top kernels by
-           device time;
+           clientserver c3-w4 (1723 / 17292), the Paxos hand twin n3-c1-s2
+           to depth 6 (7540 / 26389), the flagship's hand twin to depth 4
+           (713 / 2457); and the lab2 primary-backup twin with runtime
+           delivery masks that cut the client off, through both loops on
+           the card, against the plain path on the CPU;
+  compiled the spec compiler and packed rows: the compiled flagship's
+           shape (842 lanes, 217 packed words, 868 bytes per state), the
+           generated twins' pinned counts on the card (Paxos n3-c1-s2
+           6 / 25 / 102, plain single-decree Paxos exhausted at 1548 / 202
+           / 11, generated pingpong and clientserver equal to their hand
+           twins, the compiled flagship to depth 4 713 / 2457 also on the
+           CPU), then the compiled flagship to depth 8 packed and unpacked
+           in turns beside the hand twin, with equal counts: seconds,
+           unique states/min, peak device memory, chunk steps and the
+           launches of each kernel per run; and the device time and
+           launches of one unpack call (a 4096-row chunk) and one pack
+           call (the rows one chunk step appends on average) by CUDA
+           events and under torch.profiler;
+  profile  the compiled flagship (packed) and the hand twin to depth 8
+           under torch.profiler: the device's busy share (summed kernel
+           time over wall time), device launches per chunk step, the
+           ported kernels' device time, the insert's device launches
+           beside its calls (must be equal: one launch per insert) and the
+           top kernels by device time;
   trace    the trace-recording host loop (record_trace=True, run_host):
            the flagship to depth 8 twice between two device-loop runs to
            the same depth, with equal counts, seconds, unique states/min,
@@ -45,10 +60,11 @@ visited table) once.  Each phase prints one JSON line:
            search with its pinned trace, replayed by decode_trace to the
            goal state; and the lab2 twin's goal search with a trace, equal
            on the card and on the CPU;
-  search   the main path at full size (strict, visited_cap 2^24,
-           frontier_cap 2^20, chunk 4096, depth 10 or SEARCH_MAX_SECS):
-           outcome, unique states/min, peak device memory, and the launch
-           count of each kernel during that run (each must be > 0).
+  search   the main path at full size: the compiled flagship, packed
+           (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
+           10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
+           memory, bytes per state, chunk steps, and the launch count of
+           each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers, the
 card's name and power limit as nvidia-smi prints them, and last
@@ -92,6 +108,9 @@ SEARCH_MAX_SECS = 240.0
 # Depth of the profiled flagship search: deep enough that most chunks are
 # full (4096 states).
 PROFILE_DEPTH = 8
+# bench.py's flagship configuration.
+FLAGSHIP_KW = dict(n=3, n_clients=2, w=1, max_slots=3, net_cap=64,
+                   timer_cap=6)
 
 
 def emit(obj) -> None:
@@ -309,19 +328,12 @@ def phase_parity(torch, mods):
     runs["paxos_c1s2_d6"] = key(o) + [time.time() - t]
     check(key(o) == ["DEPTH_EXHAUSTED", 7540, 26389, 6],
           f"paxos parity: {key(o)}")
-    fl = flagship_protocol()
     t = time.time()
-    o = engine.TensorSearch(fl, max_depth=4, chunk=4096,
-                            visited_cap=1 << 20).run()
-    runs["flagship_d4"] = key(o) + [time.time() - t]
+    o = engine.TensorSearch(hand_flagship_protocol(), max_depth=4,
+                            chunk=4096, visited_cap=1 << 20).run()
+    runs["hand_flagship_d4"] = key(o) + [time.time() - t]
     check(key(o) == ["DEPTH_EXHAUSTED", 713, 2457, 4],
-          f"flagship parity: {key(o)}")
-    t = time.time()
-    o = engine.TensorSearch(fl, max_depth=4, chunk=256, visited_cap=1 << 14,
-                            device="cpu").run()
-    runs["flagship_d4_plain_cpu"] = key(o) + [time.time() - t]
-    check(key(o) == ["DEPTH_EXHAUSTED", 713, 2457, 4],
-          f"flagship plain-path parity: {key(o)}")
+          f"hand flagship parity: {key(o)}")
     masked = masked_pb_protocol()
     marr, tarr = pb_link_matrix()
     for name, dev, kw in (
@@ -378,11 +390,168 @@ def masked_pb_protocol():
 
 
 def flagship_protocol():
+    """The main path's twin: bench.py's flagship compiled from its spec
+    (specs_lab3), goals stripped."""
+    from dslabs_tpu_torch.tpu.specs_lab3 import make_paxos_protocol
+
+    return dataclasses.replace(make_paxos_protocol(**FLAGSHIP_KW), goals={})
+
+
+def hand_flagship_protocol():
+    """The same configuration through the hand-written twin."""
     from dslabs_tpu_torch.tpu.protocols.paxos import make_paxos_protocol
 
-    return dataclasses.replace(make_paxos_protocol(
-        n=3, n_clients=2, w=1, max_slots=3, net_cap=64, timer_cap=6),
-        goals={})
+    return dataclasses.replace(make_paxos_protocol(**FLAGSHIP_KW), goals={})
+
+
+def timed_search(torch, mods, ts):
+    """``ts.run()`` with every kernel count set to 0 just before and read
+    just after -> (outcome, record of its key, seconds, unique/min, peak
+    device memory, bytes per state, chunk steps and the launches of each
+    kernel)."""
+    kernels, visited = mods["kernels"], mods["visited"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.LAUNCHES["fingerprint_rows"] = 0
+    visited.LAUNCHES["insert"] = 0
+    steps0 = ts.chunk_steps
+    t0 = time.time()
+    o = ts.run()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {"fingerprint_rows": kernels.LAUNCHES["fingerprint_rows"],
+                "insert": visited.LAUNCHES["insert"]}
+    return o, dict(key=[o.end_condition, o.unique_states,
+                        o.states_explored, o.depth],
+                   secs=secs, unique_per_min=o.unique_states / secs * 60,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   bytes_per_state=o.bytes_per_state,
+                   chunk_steps=ts.chunk_steps - steps0, launches=launches)
+
+
+def profiled_call(torch, fn):
+    """One ``fn()`` under torch.profiler (device activity) -> (device ms,
+    device launches)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(dev_ms(e) for e in kern), sum(e.count for e in kern)
+
+
+def phase_compiled(torch, mods, depth: int):
+    """The spec compiler and packed rows on the card: the compiled
+    flagship's shape, the generated twins' pinned counts, the compiled
+    flagship to ``depth`` packed and unpacked in turns beside the hand
+    twin, and the device time of pack and unpack at the path's shapes."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu import specs
+    from dslabs_tpu_torch.tpu.protocols.clientserver import \
+        make_clientserver_protocol
+    from dslabs_tpu_torch.tpu.protocols.pingpong import \
+        make_pingpong_protocol
+    from dslabs_tpu_torch.tpu.specs_lab3 import make_paxos_protocol
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    def pruned(p):
+        return dataclasses.replace(p, goals={}, prunes=dict(p.goals))
+
+    fl = flagship_protocol()
+    ts = engine.TensorSearch(fl, visited_cap=1 << 20, chunk=4096)
+    pk = ts._pk
+    shape = dict(lanes=ts.lanes, plane=ts.plane, node_width=fl.node_width,
+                 bytes_per_state=pk.bytes_per_state,
+                 bytes_per_state_unpacked=ts.lanes * 4,
+                 signature=pk.signature())
+    check((ts.lanes, ts.plane, pk.bytes_per_state) == (842, 217, 868),
+          f"compiled flagship shape: {shape}")
+
+    counts = {}
+    t = time.time()
+    gp = dataclasses.replace(make_paxos_protocol(), goals={})
+    got = [engine.TensorSearch(gp, max_depth=d, chunk=1024,
+                               visited_cap=1 << 16).run().unique_states
+           for d in (1, 2, 3)]
+    counts["gen_paxos_c1s2_d123"] = got + [time.time() - t]
+    check(got == [6, 25, 102], f"generated paxos: {got}")
+    t = time.time()
+    o = engine.TensorSearch(pruned(specs.paxos_spec(3).compile()),
+                            chunk=1024, visited_cap=1 << 16).run()
+    counts["paxos_single_decree"] = key(o) + [time.time() - t]
+    check(key(o) == ["SPACE_EXHAUSTED", 202, 1548, 11],
+          f"plain paxos: {key(o)}")
+    for name, gen, hand in (
+            ("pingpong_w2", specs.pingpong_spec(2).compile(),
+             make_pingpong_protocol(2)),
+            ("clientserver_c2w2", specs.clientserver_spec(2, 2).compile(),
+             make_clientserver_protocol(2, 2))):
+        t = time.time()
+        og, oh = (engine.TensorSearch(pruned(p), chunk=1024,
+                                      visited_cap=1 << 16).run()
+                  for p in (gen, hand))
+        counts[name] = key(og) + [time.time() - t]
+        check(key(og) == key(oh) and og.end_condition == "SPACE_EXHAUSTED",
+              f"{name}: generated {key(og)} vs hand {key(oh)}")
+    for dev, chunk in (("cuda", 4096), ("cpu", 256)):
+        t = time.time()
+        o = engine.TensorSearch(fl, max_depth=4, chunk=chunk,
+                                visited_cap=1 << 14, device=dev).run()
+        counts[f"flagship_d4_{dev}"] = key(o) + [time.time() - t]
+        check(key(o) == ["DEPTH_EXHAUSTED", 713, 2457, 4],
+              f"compiled flagship d4 on {dev}: {key(o)}")
+
+    def search(p, packed=True):
+        return engine.TensorSearch(p, visited_cap=1 << 24,
+                                   frontier_cap=1 << 20, chunk=4096,
+                                   max_depth=depth, packed=packed)
+
+    hand = hand_flagship_protocol()
+    runs = []
+    for label, p, packed in (
+            ("compiled_packed", fl, True), ("hand", hand, True),
+            ("compiled_unpacked", fl, False),
+            ("compiled_unpacked", fl, False), ("hand", hand, True),
+            ("compiled_packed", fl, True)):
+        runs.append(dict(run=label, **timed_search(
+            torch, mods, search(p, packed))[1]))
+        check(all(v > 0 for v in runs[-1]["launches"].values()),
+              f"{label}: a kernel was not launched: {runs[-1]}")
+    check(all(r["key"] == runs[1]["key"] for r in runs)
+          and runs[0]["key"][0] == "DEPTH_EXHAUSTED",
+          f"compiled and hand flagship differ: {runs}")
+
+    # pack and unpack as the device loop calls them: one chunk of packed
+    # rows unpacked, and the rows one chunk step appends (the packed run's
+    # mean) packed with the out-of-domain count.
+    torch.manual_seed(1)
+    n_app = -(-runs[0]["key"][1] // runs[0]["chunk_steps"])
+    codes = torch.randint(0, 2, (4096, ts.lanes), dtype=torch.int32,
+                          device="cuda")
+    rows = pk.unpack(pk.pack(codes))
+    chunk = pk.pack(rows)
+    check(torch.equal(pk.unpack(chunk), rows), "pack/unpack round trip")
+    rows = rows.repeat(-(-n_app // 4096), 1)[:n_app].contiguous()
+    pack_ms = cuda_ms(torch, lambda _: pk.pack(rows, count_bad=True),
+                      reps=10, warmup=2)
+    unpack_ms = cuda_ms(torch, lambda _: pk.unpack(chunk))
+    pack_prof = profiled_call(torch, lambda: pk.pack(rows, count_bad=True))
+    unpack_prof = profiled_call(torch, lambda: pk.unpack(chunk))
+    del codes, rows, chunk
+    torch.cuda.empty_cache()
+    emit({"phase": "compiled", "shape": shape, "counts": counts,
+          "count_fields": ["end", "unique", "explored", "depth", "secs"],
+          "depth": depth, "runs": runs,
+          "pack": dict(rows=n_app, ms=pack_ms,
+                       profiled_device_ms=pack_prof[0],
+                       device_launches=pack_prof[1]),
+          "unpack": dict(rows=4096, ms=unpack_ms,
+                         profiled_device_ms=unpack_prof[0],
+                         device_launches=unpack_prof[1])})
 
 
 # CUDA kernels of each ported function, as torch.profiler names them.
@@ -423,18 +592,29 @@ def top_kernels(kern, n: int = 10):
 
 
 def phase_profile(torch, mods, depth: int):
-    """The flagship search to ``depth`` under torch.profiler: the device's
-    busy share (summed kernel time over wall time), the time of the two
-    ported kernels, the insert's device launches beside its calls (one
-    each), and the kernels that take the most device time."""
+    """The compiled flagship (packed) and the hand twin to ``depth`` under
+    torch.profiler, one after the other."""
+    for twin, proto in (("compiled_packed", flagship_protocol()),
+                        ("hand", hand_flagship_protocol())):
+        profile_twin(torch, mods, depth, twin, proto)
+
+
+def profile_twin(torch, mods, depth: int, twin: str, proto):
+    """One search to ``depth`` under torch.profiler: the device's busy
+    share (summed kernel time over wall time), device launches per chunk
+    step, the time of the two ported kernels, the insert's device
+    launches beside its calls (one each), and the kernels that take the
+    most device time."""
     engine, visited = mods["engine"], mods["visited"]
-    ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
+    ts = engine.TensorSearch(proto, visited_cap=1 << 24,
                              frontier_cap=1 << 20, chunk=4096,
                              max_depth=depth)
     warm = ts.run()                            # warm-up, unprofiled
     calls0 = visited.LAUNCHES["insert"]
+    steps0 = ts.chunk_steps
     o, wall_ms, kern, busy_ms = profiled_run(torch, ts)
     insert_calls = visited.LAUNCHES["insert"] - calls0
+    chunk_steps = ts.chunk_steps - steps0
     check((o.unique_states, o.states_explored, o.depth)
           == (warm.unique_states, warm.states_explored, warm.depth),
           f"profiled search differs from its warm-up: {o} vs {warm}")
@@ -447,14 +627,17 @@ def phase_profile(torch, mods, depth: int):
     check(insert_launches == insert_calls,
           f"insert: {insert_launches} device launches for {insert_calls} "
           "calls (one each expected)")
-    emit({"phase": "profile", "depth": o.depth, "end": o.end_condition,
+    launches = sum(e.count for e in kern)
+    emit({"phase": "profile", "twin": twin, "depth": o.depth,
+          "end": o.end_condition,
           "unique": o.unique_states, "explored": o.states_explored,
           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / wall_ms,
           "port_kernels_ms": port_ms,
           "insert_calls": insert_calls,
           "insert_device_launches": insert_launches,
-          "device_launches": sum(e.count for e in kern),
+          "device_launches": launches, "chunk_steps": chunk_steps,
+          "device_launches_per_chunk_step": launches / chunk_steps,
           "top_kernels": top_kernels(kern)})
 
 
@@ -462,8 +645,7 @@ def phase_trace(torch, mods, depth: int):
     """The trace-recording host loop on the card: the flagship to
     ``depth`` through run_host (twice) between two device-loop runs to the
     same depth, then two goal searches whose traces are checked."""
-    engine, kernels, visited = mods["engine"], mods["kernels"], \
-        mods["visited"]
+    engine = mods["engine"]
     from dslabs_tpu_torch.tpu.protocols.paxos import make_paxos_protocol
     from dslabs_tpu_torch.tpu.protocols.primarybackup import make_pb_protocol
     from dslabs_tpu_torch.tpu.trace import decode_trace
@@ -477,21 +659,8 @@ def phase_trace(torch, mods, depth: int):
                                    max_depth=depth, record_trace=trace)
 
     def timed(trace: bool):
-        ts = flagship_search(trace)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.LAUNCHES["fingerprint_rows"] = 0
-        visited.LAUNCHES["insert"] = 0
-        t0 = time.time()
-        o = ts.run()
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        return dict(
-            loop="host" if trace else "device", key=key(o), secs=secs,
-            unique_per_min=o.unique_states / secs * 60,
-            peak_mem_bytes=torch.cuda.max_memory_allocated(),
-            launches={"fingerprint_rows": kernels.LAUNCHES["fingerprint_rows"],
-                      "insert": visited.LAUNCHES["insert"]})
+        return dict(loop="host" if trace else "device", **timed_search(
+            torch, mods, flagship_search(trace))[1])
 
     flagship = [timed(False), timed(True), timed(True), timed(False)]
     check(all(r["key"] == flagship[0]["key"] for r in flagship)
@@ -558,22 +727,14 @@ def phase_trace(torch, mods, depth: int):
 
 
 def phase_search(torch, mods, max_secs: float):
-    engine, kernels, visited = mods["engine"], mods["kernels"], \
-        mods["visited"]
+    engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
                              frontier_cap=1 << 20, chunk=4096, max_depth=10,
                              max_secs=max_secs, strict=True)
-    check(ts.lanes == 842, f"flagship lanes {ts.lanes}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.LAUNCHES["fingerprint_rows"] = 0
-    visited.LAUNCHES["insert"] = 0
-    t0 = time.time()
-    o = ts.run()
-    torch.cuda.synchronize()
-    secs = time.time() - t0
-    launches = {"fingerprint_rows": kernels.LAUNCHES["fingerprint_rows"],
-                "insert": visited.LAUNCHES["insert"]}
+    check((ts.lanes, ts.plane) == (842, 217),
+          f"flagship lanes {ts.lanes}, plane {ts.plane}")
+    o, rec = timed_search(torch, mods, ts)
+    launches = rec["launches"]
     check(o.end_condition in ("DEPTH_EXHAUSTED", "TIME_EXHAUSTED",
                               "CAPACITY_EXHAUSTED"),
           f"search ended {o.end_condition}")
@@ -583,12 +744,9 @@ def phase_search(torch, mods, max_secs: float):
           f"search outcome implausible: {o}")
     check(all(v > 0 for v in launches.values()),
           f"main path skipped a kernel: {launches}")
-    emit({"phase": "search", "end": o.end_condition, "depth": o.depth,
-          "unique": o.unique_states, "explored": o.states_explored,
-          "secs": secs, "unique_per_min": o.unique_states / secs * 60,
-          "explored_per_min": o.states_explored / secs * 60,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "max_secs": max_secs})
+    emit({"phase": "search", **rec,
+          "explored_per_min": o.states_explored / rec["secs"] * 60,
+          "max_secs": max_secs})
     return launches
 
 
@@ -626,6 +784,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kres = phase_kernels(torch, mods, gen)
     phase_parity(torch, mods)
+    phase_compiled(torch, mods, PROFILE_DEPTH)
     phase_profile(torch, mods, PROFILE_DEPTH)
     phase_trace(torch, mods, PROFILE_DEPTH)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)

@@ -9,6 +9,11 @@ runs this cycle on the device:
   visited-table probe/insert (visited.py) --> fresh rows appended to the
   next frontier (``index_copy_``)
 
+The frontier buffers hold bit-packed rows (``tpu/packing.py``) when the
+protocol declares lane domains: each chunk is unpacked where it is read
+and the appended successors are packed, so handlers, predicates and
+fingerprints always see the int32 rows.
+
 The trace-recording loop (``run_host``) expands on the device the same
 way, prefilters each chunk by an in-chunk sort-unique, and keeps the
 visited set, the level-wide dedup and the per-level (parent, event)
@@ -43,7 +48,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dslabs_tpu_torch.tpu import kernels, visited as visited_mod
+from dslabs_tpu_torch.tpu import kernels, packing as packing_mod
+from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu._build import resolve_device
 # The plain fingerprint lives beside its kernel; re-exported here where the
 # reference engine defines it.
@@ -107,9 +113,13 @@ class TensorProtocol:
     marr) -> bool [...]`` and ``deliver_timer_rt(node [...], tarr) ->
     bool [...]``.  Like the reference, they gate the event tables only.
 
-    A protocol that sets a field this slice does not port (packing
-    ``lane_domains``, a ``fault`` model) makes :class:`TensorSearch`
-    raise."""
+    ``lane_domains`` (per-lane value domains, emitted by
+    ``ProtocolSpec.compile()``) drive the bit-packed frontier rows
+    (``tpu/packing.py``); None (hand twins) packs to the identity.
+    ``symmetry`` (the compiled permutation tables) is carried as data,
+    and a ``fault`` model makes :class:`TensorSearch` raise, until the
+    symmetry and faults slice.  ``decode_message`` / ``decode_timer``
+    are the optional object-twin decoders of trace reconstruction."""
 
     name: str
     n_nodes: int
@@ -140,7 +150,10 @@ class TensorProtocol:
     # compacted to this width before the set-insert merge.  Too small is a
     # CapacityOverflow, never a silent truncation.
     max_live_sends: Optional[int] = None
+    decode_message: Optional[Callable] = None
+    decode_timer: Optional[Callable] = None
     lane_domains: Optional[dict] = None
+    symmetry: Optional[object] = None
     fault: Optional[object] = None
 
 
@@ -164,6 +177,11 @@ class SearchOutcome:
     # Keys whose probe exhausted (table effectively full), treated as
     # fresh.  Strict searches raise instead.
     visited_overflow: int = 0
+    # Frontier bytes per stored state, packed and unpacked, and their
+    # ratio (stamped by TensorSearch.run).
+    bytes_per_state: Optional[int] = None
+    bytes_per_state_unpacked: Optional[int] = None
+    pack_ratio: Optional[float] = None
 
 
 # ----------------------------------------------------------------- hashing
@@ -460,9 +478,20 @@ class TensorSearch:
     naming the slice that brings them: ``checkpoint_path`` /
     ``checkpoint_every`` / ``spill`` / ``run(resume=True)`` (spill and
     checkpoint), ``telemetry`` (supervisor and telemetry),
-    ``packed=True`` or a protocol with ``lane_domains`` (spec compiler
-    and packing), ``symmetry=True`` or a protocol with a ``fault`` model
-    (symmetry and faults)."""
+    ``symmetry=True`` or a protocol with a ``fault`` model (symmetry and
+    faults).
+
+    ``packed`` (default on) stores the device loop's frontier buffers at
+    ``plane`` words per row, derived from the protocol's
+    ``lane_domains``; a protocol without them (a hand twin) derives the
+    identity and stores ``lanes`` words, as does ``packed=False``.  The
+    host loop stores no frontier buffers and stays unpacked, as in the
+    reference.  Deliberate differences: the reference's
+    ``DSLABS_PACKED`` environment variable is not ported (only the
+    argument decides), and the device loop packs only the successor rows
+    it appends, where the reference packs every successor row and then
+    selects; the out-of-domain count is the same, since the reference
+    masks it by the selection too."""
 
     def __init__(self, protocol: TensorProtocol,
                  frontier_cap: int = 1 << 16,
@@ -489,9 +518,6 @@ class TensorSearch:
             raise _later("spill", "spill + checkpoint")
         if telemetry is not None:
             raise _later("telemetry", "supervisor + telemetry")
-        if packed or protocol.lane_domains is not None:
-            raise _later("bit-packed frontier rows (lane_domains)",
-                         "spec compiler + packing")
         if symmetry:
             raise _later("symmetry=True", "symmetry + faults")
         if protocol.fault is not None:
@@ -516,6 +542,9 @@ class TensorSearch:
         # Per-level (parent rows, event ids) record of run_host with
         # record_trace, read by _reconstruct.
         self._levels: List[dict] = []
+        # Chunk steps the device loop has run, over every run of this
+        # search (restarts included).
+        self.chunk_steps = 0
         # Occupancy-compacted event enumeration: each state's valid events
         # packed into per-kind pair slots.  ev_budget None = full grid per
         # kind; int b caps message slots; (bm, bt) caps both.  A state
@@ -537,6 +566,12 @@ class TensorSearch:
                      p.node_width + p.net_cap * p.msg_width
                      + p.n_nodes * p.timer_cap * p.timer_width)
         self.lanes = self._off[2] + 1
+        # Bit-packed frontier rows: identity (no packing) for a protocol
+        # without declared lane domains.
+        pk = (packing_mod.derive_packing(protocol, self.lanes)
+              if packed is None or packed else None)
+        self._pk = None if (pk is None or pk.identity) else pk
+        self.plane = self._pk.words if self._pk is not None else self.lanes
         # Terminal-flag order = checkState order: exception strictly
         # first, then invariants, then goals.
         self._flag_names = (["exc"]
@@ -851,8 +886,20 @@ class TensorSearch:
         if resume:
             raise _later("resume (checkpoints)", "spill + checkpoint")
         if self.record_trace or self.use_host_visited:
-            return self.run_host(check_initial, initial)
-        return self._run_device(check_initial, initial)
+            out = self.run_host(check_initial, initial)
+        else:
+            out = self._run_device(check_initial, initial)
+        return self._stamp_capacity(out)
+
+    def _stamp_capacity(self, out: SearchOutcome) -> SearchOutcome:
+        """Attach the frontier bytes per state that every verdict
+        carries."""
+        out.bytes_per_state = (self._pk.bytes_per_state
+                               if self._pk is not None else self.lanes * 4)
+        out.bytes_per_state_unpacked = self.lanes * 4
+        out.pack_ratio = round(
+            out.bytes_per_state_unpacked / max(out.bytes_per_state, 1), 3)
+        return out
 
     def _initial_or(self, initial: Optional[dict]) -> dict:
         """The batch-1 start state on the search's device: ``initial``
@@ -1075,17 +1122,25 @@ class TensorSearch:
 
     def _build_dev_step(self, cap: int):
         """One wave step over frontier chunk ``j``: expand -> visited-table
-        insert -> frontier-compact append, all on the device with no host
-        sync.  The carry is updated IN PLACE where the reference donates
-        it to a jitted program: kernel 2 writes the table, ``index_copy_``
-        writes the next frontier, and the counters are added to."""
+        insert -> frontier-compact append, all on the device.  The carry
+        is updated IN PLACE where the reference donates it to a jitted
+        program: kernel 2 writes the table, ``index_copy_`` writes the
+        next frontier, and the counters are added to.  With packing, the
+        frontier buffers hold packed rows (``plane`` words): the chunk is
+        unpacked here and the selected successors are packed before the
+        append, which takes the step's one host sync (their count);
+        unpacked, the step has none."""
         p = self.p
         C = self.chunk
         dev = self.device
+        pk = self._pk
 
         def step(carry, j: int, ev_pass: int):
+            self.chunk_steps += 1
             start = j * C
             rows_chunk = carry["cur"][start:start + C]
+            if pk is not None:
+                rows_chunk = pk.unpack(rows_chunk)
             valid = (start + torch.arange(C, device=dev)) < carry["cur_n"]
             (rows, valids, fp, unique, overflow, ev_rem, _event_ids,
              flags) = self._expand_chunk(rows_chunk, valid, ev_pass,
@@ -1120,7 +1175,21 @@ class TensorSearch:
             nxt_n = carry["nxt_n"]
             dst = nxt_n + spos
             sdst = torch.where(sel & (dst < cap), dst, cap)  # cap = dump row
-            carry["nxt"].index_copy_(0, sdst, rows)
+            if pk is None:
+                carry["nxt"].index_copy_(0, sdst, rows)
+            else:
+                # Only the selected rows are packed and appended: one
+                # host sync per chunk step for their count, in place of
+                # packing every successor row as the reference does.  A
+                # live value outside its declared domain counts into the
+                # overflow: a wrong spec bound is a CapacityOverflow,
+                # never a corrupted stored state.
+                idx = torch.nonzero(sel).squeeze(1)
+                packed, pack_bad = pk.pack(rows.index_select(0, idx),
+                                           count_bad=True)
+                overflow = overflow + pack_bad.sum()
+                carry["nxt"].index_copy_(0, sdst.index_select(0, idx),
+                                         packed)
             n_sel = sel.sum()
             f_drop = torch.clamp(nxt_n + n_sel - cap, min=0)
             carry["nxt_n"] += n_sel - f_drop
@@ -1158,9 +1227,10 @@ class TensorSearch:
 
     def _build_dev_init(self, cap: int):
         """The carry, built on the device: only the root row crosses from
-        the host; the root key goes through the same table insert as the
-        waves."""
+        the host (unpacked; it is packed here for storage); the root key
+        goes through the same table insert as the waves."""
         lanes = self.lanes
+        plane = self.plane
         V = self.visited_cap
         nf = len(self._flag_names)
         dev = self.device
@@ -1171,15 +1241,15 @@ class TensorSearch:
             visited_mod.insert(table, fp0,
                                torch.ones((1,), dtype=torch.bool,
                                           device=dev))
-            cur = torch.zeros((cap + 1, lanes), dtype=torch.int32, device=dev)
-            cur[0] = row0[0]
+            cur = torch.zeros((cap + 1, plane), dtype=torch.int32, device=dev)
+            cur[0] = (row0 if self._pk is None else self._pk.pack(row0))[0]
 
             def z():
                 return torch.zeros((1,), dtype=torch.int64, device=dev)
 
             return {
                 "cur": cur, "cur_n": z() + 1,
-                "nxt": torch.zeros((cap + 1, lanes), dtype=torch.int32,
+                "nxt": torch.zeros((cap + 1, plane), dtype=torch.int32,
                                    device=dev),
                 "nxt_n": z(), "visited": table, "vis_n": z() + 1,
                 "explored": z(), "overflow": z(), "vis_over": z(),

@@ -1,10 +1,11 @@
 """State carried across from the JAX package, as numpy arrays.
 
-The port's counterpart of loading weights: a visited table, a key batch or
-a search state that the JAX package produced (for example a
-``SearchOutcome.goal_state``, or a table from ``visited.build_table``)
-comes in here, so a search can continue in the port from where the
-reference left off and both compute the same thing.  Only numpy crosses
+The port's counterpart of loading weights: a visited table, a key batch,
+a search state or a frontier-packing descriptor that the JAX package
+produced (for example a ``SearchOutcome.goal_state``, a table from
+``visited.build_table``, or a ``LanePacking`` whose packed rows a JAX
+frontier holds) comes in here, so a search can continue in the port from
+where the reference left off and both compute the same thing.  Only numpy crosses
 the boundary; uint32 arrays become int32 tensors with the same bits, on
 the card unless the caller names another device.
 """
@@ -17,7 +18,7 @@ import torch
 from dslabs_tpu_torch.tpu._build import resolve_device
 
 __all__ = ["table_from_numpy", "table_to_numpy", "keys_from_numpy",
-           "state_from_numpy"]
+           "state_from_numpy", "packing_from_numpy"]
 
 _STATE_KEYS = ("nodes", "net", "timers", "exc")
 
@@ -66,3 +67,26 @@ def state_from_numpy(state: dict, device=None) -> dict:
                              f"shape {a.shape}")
         out[k] = torch.from_numpy(a.astype(np.int32)).to(device)
     return out
+
+
+_PACKING_ARRAYS = ("word", "shift", "width", "lo", "raw", "sent", "dlt")
+
+
+def packing_from_numpy(desc):
+    """A JAX ``LanePacking`` (or anything with its ``lanes``, ``words``
+    and numpy arrays ``word``, ``shift``, ``width``, ``lo``, ``raw``,
+    ``sent``, ``dlt``) -> the port's :class:`~dslabs_tpu_torch.tpu.
+    packing.LanePacking`, so rows packed by the JAX package unpack
+    bit-identically on the port.  Only numpy crosses."""
+    from dslabs_tpu_torch.tpu.packing import LanePacking
+
+    arrays = {}
+    for name in _PACKING_ARRAYS:
+        a = np.asarray(getattr(desc, name))
+        if a.shape != (int(desc.lanes),):
+            raise ValueError(f"packing array {name!r} has shape {a.shape},"
+                             f" expected ({int(desc.lanes)},)")
+        arrays[name] = a.astype(bool if name in ("raw", "sent", "dlt")
+                                else np.int64)
+    return LanePacking(lanes=int(desc.lanes), words=int(desc.words),
+                       **arrays)

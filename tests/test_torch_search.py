@@ -32,6 +32,7 @@ from dslabs_tpu.tpu.protocols.pingpong import (  # noqa: E402
     make_exhaustive_pingpong as j_pp_ex, make_pingpong_protocol as j_pp)
 from dslabs_tpu_torch.tpu import engine as teng  # noqa: E402
 from dslabs_tpu_torch.tpu import interop, kernels, visited  # noqa: E402
+from dslabs_tpu_torch.tpu import specs_lab3 as t_lab3  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.clientserver import \
     make_clientserver_protocol as t_cs  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.paxos import \
@@ -201,19 +202,26 @@ def test_helpers_default_to_the_card(make):
         make()
 
 
+def _compiled_flagship():
+    return t_lab3.make_paxos_protocol(**FLAGSHIP_KW)
+
+
 @pytest.mark.parametrize("kw,proto", [
     (dict(checkpoint_path="ck.npz"), None),
     (dict(checkpoint_every=2), None),
     (dict(spill=True), None),
     (dict(telemetry=object()), None),
-    (dict(packed=True), None),
+    (dict(symmetry=True), _compiled_flagship),
     (dict(symmetry=True), None),
-    ({}, dict(lane_domains={"nodes": []})),
-    ({}, dict(fault=object())),
+    ({}, lambda: t_lab3.make_paxos_partition_spec().compile()),
+    ({}, lambda: dataclasses.replace(t_pp(2), fault=object())),
 ])
 def test_unported_options_raise(kw, proto):
-    p = t_pp(2) if proto is None else dataclasses.replace(t_pp(2), **proto)
+    """Options and protocols of later slices raise, naming the slice: a
+    spec with a fault model already in compile(), so the protocol is
+    built inside the check."""
     with pytest.raises(NotImplementedError, match="slice"):
+        p = t_pp(2) if proto is None else proto()
         teng.TensorSearch(p, device="cpu", **kw)
 
 
@@ -239,7 +247,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "dslabs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10 and files[-1].exists()
-    for name in ("tpu/trace.py", "tpu/protocols/primarybackup.py"):
+    for name in ("tpu/trace.py", "tpu/protocols/primarybackup.py",
+                 "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):
