@@ -60,6 +60,26 @@ table) once.  Each phase prints one JSON line:
            search with its pinned trace, replayed by decode_trace to the
            goal state; and the lab2 twin's goal search with a trace, equal
            on the card and on the CPU;
+  harness  lab search tests through the harness binding: the port's
+           search.bfs with the tensor backend (tpu/backend.py, its lab
+           0-3 adapters, run_host underneath) on the card.  The lab 0-2
+           shapes of tests/torch_harness_cases.py beside the port's own
+           object checker (same end condition, goal or violation depth,
+           and count on runs that end by depth or space; the replayed
+           terminal state re-checked with the object predicate), the lab 1
+           infinite workload to depth 15 (51 states), a composition with
+           no twin (NoTensorTwin); lab 3 at full width against pins from
+           the reference's object checker: test20's three staged phases
+           (goal depths 7 and 11, then 138 states with timers frozen),
+           test22's first append and CLIENTS_DONE in both other
+           majorities (goal depths 7, 11 and 16), test21 (n=5, depth 12,
+           partition; with timers frozen 2 states) and the depth-4
+           count-parity shape (85).  The time-limited lab 1 infinite
+           workload may raise CapacityOverflow at depth 16 on the top rung
+           of the capacity ladder, where the reference's tensor_bfs raises
+           too.  Per search: seconds, unique states/min, peak device
+           memory, the ladder rung, and each kernel's launches (the
+           fingerprint's must be > 0);
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -726,6 +746,161 @@ def phase_trace(torch, mods, depth: int):
                           "secs"]})
 
 
+# Pins of the harness phase's lab 3 searches, from the reference's object
+# checker (dslabs_tpu.search.search.BFS) on the CPU over the builders of
+# tests/torch_harness_cases.py: goal depths, and discovered_count where
+# the object run ends by depth or by space.
+HARNESS_PINS = {
+    "test20_phase1": ("GOAL_FOUND", 7, None),
+    "test20_phase2": ("GOAL_FOUND", 11, None),
+    "test20_phase3": ("SPACE_EXHAUSTED", None, 138),
+    "test22_phase1": ("GOAL_FOUND", 7, None),
+    "test22_phase2_s1s3": ("GOAL_FOUND", 11, None),
+    "test22_phase2_s2s3": ("GOAL_FOUND", 16, None),
+    # test21's space is past the object checker's reach (it had not
+    # ended after 15 minutes; the card explores 189,288 states to depth
+    # 11 in its 20 s), so no count: only the accepted end conditions.
+    "test21": ("SPACE_EXHAUSTED", None, None),
+    "test21_no_timers": ("SPACE_EXHAUSTED", None, 2),
+    "lab3_depth4": ("SPACE_EXHAUSTED", None, 85),
+}
+
+
+def phase_harness(torch, mods):
+    """Lab search tests through the harness binding on the card: the
+    port's ``search.bfs`` with the tensor backend (``tpu/backend.py`` and
+    its adapters, ``run_host`` underneath).  The lab 0-2 shapes run beside
+    the port's own object checker in this process; the lab 3 searches are
+    held against HARNESS_PINS.  Every search: seconds, unique states/min,
+    peak device memory, the capacity-ladder rung taken, and the kernels'
+    launches with the counts set to 0 just before it (the fingerprint's
+    must be > 0)."""
+    kernels, visited = mods["kernels"], mods["visited"]
+    from dslabs_tpu_torch.search import search as osearch
+    from dslabs_tpu_torch.tpu import backend
+    from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+    from dslabs_tpu_torch.utils.flags import GlobalSettings
+    from tests import torch_harness_cases as H
+
+    P = H.Pkg("dslabs_tpu_torch")
+    GlobalSettings.search_backend = "tensor"
+    runs = []
+    run_tensor = backend._run_tensor
+
+    def spy(*a, **kw):
+        runs.append(run_tensor(*a, **kw))
+        return runs[-1]
+
+    backend._run_tensor = spy
+    records = {}
+
+    def tensor(name, case):
+        """One search through search.bfs on the card -> (results or the
+        CapacityOverflow it raised, record)."""
+        del runs[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.LAUNCHES["fingerprint_rows"] = 0
+        visited.LAUNCHES["insert"] = 0
+        t0 = time.time()
+        try:
+            res = osearch.bfs(case.state, case.settings)
+        except CapacityOverflow as e:
+            res = e
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        rec = dict(secs=secs, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches={"fingerprint_rows":
+                             kernels.LAUNCHES["fingerprint_rows"],
+                             "insert": visited.LAUNCHES["insert"]})
+        if isinstance(res, CapacityOverflow):
+            rec.update(end="CapacityOverflow", error=str(res))
+        else:
+            search, outcome, _ = runs[-1]
+            rec.update(
+                end=H.end_name(res), depth=H.terminal_depth(res),
+                unique=res.discovered_count,
+                unique_per_min=res.discovered_count / secs * 60,
+                tensor_end=outcome.end_condition,
+                tensor_depth=outcome.depth,
+                rung=[f for f, _ in backend._LADDER].index(
+                    search.frontier_cap))
+        check(rec["launches"]["fingerprint_rows"] > 0,
+              f"harness {name}: the fingerprint kernel never launched")
+        records[name] = rec
+        return res, rec
+
+    try:
+        for name in sorted(H.LAB02):
+            build = H.LAB02[name]
+            res, rec = tensor(name, build(P))
+            case = build(P)
+            obj = osearch.BFS(case.settings).run(case.state)
+            rec["object"] = dict(end=H.end_name(obj),
+                                 depth=H.terminal_depth(obj),
+                                 unique=obj.discovered_count)
+            if name == "lab1_infinite" and rec["end"] == "CapacityOverflow":
+                # The reference's tensor_bfs raises at the same place: the
+                # twin outgrows the ladder's top rung at depth 16.
+                check(re.search(r"net_cap=64, timer_cap=8.*depth "
+                                f"{H.INFINITE_OVERFLOW_DEPTH} ",
+                                rec["error"]) is not None,
+                      f"harness {name}: {rec['error']}")
+                continue
+            check(rec["end"] in case.expect
+                  and rec["depth"] == rec["object"]["depth"]
+                  and (len(case.expect) > 1
+                       or rec["end"] == rec["object"]["end"])
+                  and (not case.exact
+                       or rec["unique"] == rec["object"]["unique"]),
+                  f"harness {name}: {rec}")
+            if rec["end"] in ("GOAL_FOUND", "INVARIANT_VIOLATED"):
+                preds = (case.settings.goals if rec["end"] == "GOAL_FOUND"
+                         else case.settings.invariants)
+                st = H.terminal(res)
+                check(any(p.check(st).value == (rec["end"] == "GOAL_FOUND")
+                          for p in preds),
+                      f"harness {name}: object predicate on replayed state")
+        depth, count = H.INFINITE_FITS
+        res, rec = tensor("lab1_infinite_d15",
+                          H.lab1_infinite_depth(P, depth))
+        check(rec["end"] == "SPACE_EXHAUSTED" and rec["unique"] == count,
+              f"harness lab1_infinite_d15: {rec}")
+        try:
+            tensor("no_twin", H.Case(H.no_twin_state(P),
+                                     P.SearchSettings(), ()))
+        except backend.NoTensorTwin:
+            records.pop("no_twin", None)
+        else:
+            raise AssertionError("harness no_twin: no NoTensorTwin raised")
+
+        def lab3(name, case):
+            res, rec = tensor(name, case)
+            end, depth, count = HARNESS_PINS[name]
+            check(rec["end"] in case.expect, f"harness {name}: {rec}")
+            if rec["end"] == end:
+                check((depth is None or rec["depth"] == depth)
+                      and (count is None or rec["unique"] == count),
+                      f"harness {name}: {rec} against pin {end, depth, count}")
+            return res
+
+        res = lab3("test20_phase1", H.test20_phase1(P))
+        goal = H.terminal(res)
+        lab3("test20_phase2", H.test20_phase2(P, goal))
+        lab3("test20_phase3", H.test20_phase3(P, goal))
+        res = lab3("test22_phase1", H.test22_phase1(P))
+        goal = H.terminal(res)
+        lab3("test22_phase2_s1s3", H.test22_phase2(P, goal, (1, 3), 2))
+        lab3("test22_phase2_s2s3", H.test22_phase2(P, goal, (2, 3), 1))
+        lab3("test21", H.lab3_test21(P))
+        lab3("test21_no_timers", H.lab3_test21(P, timers=False))
+        lab3("lab3_depth4", H.lab3_depth4(P))
+    finally:
+        backend._run_tensor = run_tensor
+        GlobalSettings.search_backend = "object"
+    emit({"phase": "harness", "searches": records})
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -787,6 +962,7 @@ def main() -> int:
     phase_compiled(torch, mods, PROFILE_DEPTH)
     phase_profile(torch, mods, PROFILE_DEPTH)
     phase_trace(torch, mods, PROFILE_DEPTH)
+    phase_harness(torch, mods)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)
 
     replaces = {

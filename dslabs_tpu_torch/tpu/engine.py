@@ -174,6 +174,11 @@ class SearchOutcome:
     # Root-first grid event ids leading to the terminal state
     # (record_trace runs; decoded by tpu/trace.py).
     trace: Optional[list] = None
+    # Root-first event-id lists of a few states of the deepest level that
+    # kept rows (run_host with record_trace): the harness replays them on
+    # the object twin to re-check value-level invariants before it
+    # trusts an exhaust verdict.
+    samples: Optional[list] = None
     # Keys whose probe exhausted (table effectively full), treated as
     # fresh.  Strict searches raise instead.
     visited_overflow: int = 0
@@ -971,12 +976,21 @@ class TensorSearch:
         events.reverse()
         return events
 
+    def _samples(self, parent_rows: np.ndarray) -> list:
+        """Root-first traces of the first, middle and last state kept at
+        the level just completed (``parent_rows`` indexes its successor
+        rows), as the reference's sharded engine samples each level."""
+        n = len(parent_rows)
+        return [self._reconstruct(int(parent_rows[i]))
+                for i in sorted({0, n // 2, n - 1})]
+
     def run_host(self, check_initial: bool = True,
                  initial: Optional[dict] = None) -> SearchOutcome:
         """The host-dedup BFS: device expand with the in-chunk sort-unique
         prefilter, then one level-wide dedup against a sorted host visited
         set (``sorted_member``).  The trace-recording path: per-level
-        (parent row, event id) records stay on the host.  Same contract
+        (parent row, event id) records stay on the host, and exhaust
+        outcomes carry ``samples`` (see :meth:`_samples`).  Same contract
         as :meth:`run`.
 
         One deliberate difference from the reference, which copies every
@@ -1005,19 +1019,21 @@ class TensorSearch:
         # enumeration) that produced frontier state i; -1 at the root.
         parent_rows = np.array([-1], dtype=np.int64)
         frontier_n = 1
+        samples = None
+
+        def exhausted(end):
+            return SearchOutcome(end, explored, len(visited[0]), depth,
+                                 time.time() - t0, samples=samples)
+
         ne = self._num_events()
         C = self.chunk
         # Every level either returns or leaves a non-empty frontier.
         while True:
             if self.max_depth is not None and depth >= self.max_depth:
-                return SearchOutcome("DEPTH_EXHAUSTED", explored,
-                                     len(visited[0]), depth,
-                                     time.time() - t0)
+                return exhausted("DEPTH_EXHAUSTED")
             if (self.max_secs is not None
                     and time.time() - t0 > self.max_secs):
-                return SearchOutcome("TIME_EXHAUSTED", explored,
-                                     len(visited[0]), depth,
-                                     time.time() - t0)
+                return exhausted("TIME_EXHAUSTED")
             depth += 1
             if self.record_trace:
                 self._levels.append({"parent_rows": parent_rows,
@@ -1074,9 +1090,7 @@ class TensorSearch:
                     lvl_rows.append(idx_dev.cpu().numpy() + start * ne)
                     lvl_states.append(rows[idx_dev].cpu().numpy())
             if not lvl_keys:
-                return SearchOutcome("SPACE_EXHAUSTED", explored,
-                                     len(visited[0]), depth,
-                                     time.time() - t0)
+                return exhausted("SPACE_EXHAUSTED")
 
             # ---- one level-wide dedup (sort-unique + visited membership)
             h1 = np.concatenate([k[0] for k in lvl_keys])
@@ -1102,16 +1116,14 @@ class TensorSearch:
                 self._host_visited = visited
             expand = fresh & ~pruned
             if not expand.any():
-                return SearchOutcome("SPACE_EXHAUSTED", explored,
-                                     len(visited[0]), depth,
-                                     time.time() - t0)
+                return exhausted("SPACE_EXHAUSTED")
             keep_idx = np.nonzero(expand)[0]
             parent_rows = rows_np[keep_idx]
             frontier_n = len(keep_idx)
+            if self.record_trace:
+                samples = self._samples(parent_rows)
             if frontier_n > self.frontier_cap:
-                return SearchOutcome("CAPACITY_EXHAUSTED", explored,
-                                     len(visited[0]), depth,
-                                     time.time() - t0)
+                return exhausted("CAPACITY_EXHAUSTED")
             # The next frontier: each chunk's selected rows, in order
             # (keep_idx is ascending over the chunks' concatenation).
             ends = np.cumsum([len(s) for s in lvl_states])

@@ -248,7 +248,9 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10 and files[-1].exists()
     for name in ("tpu/trace.py", "tpu/protocols/primarybackup.py",
-                 "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py"):
+                 "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py",
+                 "tpu/backend.py", "tpu/adapters/paxos.py",
+                 "search/search.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):
