@@ -80,6 +80,27 @@ table) once.  Each phase prints one JSON line:
            too.  Per search: seconds, unique states/min, peak device
            memory, the ladder rung, and each kernel's launches (the
            fingerprint's must be > 0);
+  lab4     the lab 4 twins (specs_lab4: join g=1 and g=2, the part-1
+           stores [1, 1], [1, 2, 1] and [[1], [2]] with master timers and
+           controller, 2PC tx, multi-server groups): each twin's shape
+           (lanes, event slots, packed words, bytes per state); the
+           fingerprint kernel bit-exact at each width on the depth-3
+           successor rows, seeded random rows and SENTINEL rows; the pinned
+           counts through the device loop (join 3 / 10 and 6 / 11, stores
+           6 / 23 / 74 / 219 / 606 and 8 / 38 / 142 / 467 / 1411, tx 8 /
+           38, multi 10 / 69), each twin's depth-3 run equal to the same
+           run on the CPU, and one insert device launch per insert call
+           under torch.profiler; the reference's two slow goal searches
+           at full width (store [1, 1] GOAL_FOUND 51243 / 310245 at depth
+           10, tx GOAL_FOUND 27549 / 129682 at depth 8); and the lab 4
+           search tests of tests/torch_lab4_cases.py through the harness
+           binding: each join phase (ss-join provenance), then part 2
+           test10 (goal ten levels down, then six levels done-pruned),
+           test11 and test12 six levels down, part 3 test08 and test09
+           (the 2PC twin, goal eight levels down) and the depth-4
+           count-parity shape, equal to the port's object checker (219).
+           Per search: seconds, unique states/min, peak device memory,
+           chunk steps or the ladder rung, and each kernel's launches;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -606,6 +627,34 @@ def profiled_run(torch, ts):
     return o, wall_ms, kern, busy_ms
 
 
+def profiled_inserts(torch, mods, ts, label: str):
+    """``ts.run()`` under torch.profiler (:func:`profiled_run`) with the
+    insert wrapper's calls counted beside the insert kernel's device
+    launches in the trace, which must be equal: one launch per call.
+    torch.profiler drops device records at random (the same depth-8
+    flagship run showed 4-37 fewer of its ~282,000 launches from one
+    profiled run to the next), so a run whose trace holds fewer insert
+    launches than calls is profiled again, twice at most; more launches
+    than calls fails at once.  -> (outcome, wall ms, kernel entries,
+    busy ms, insert calls, chunk steps, profiled runs)."""
+    visited = mods["visited"]
+    for runs in (1, 2, 3):
+        calls0, steps0 = visited.LAUNCHES["insert"], ts.chunk_steps
+        o, wall_ms, kern, busy_ms = profiled_run(torch, ts)
+        calls = visited.LAUNCHES["insert"] - calls0
+        launches = sum(e.count for e in kern
+                       if PORT_KERNELS["insert"].search(e.key))
+        check(launches <= calls,
+              f"{label}: insert: {launches} device launches for {calls} "
+              "calls (one each expected)")
+        if launches == calls:
+            return (o, wall_ms, kern, busy_ms, calls,
+                    ts.chunk_steps - steps0, runs)
+    raise AssertionError(
+        f"{label}: insert: {launches} device launches for {calls} calls "
+        "(one each expected) in 3 profiled runs")
+
+
 def top_kernels(kern, n: int = 10):
     return [[e.key[:80], e.count, dev_ms(e)]
             for e in sorted(kern, key=dev_ms, reverse=True)[:n]]
@@ -625,16 +674,13 @@ def profile_twin(torch, mods, depth: int, twin: str, proto):
     step, the time of the two ported kernels, the insert's device
     launches beside its calls (one each), and the kernels that take the
     most device time."""
-    engine, visited = mods["engine"], mods["visited"]
+    engine = mods["engine"]
     ts = engine.TensorSearch(proto, visited_cap=1 << 24,
                              frontier_cap=1 << 20, chunk=4096,
                              max_depth=depth)
     warm = ts.run()                            # warm-up, unprofiled
-    calls0 = visited.LAUNCHES["insert"]
-    steps0 = ts.chunk_steps
-    o, wall_ms, kern, busy_ms = profiled_run(torch, ts)
-    insert_calls = visited.LAUNCHES["insert"] - calls0
-    chunk_steps = ts.chunk_steps - steps0
+    (o, wall_ms, kern, busy_ms, insert_calls, chunk_steps,
+     profiled_runs) = profiled_inserts(torch, mods, ts, f"profile {twin}")
     check((o.unique_states, o.states_explored, o.depth)
           == (warm.unique_states, warm.states_explored, warm.depth),
           f"profiled search differs from its warm-up: {o} vs {warm}")
@@ -642,11 +688,6 @@ def profile_twin(torch, mods, depth: int, twin: str, proto):
                for name, pat in PORT_KERNELS.items()}
     check(all(v > 0 for v in port_ms.values()),
           f"profiled search ran no ported kernel: {port_ms}")
-    insert_launches = sum(e.count for e in kern
-                          if PORT_KERNELS["insert"].search(e.key))
-    check(insert_launches == insert_calls,
-          f"insert: {insert_launches} device launches for {insert_calls} "
-          "calls (one each expected)")
     launches = sum(e.count for e in kern)
     emit({"phase": "profile", "twin": twin, "depth": o.depth,
           "end": o.end_condition,
@@ -655,7 +696,8 @@ def profile_twin(torch, mods, depth: int, twin: str, proto):
           "device_busy_share": busy_ms / wall_ms,
           "port_kernels_ms": port_ms,
           "insert_calls": insert_calls,
-          "insert_device_launches": insert_launches,
+          "insert_device_launches": insert_calls,
+          "profiled_runs": profiled_runs,
           "device_launches": launches, "chunk_steps": chunk_steps,
           "device_launches_per_chunk_step": launches / chunk_steps,
           "top_kernels": top_kernels(kern)})
@@ -766,38 +808,52 @@ HARNESS_PINS = {
 }
 
 
-def phase_harness(torch, mods):
-    """Lab search tests through the harness binding on the card: the
-    port's ``search.bfs`` with the tensor backend (``tpu/backend.py`` and
-    its adapters, ``run_host`` underneath).  The lab 0-2 shapes run beside
-    the port's own object checker in this process; the lab 3 searches are
-    held against HARNESS_PINS.  Every search: seconds, unique states/min,
-    peak device memory, the capacity-ladder rung taken, and the kernels'
-    launches with the counts set to 0 just before it (the fingerprint's
-    must be > 0)."""
-    kernels, visited = mods["kernels"], mods["visited"]
-    from dslabs_tpu_torch.search import search as osearch
-    from dslabs_tpu_torch.tpu import backend
-    from dslabs_tpu_torch.tpu.engine import CapacityOverflow
-    from dslabs_tpu_torch.utils.flags import GlobalSettings
-    from tests import torch_harness_cases as H
+class HarnessRuns:
+    """Lab searches through the port's ``search.bfs`` with the tensor
+    backend on the card, as a lab test runs them.  Inside the ``with``
+    block the backend is ``tensor`` and ``backend._run_tensor`` is wrapped
+    to keep each search's engine and outcome; :meth:`search` runs one
+    search with the kernel counts set to 0 just before it and records its
+    seconds, unique states/min, peak device memory, the capacity-ladder
+    rung taken and the kernels' launches (the fingerprint's must be
+    > 0)."""
 
-    P = H.Pkg("dslabs_tpu_torch")
-    GlobalSettings.search_backend = "tensor"
-    runs = []
-    run_tensor = backend._run_tensor
+    def __init__(self, torch, mods):
+        from dslabs_tpu_torch.tpu import backend
 
-    def spy(*a, **kw):
-        runs.append(run_tensor(*a, **kw))
-        return runs[-1]
+        self.torch, self.mods, self.backend = torch, mods, backend
+        self.records = {}
+        self._runs = []
+        self._run_tensor = backend._run_tensor
 
-    backend._run_tensor = spy
-    records = {}
+    def __enter__(self):
+        from dslabs_tpu_torch.utils.flags import GlobalSettings
 
-    def tensor(name, case):
+        GlobalSettings.search_backend = "tensor"
+
+        def spy(*a, **kw):
+            self._runs.append(self._run_tensor(*a, **kw))
+            return self._runs[-1]
+
+        self.backend._run_tensor = spy
+        return self
+
+    def __exit__(self, *exc):
+        from dslabs_tpu_torch.utils.flags import GlobalSettings
+
+        self.backend._run_tensor = self._run_tensor
+        GlobalSettings.search_backend = "object"
+
+    def search(self, name, case):
         """One search through search.bfs on the card -> (results or the
         CapacityOverflow it raised, record)."""
-        del runs[:]
+        from dslabs_tpu_torch.search import search as osearch
+        from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+        from tests import torch_harness_cases as H
+
+        torch = self.torch
+        kernels, visited = self.mods["kernels"], self.mods["visited"]
+        del self._runs[:]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.LAUNCHES["fingerprint_rows"] = 0
@@ -816,24 +872,34 @@ def phase_harness(torch, mods):
         if isinstance(res, CapacityOverflow):
             rec.update(end="CapacityOverflow", error=str(res))
         else:
-            search, outcome, _ = runs[-1]
+            search, outcome, _ = self._runs[-1]
             rec.update(
                 end=H.end_name(res), depth=H.terminal_depth(res),
                 unique=res.discovered_count,
                 unique_per_min=res.discovered_count / secs * 60,
                 tensor_end=outcome.end_condition,
                 tensor_depth=outcome.depth,
-                rung=[f for f, _ in backend._LADDER].index(
+                rung=[f for f, _ in self.backend._LADDER].index(
                     search.frontier_cap))
         check(rec["launches"]["fingerprint_rows"] > 0,
               f"harness {name}: the fingerprint kernel never launched")
-        records[name] = rec
+        self.records[name] = rec
         return res, rec
 
-    try:
+
+def phase_harness(torch, mods):
+    """Lab search tests through the harness binding on the card
+    (:class:`HarnessRuns`).  The lab 0-2 shapes run beside the port's own
+    object checker in this process; the lab 3 searches are held against
+    HARNESS_PINS."""
+    from dslabs_tpu_torch.search import search as osearch
+    from tests import torch_harness_cases as H
+
+    P = H.Pkg("dslabs_tpu_torch")
+    with HarnessRuns(torch, mods) as hr:
         for name in sorted(H.LAB02):
             build = H.LAB02[name]
-            res, rec = tensor(name, build(P))
+            res, rec = hr.search(name, build(P))
             case = build(P)
             obj = osearch.BFS(case.settings).run(case.state)
             rec["object"] = dict(end=H.end_name(obj),
@@ -862,20 +928,20 @@ def phase_harness(torch, mods):
                           for p in preds),
                       f"harness {name}: object predicate on replayed state")
         depth, count = H.INFINITE_FITS
-        res, rec = tensor("lab1_infinite_d15",
-                          H.lab1_infinite_depth(P, depth))
+        res, rec = hr.search("lab1_infinite_d15",
+                             H.lab1_infinite_depth(P, depth))
         check(rec["end"] == "SPACE_EXHAUSTED" and rec["unique"] == count,
               f"harness lab1_infinite_d15: {rec}")
         try:
-            tensor("no_twin", H.Case(H.no_twin_state(P),
-                                     P.SearchSettings(), ()))
-        except backend.NoTensorTwin:
-            records.pop("no_twin", None)
+            hr.search("no_twin", H.Case(H.no_twin_state(P),
+                                        P.SearchSettings(), ()))
+        except hr.backend.NoTensorTwin:
+            hr.records.pop("no_twin", None)
         else:
             raise AssertionError("harness no_twin: no NoTensorTwin raised")
 
         def lab3(name, case):
-            res, rec = tensor(name, case)
+            res, rec = hr.search(name, case)
             end, depth, count = HARNESS_PINS[name]
             check(rec["end"] in case.expect, f"harness {name}: {rec}")
             if rec["end"] == end:
@@ -895,10 +961,201 @@ def phase_harness(torch, mods):
         lab3("test21", H.lab3_test21(P))
         lab3("test21_no_timers", H.lab3_test21(P, timers=False))
         lab3("lab3_depth4", H.lab3_depth4(P))
-    finally:
-        backend._run_tensor = run_tensor
-        GlobalSettings.search_backend = "object"
-    emit({"phase": "harness", "searches": records})
+    emit({"phase": "harness", "searches": hr.records})
+
+
+# The lab 4 twins of the lab4 phase: name -> (factory over specs_lab4,
+# chunk, {depth: pinned unique states}).  Pins: the JAX package's
+# tests/test_spec_parity.py (join, tx) and tests/test_tpu_lab4.py
+# docstrings (part-1 stores, depths 1-5); the multi-server twin's 10 / 69
+# from its JAX twins on the CPU (python -m tests.torch_lab4_cases).  The
+# [[1], [2]] store with master timers and the controller modelled has no
+# pin: it is held against the same search on the CPU.
+LAB4_TWINS = {
+    "join_g1": (lambda L: L.make_join_protocol(1), 1024, {1: 3, 3: 10}),
+    "join_g2": (lambda L: L.make_join_protocol(2), 1024, {2: 6, 3: 11}),
+    "store_11": (lambda L: L.make_shardstore_protocol([1, 1]), 1024,
+                 {1: 6, 2: 23, 3: 74, 4: 219, 5: 606}),
+    "store_121": (lambda L: L.make_shardstore_protocol([1, 2, 1]), 1024,
+                  {1: 8, 2: 38, 3: 142, 4: 467, 5: 1411}),
+    "store_1_2_full": (lambda L: L.make_shardstore_protocol(
+        [[1], [2]], model_master_timers=True, model_ctl=True), 1024, {}),
+    "tx_1": (lambda L: L.make_shardstore_tx_protocol(1), 1024,
+             {1: 8, 2: 38}),
+    "multi": (lambda L: L.make_shardstore_multi_protocol(), 512,
+              {1: 10, 2: 69}),
+}
+# The reference's slow goal tests, on the card through the device loop:
+# name -> (factory, max_depth, pinned [end, unique, explored, depth]) at
+# chunk 1024 and frontier_cap 2^18; the pins are one run of the JAX
+# package's TensorSearch with the same arguments on the CPU
+# (python -m tests.torch_lab4_cases).
+LAB4_GOALS = {
+    "store_11_goal": (lambda L: L.make_shardstore_protocol([1, 1]), 11,
+                      ["GOAL_FOUND", 51243, 310245, 10]),
+    "tx_1_goal": (lambda L: L.make_shardstore_tx_protocol(1), 14,
+                  ["GOAL_FOUND", 27549, 129682, 8]),
+}
+# Levels below the joined root at which the harness goals are found:
+# part 2 test10 and part 3 test08 (the store twin's goal depth), part 3
+# test09 (the object checker's goal depth).
+LAB4_GOAL_LEVELS = {"p2_test10": 10, "p3_test08": 10, "p3_test09": 8}
+
+
+def phase_lab4(torch, mods):
+    """The lab 4 twins on the card: shapes, the fingerprint kernel
+    bit-exact at their widths, their pinned counts through the device loop
+    (each twin's depth-3 run equal to the same run on the CPU, insert
+    device launches equal to insert calls), the reference's two slow goal
+    searches at full width, and the lab 4 search tests through the
+    harness binding."""
+    engine, kernels = mods["engine"], mods["kernels"]
+    from dslabs_tpu_torch.tpu import specs_lab4 as L
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    t_part = time.time()
+    shapes, fps, pins = {}, {}, {}
+    gen = torch.Generator().manual_seed(4)
+    sentinel = engine.SENTINEL
+    for name, (make, chunk, pinned) in LAB4_TWINS.items():
+        p = dataclasses.replace(make(L), goals={})
+        ts = engine.TensorSearch(p, chunk=chunk, visited_cap=1 << 20)
+        pk = ts._pk
+        shapes[name] = dict(
+            lanes=ts.lanes, node_lanes=p.node_width, nodes=p.n_nodes,
+            event_slots=ts._num_events(), packed_words=ts.plane,
+            bytes_per_state=(pk.bytes_per_state if pk is not None
+                             else ts.lanes * 4))
+        # Depth 3 on the card, with the fingerprint's inputs kept: its
+        # last call holds the successor rows of the depth-3 level.
+        seen = []
+        fp_kernel = kernels.fingerprint_rows
+
+        def spy(flat, seen=seen, fp_kernel=fp_kernel):
+            seen[:] = [flat]
+            return fp_kernel(flat)
+
+        kernels.fingerprint_rows = spy
+        try:
+            o3, rec3 = timed_search(torch, mods, engine.TensorSearch(
+                p, chunk=chunk, visited_cap=1 << 20, max_depth=3))
+        finally:
+            kernels.fingerprint_rows = fp_kernel
+        t = time.time()
+        cpu = engine.TensorSearch(p, chunk=64,
+                                  visited_cap=1 << 20, max_depth=3,
+                                  device="cpu").run()
+        cpu_secs = time.time() - t
+        check(key(cpu) == rec3["key"],
+              f"lab4 {name} depth 3: card {rec3['key']} vs CPU {key(cpu)}")
+        runs = {3: dict(rec3, cpu_secs=cpu_secs)}
+        deepest = max(pinned, default=3)
+        for d in sorted(pinned):
+            if d == 3:
+                continue
+            ts_d = engine.TensorSearch(p, chunk=chunk, visited_cap=1 << 20,
+                                       max_depth=d)
+            if d == deepest:
+                # The deepest run under the profiler: one insert device
+                # launch per insert call.
+                o, wall_ms, _, busy_ms, calls, _, n_prof = \
+                    profiled_inserts(torch, mods, ts_d, f"lab4 {name} d{d}")
+                check(calls > 0, f"lab4 {name} depth {d}: no insert call")
+                runs[d] = dict(key=key(o), wall_ms=wall_ms,
+                               device_busy_share=busy_ms / wall_ms,
+                               insert_calls=calls,
+                               insert_device_launches=calls,
+                               profiled_runs=n_prof)
+            else:
+                runs[d] = timed_search(torch, mods, ts_d)[1]
+        for d, want in pinned.items():
+            check(runs[d]["key"][1] == want
+                  and runs[d]["key"][0] == "DEPTH_EXHAUSTED",
+                  f"lab4 {name} depth {d}: {runs[d]['key']} vs pin {want}")
+        check(all(v > 0 for v in rec3["launches"].values()),
+              f"lab4 {name}: a kernel was not launched: {rec3}")
+        pins[name] = runs
+
+        # The fingerprint kernel at this width: the depth-3 successor
+        # rows, seeded random rows and SENTINEL rows, bit-exact.
+        lanes = ts.lanes
+        rand = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096, lanes),
+                             generator=gen, dtype=torch.int32).cuda()
+        sent = torch.full_like(rand[:64], sentinel)
+        mixed = torch.where(torch.rand((4096, lanes), generator=gen)
+                            .cuda() < 0.3, sentinel, rand)
+        cases = dict(depth3_successors=seen[-1], random=rand,
+                     sentinel=sent, mixed=mixed)
+        errs = {}
+        for cname, flat in cases.items():
+            k = kernels.fingerprint_rows(flat)
+            pl = engine.row_fingerprints(flat)
+            torch.cuda.synchronize()
+            errs[cname] = [list(flat.shape), int(
+                (k.to(torch.int64) - pl.to(torch.int64)).abs().max())]
+            check(errs[cname][1] == 0,
+                  f"lab4 {name}: fingerprint_rows {cname} {errs[cname]}")
+        fps[name] = errs
+    emit({"phase": "lab4", "part": "twins", "secs": time.time() - t_part,
+          "shapes": shapes, "fingerprint": fps, "pins": pins})
+
+    t_part = time.time()
+    goals = {}
+    for name, (make, depth, want) in LAB4_GOALS.items():
+        ts = engine.TensorSearch(make(L), chunk=1024, frontier_cap=1 << 18,
+                                 max_depth=depth)
+        o, rec = timed_search(torch, mods, ts)
+        check(rec["key"] == want and all(
+            v > 0 for v in rec["launches"].values()),
+              f"lab4 {name}: {rec} vs pin {want}")
+        goals[name] = rec
+    emit({"phase": "lab4", "part": "goals", "secs": time.time() - t_part,
+          "goals": goals})
+
+    lab4_harness(torch, mods)
+
+
+def lab4_harness(torch, mods):
+    """The lab 4 search tests through the harness binding on the card
+    (:class:`HarnessRuns`): each join phase, then the main phases of
+    tests/torch_lab4_cases.py's shapes; the count-parity shape also on
+    the port's object checker in this process."""
+    from dslabs_tpu_torch.search import search as osearch
+    from tests import torch_harness_cases as H
+    from tests import torch_lab4_cases as C
+
+    P = H.Pkg("dslabs_tpu_torch")
+    t_part = time.time()
+    with HarnessRuns(torch, mods) as hr:
+        for name, (groups, shards, build) in C.SHAPES.items():
+            joined = C.joined_state(
+                P, groups, shards,
+                run=lambda case, n=name: hr.search(f"{n}_join", case)[0])
+            check(joined._tensor_provenance.key[0] == "ss-join",
+                  f"lab4 {name}: join provenance "
+                  f"{joined._tensor_provenance.key}")
+            for i, case in enumerate(build(P, joined)):
+                label = f"{name}_{i}"
+                res, rec = hr.search(label, case)
+                rec["root_depth"] = joined.depth
+                check(rec["end"] in case.expect, f"lab4 {label}: {rec}")
+                if rec["end"] == "GOAL_FOUND":
+                    check(rec["depth"] == joined.depth
+                          + LAB4_GOAL_LEVELS[name]
+                          and any(p.check(H.terminal(res)).value
+                                  for p in case.settings.goals),
+                          f"lab4 {label}: goal {rec}")
+                if name == "count_parity":
+                    obj = osearch.BFS(case.settings).run(case.state)
+                    rec["object"] = dict(end=H.end_name(obj),
+                                         unique=obj.discovered_count)
+                    check(rec["end"] == H.end_name(obj) == "SPACE_EXHAUSTED"
+                          and rec["unique"] == obj.discovered_count,
+                          f"lab4 {label}: {rec}")
+    emit({"phase": "lab4", "part": "harness", "secs": time.time() - t_part,
+          "searches": hr.records})
 
 
 def phase_search(torch, mods, max_secs: float):
@@ -963,6 +1220,7 @@ def main() -> int:
     phase_profile(torch, mods, PROFILE_DEPTH)
     phase_trace(torch, mods, PROFILE_DEPTH)
     phase_harness(torch, mods)
+    phase_lab4(torch, mods)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)
 
     replaces = {

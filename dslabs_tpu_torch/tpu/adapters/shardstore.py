@@ -1,0 +1,1033 @@
+"""Lab 4 twin adapters for the harness search backend (tpu/backend.py);
+counterpart of ``dslabs_tpu/tpu/adapters/shardstore.py``.
+
+Lab 4's search tests are TWO-phase (ShardStoreBaseTest.java:209-220 via
+tests/test_lab4_shardstore.py):
+
+1. The JOIN phase: the config controller (a PaxosClient ClientWorker)
+   drives G Join commands through the shard master, with every store
+   server cut off.  :class:`JoinBinding` runs it on the generated
+   join twin (tpu/specs_lab4.py make_join_protocol).
+2. The MAIN phase: staged from the join goal state, a ShardStoreClient
+   worker drives a KV workload through the store groups.
+   :class:`ShardStoreBinding` runs it on the generated shardstore
+   twin (tpu/specs_lab4.py make_shardstore_protocol), whose initial
+   state BAKES IN the
+   staged joins — so ``derive_root`` VALIDATES that the staged object
+   state is the canonical joined root (every deviation is a loud
+   NoTensorTwin) instead of replaying provenance.  This also lets
+   object-staged roots (no tensor provenance) seed tensor searches.
+
+Both bindings re-check what the twins value-collapse: app results
+resolve from the replayed object state's network via MessageTemplate,
+and RESULTS_OK-class invariants are marked ``value_level`` so the
+backend's sampled exhaust re-check covers them object-side.
+
+Lane predicates and delivery masks take a leading batch dimension: a
+predicate maps a state batch (``nodes`` [N, NW]) to [N] bool, a mask maps
+message records [..., MW] to bool [...].  A record whose flat (frm, to)
+index falls outside the link matrix reads False, as the reference's
+one-hot select does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import torch
+
+from dslabs_tpu_torch.tpu.adapters.paxos import _workload_pairs
+from dslabs_tpu_torch.tpu.backend import (
+    NoTensorTwin, TwinBinding, register_adapter)
+
+__all__ = ["JoinBinding", "ShardStoreBinding"]
+
+PAXOS_ID = "paxos"
+
+
+def _link_mask_fn(nn: int):
+    """fn(msg [..., MW], [NN * NN] link matrix) -> bool [...] over the
+    compiled [tag, frm, to, ...] rows: flat index frm * nn + to, False
+    outside the matrix (frm and to are not clipped one by one)."""
+    def fn(msg, marr):
+        k = msg[..., 1] * nn + msg[..., 2]
+        inside = (k >= 0) & (k < nn * nn)
+        return inside & marr[k.clamp(0, nn * nn - 1).long()]
+    return fn
+
+
+def _single(seq, what: str):
+    items = list(seq)
+    if len(items) != 1:
+        raise NoTensorTwin(
+            f"shardstore twin models exactly one {what} "
+            f"(found {len(items)})")
+    return items[0]
+
+
+def _ctl_live(settings, ctl_names, master_name):
+    """Controller addresses whose events are deliverable under the FULL
+    should_deliver precedence (link override -> sender -> receiver ->
+    network, testing/settings.py:138-151) or whose timers are live."""
+    from dslabs_tpu_torch.core.address import LocalAddress
+
+    snd = {str(a): v for a, v in settings._sender_active.items()}
+    rcv = {str(a): v for a, v in settings._receiver_active.items()}
+    link = {(str(f), str(t)): v
+            for (f, t), v in settings._link_active.items()}
+
+    def msg_live(f, t):
+        v = link.get((f, t))
+        if v is None:
+            v = snd.get(f)
+        if v is None:
+            v = rcv.get(t)
+        if v is None:
+            v = settings._network_active
+        return v
+
+    return [n for n in ctl_names
+            if (settings.should_deliver_timer(LocalAddress(n))
+                or msg_live(n, master_name)
+                or msg_live(master_name, n))]
+
+
+def _validate_joined_root(state, master_name, server_names,
+                          client_names) -> None:
+    """Shared canonical-joined-root validation: the lab4 twins' initial
+    states BAKE IN the staged joins, so instead of provenance replay the
+    bindings verify the staged object state matches that canonical shape
+    field by field — any deviation is a loud NoTensorTwin, never a
+    silently-wrong root."""
+    from dslabs_tpu_torch.core.address import LocalAddress
+
+    def req(cond, what):
+        if not cond:
+            raise NoTensorTwin(
+                f"staged state is not the canonical joined root: {what}")
+
+    by_name = {str(a): s for a, s in state.servers.items()}
+    master = by_name[master_name]
+    app = master.app
+    for name in (*client_names, *server_names):
+        req(app.last.get(LocalAddress(name)) is None,
+            f"master AMO already has an entry for {name}")
+    for name in server_names:
+        s = by_name[name]
+        req(s.current_config is None, f"{name} already has a config")
+        req(s.qseq == 0, f"{name} qseq {s.qseq} != 0")
+        req(not s.owned and not s.incoming and not s.outgoing,
+            f"{name} has shard-handoff state")
+        req(not s.locks and not s.prepared and not s.coord,
+            f"{name} has 2PC state")
+        req(not s.paxos.log, f"{name} paxos log not empty")
+    workers = {str(a): w for a, w in state.client_workers().items()}
+    for name in client_names:
+        worker = workers[name]
+        req(not worker.results, f"{name} already has results")
+        c = worker.client
+        req(c.current_config is None, f"{name} already has a config")
+        req(c.qseq == 2, f"{name} qseq {c.qseq} != 2 (init + "
+            "config-less send_pending fallback)")
+        req(c.pending is not None and c.pending.sequence_num == 1,
+            f"{name}'s first command is not pending")
+
+
+class JoinBinding(TwinBinding):
+    """Join-phase binding: one shard master + the config controller,
+    store servers cut off (tpu/specs_lab4.py make_join_protocol)."""
+
+    def __init__(self, state, master_addr, worker_addr, store_addrs):
+        from dslabs_tpu_torch.labs.shardedstore.shardmaster import Join, Ok
+
+        self.master_name = str(master_addr)
+        self.client_name = str(worker_addr)
+        self.store_names = [str(a) for a in store_addrs]
+        self.addr_index = {self.master_name: 0, self.client_name: 1}
+        worker = state.client_workers()[worker_addr]
+        pairs = _workload_pairs(worker, worker_addr)
+        for cmd, res in pairs:
+            if not isinstance(cmd, Join):
+                raise NoTensorTwin(
+                    f"join twin models Join workloads only, got {cmd!r}")
+            if res is not None and not isinstance(res, Ok):
+                raise NoTensorTwin(
+                    f"join twin expects Ok results, got {res!r}")
+        self.pairs = pairs
+        self.w = len(pairs)
+        # The master's post-init self-election ballot (constant for a
+        # lone server: paxos.py:261-265 never re-elects a leader whose
+        # ballot is its own) — recorded for HeartbeatTimer decode.
+        self.master_ballot = state.servers[master_addr].ballot
+        self.key = ("ss-join", self.master_name, self.client_name,
+                    tuple(repr(c) for c, _ in pairs))
+
+    def initial_caps(self):
+        return 12, 4
+
+    def check_settings(self, settings) -> None:
+        from dslabs_tpu_torch.core.address import LocalAddress
+
+        for name in self.store_names:
+            if settings.should_deliver_timer(LocalAddress(name)):
+                raise NoTensorTwin(
+                    f"join twin does not model store server {name}; its "
+                    "timers must be suppressed "
+                    "(settings.deliver_timers(addr, False))")
+
+    def build_protocol(self, net_cap, timer_cap):
+        from dslabs_tpu_torch.tpu.specs_lab4 import make_join_protocol
+
+        # net_cap passes through unchanged so the capacity ladder's
+        # doubling (net_cap << attempt) actually escalates this twin.
+        p = make_join_protocol(self.w, net_cap=max(net_cap, 12),
+                               timer_cap=max(timer_cap, 4))
+        return dataclasses.replace(
+            p, decode_message=self._decode_message,
+            decode_timer=self._decode_timer)
+
+    # ------------------------------------------------------------ decoders
+
+    def _decode_message(self, rec):
+        from dslabs_tpu_torch.core.address import LocalAddress
+        from dslabs_tpu_torch.labs.clientserver.amo import (
+            AMOCommand, AMOResult)
+        from dslabs_tpu_torch.labs.paxos.paxos import PaxosReply, PaxosRequest
+        from dslabs_tpu_torch.tpu.specs_lab4 import JOIN_REQ as REQ
+        from dslabs_tpu_torch.tpu.trace import MessageTemplate
+
+        # Compiled rows are [tag, frm, to, payload...].
+        tag, seq = int(rec[0]), int(rec[3])
+        master = LocalAddress(self.master_name)
+        client = LocalAddress(self.client_name)
+        if tag == REQ:
+            cmd = self.pairs[seq - 1][0]
+            return client, master, PaxosRequest(
+                AMOCommand(cmd, client, seq))
+        res = self.pairs[seq - 1][1]
+        fallback = (PaxosReply(AMOResult(res, seq))
+                    if res is not None else None)
+        return master, client, MessageTemplate(
+            PaxosReply, fallback,
+            lambda m, s=seq: m.result.sequence_num == s)
+
+    def _decode_timer(self, node_idx, rec):
+        from dslabs_tpu_torch.core.address import LocalAddress
+        from dslabs_tpu_torch.labs.paxos import paxos as P
+        from dslabs_tpu_torch.tpu.specs_lab4 import (
+            CLIENT_MS, ELECTION_MAX, ELECTION_MIN, HEARTBEAT_MS,
+            JOIN_T_CLIENT as T_CLIENT, JOIN_T_ELECTION as T_ELECTION,
+            JOIN_T_HEARTBEAT as T_HEARTBEAT)
+
+        tag, p0 = int(rec[0]), int(rec[3])
+        if tag == T_ELECTION:
+            return (LocalAddress(self.master_name), P.ElectionTimer(),
+                    ELECTION_MIN, ELECTION_MAX)
+        if tag == T_HEARTBEAT:
+            return (LocalAddress(self.master_name),
+                    P.HeartbeatTimer(self.master_ballot),
+                    HEARTBEAT_MS, HEARTBEAT_MS)
+        if tag == T_CLIENT:
+            return (LocalAddress(self.client_name), P.ClientTimer(p0),
+                    CLIENT_MS, CLIENT_MS)
+        raise NoTensorTwin(f"unknown join timer tag {tag}")
+
+    # ---------------------------------------------------------------- masks
+
+    def msg_mask_fn(self):
+        # Compiled rows carry frm/to lanes: flat = frm * 2 + to.
+        return _link_mask_fn(2)
+
+    # ----------------------------------------------------------- predicates
+
+    def predicate(self, tkey):
+        kind = tkey[0]
+        w = self.w
+
+        def k(s):
+            return s["nodes"][:, 3]                    # K lane
+
+        def const_true(s):
+            return k(s) >= 1
+        const_true.value_level = True
+
+        if kind in ("RESULTS_OK", "RESULTS_LINEARIZABLE",
+                    "ALL_RESULTS_SAME"):
+            return const_true
+        if kind == "CLIENTS_DONE":
+            return lambda s: k(s) == w + 1
+        if kind == "CLIENT_DONE":
+            if str(tkey[1].root_address()) != self.client_name:
+                return None
+            return lambda s: k(s) == w + 1
+        if kind == "CLIENT_HAS_RESULTS":
+            if str(tkey[1].root_address()) != self.client_name:
+                return None
+            num = tkey[2]
+            return lambda s: k(s) >= num + 1
+        if kind == "NONE_DECIDED":
+            return lambda s: k(s) == 1
+        return None
+
+
+class ShardStoreBinding(TwinBinding):
+    """Main-phase binding: G one-server groups + one shard master + one
+    ShardStoreClient worker over a KV workload (the ShardStorePart1Test
+    test10/test11 shapes; tpu/specs_lab4.py
+    make_shardstore_protocol)."""
+
+    def __init__(self, state, master_addr, kv_addrs, ctl_addrs):
+        from dslabs_tpu_torch.labs.shardedstore.shardmaster import ShardConfig
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ShardStoreServer, key_to_shard)
+        from dslabs_tpu_torch.labs.shardedstore.txkvstore import Transaction
+
+        self.master_name = str(master_addr)
+        kv_addrs = sorted(kv_addrs, key=str)
+        self.client_names = [str(a) for a in kv_addrs]
+        self.NC = len(kv_addrs)
+        self.ctl_names = [str(a) for a in ctl_addrs]
+        master = state.servers[master_addr]
+
+        # Store groups: exactly one server per group, contiguous ids.
+        by_group: Dict[int, object] = {}
+        for a, s in state.servers.items():
+            if isinstance(s, ShardStoreServer):
+                if s.group_id in by_group:
+                    raise NoTensorTwin(
+                        "shardstore twin models ONE server per group "
+                        f"(group {s.group_id} has several) — use the "
+                        "multi-server twin shapes")
+                by_group[s.group_id] = (a, s)
+        self.G = len(by_group)
+        if sorted(by_group) != list(range(1, self.G + 1)):
+            raise NoTensorTwin(
+                f"group ids must be 1..G, got {sorted(by_group)}")
+        if self.G > 2:
+            raise NoTensorTwin(
+                "shardstore twin models at most 2 groups "
+                "(3+ need multi-hop handoff modelling)")
+        self.server_names = [str(by_group[g][0])
+                             for g in range(1, self.G + 1)]
+        self.server_addrs = [by_group[g][0]
+                             for g in range(1, self.G + 1)]
+        # Per-group paxos sub-node self-election ballot (constant) for
+        # HeartbeatTimer decode.
+        self.ballots = [by_group[g][1].paxos.ballot
+                        for g in range(1, self.G + 1)]
+
+        self.addr_index = {self.master_name: 0}
+        for g, n in enumerate(self.server_names, start=1):
+            self.addr_index[n] = g
+        for c, n in enumerate(self.client_names):
+            self.addr_index[n] = self.G + 1 + c
+        # The controller rides as the last twin node when its join-phase
+        # debris is deliverable (model_ctl); harmless padding otherwise.
+        if len(self.ctl_names) == 1:
+            self.addr_index[self.ctl_names[0]] = self.G + 1 + self.NC
+        self.master_ballot = master.ballot
+        self.ctl_pairs = ([_workload_pairs(state.client_workers()[
+            ctl_addrs[0]], ctl_addrs[0])] if len(ctl_addrs) == 1 else [])
+        # Settings-dependent modelling flags; bound in check_settings
+        # (called before build_protocol, backend._run_tensor).
+        self._model_mh = False
+        self._model_ctl = False
+
+        # The decided config walk, read from the staged master's app.
+        app = master.app.application if master.app is not None else None
+        configs = getattr(app, "configs", None)
+        if not configs or len(configs) != self.G:
+            raise NoTensorTwin(
+                f"master has {len(configs or [])} configs, twin expects "
+                f"one per group ({self.G})")
+        if not all(isinstance(c, ShardConfig) for c in configs):
+            raise NoTensorTwin("master configs are not ShardConfigs")
+        self.configs: List[ShardConfig] = list(configs)
+        self.num_shards = by_group[1][1].num_shards
+        if self.G == 2:
+            # The twin's handoff model assumes cfg0 assigns every shard
+            # to group 1 (successive Joins).
+            for s in range(1, self.num_shards + 1):
+                if self.configs[0].group_of(s) != 1:
+                    raise NoTensorTwin(
+                        "twin assumes the first config assigns all "
+                        f"shards to group 1 (shard {s} differs)")
+
+        # Workloads -> per-client, per-command owning group under the
+        # final config.
+        final = self.configs[-1]
+        workers = state.client_workers()
+        self.pairs = []                     # per client: [(cmd, res)]
+        self.groups_of: List[List[int]] = []
+        for addr in kv_addrs:
+            pairs = _workload_pairs(workers[addr], addr)
+            gs = []
+            for cmd, _ in pairs:
+                if isinstance(cmd, Transaction):
+                    # A SINGLE-group transaction executes like any app
+                    # command (shards <= mine -> app.execute, no 2PC:
+                    # shardstore.py _execute_client_command) — the twin
+                    # is command-content agnostic, so it binds here.
+                    # Cross-group transactions route to TxBinding.
+                    tgs = {final.group_of(key_to_shard(k,
+                                                       self.num_shards))
+                           for k in cmd.key_set()}
+                    if len(tgs) != 1:
+                        raise NoTensorTwin(
+                            f"cross-group transaction {cmd!r} — the tx "
+                            "twin covers those shapes")
+                    gs.append(tgs.pop())
+                    continue
+                key = getattr(cmd, "key", None)
+                if key is None:
+                    raise NoTensorTwin(f"command {cmd!r} has no key")
+                g = final.group_of(key_to_shard(key, self.num_shards))
+                if g is None or not 1 <= g <= self.G:
+                    raise NoTensorTwin(
+                        f"key {key!r} maps to group {g} outside "
+                        f"1..{self.G}")
+                gs.append(g)
+            self.pairs.append(pairs)
+            self.groups_of.append(gs)
+        self.Ws = [len(p) for p in self.pairs]
+        self.key = ("shardstore", self.master_name,
+                    tuple(self.client_names), tuple(self.server_names),
+                    tuple(tuple(repr(c) for c, _ in p)
+                          for p in self.pairs),
+                    tuple(tuple(g) for g in self.groups_of))
+        # Client lane offsets (protocol layout: master 1+NC+G, server
+        # blocks 6+2NC each, then [k, cfg, cq] per client).
+        self._cli0 = (2 + self.NC + self.G) + (6 + 2 * self.NC) * self.G
+
+    def initial_caps(self):
+        return 48, 6
+
+    # ------------------------------------------------------------- settings
+
+    def check_settings(self, settings) -> None:
+        """Bind the settings-dependent modelling flags: live master
+        timers -> model the heard lane + election/heartbeat; an active
+        controller -> model its node + join debris (test13's random
+        search narrows nothing).  Suppressed events stay unmodelled —
+        the runtime masks would gate them anyway, but the narrow twin
+        keeps the event grids small."""
+        from dslabs_tpu_torch.core.address import LocalAddress
+
+        self._model_mh = settings.should_deliver_timer(
+            LocalAddress(self.master_name))
+        live = _ctl_live(settings, self.ctl_names, self.master_name)
+        if live and len(self.ctl_names) != 1:
+            raise NoTensorTwin(
+                f"controllers {live} are active but the twin models at "
+                "most one controller node")
+        self._model_ctl = bool(live)
+
+    # ----------------------------------------------------------------- root
+
+    def derive_root(self, search, state):
+        """The twin's initial state IS the canonical joined root — so
+        instead of provenance replay, VALIDATE that the staged object
+        state matches it field by field (any deviation is loud)."""
+        prov = getattr(state, "_tensor_provenance", None)
+        if prov is not None and prov.key == self.key:
+            from dslabs_tpu_torch.tpu import backend as _b
+
+            return _b.derive_root(self, search, state)
+        if getattr(state, "_staged_ops", None):
+            raise NoTensorTwin(
+                "staged network ops on the joined root are not part of "
+                "the canonical lab4 shape")
+
+        _validate_joined_root(state, self.master_name,
+                              self.server_names, self.client_names)
+
+        def req(cond, what):
+            if not cond:
+                raise NoTensorTwin(
+                    f"staged state is not the canonical joined root: "
+                    f"{what}")
+
+        by_name = {str(a): s for a, s in state.servers.items()}
+        master = by_name[self.master_name]
+        if self._model_mh:
+            req(master.heard_from_leader,
+                "master heard_from_leader is False (twin init assumes "
+                "the clean join path's final self-P2a)")
+            kinds = [type(t.timer).__name__
+                     for t in state.timers(
+                         self._addr(self.master_name))]
+            req(kinds == ["ElectionTimer", "HeartbeatTimer"],
+                f"master timer queue {kinds} != [Election, Heartbeat]")
+        if self._model_ctl:
+            from dslabs_tpu_torch.labs.paxos.paxos import (
+                ClientTimer, PaxosReply, PaxosRequest)
+
+            name = self.ctl_names[0]
+            workers = {str(a): w
+                       for a, w in state.client_workers().items()}
+            ctl_client = workers[name].client
+            G = self.G
+            req(ctl_client.pending is None and ctl_client.seq_num == G,
+                f"controller {name} join workload not drained")
+            reqs, reps = set(), set()
+            for m in state.network():
+                frm, to = str(m.frm.root_address()), str(
+                    m.to.root_address())
+                if frm == name and to == self.master_name:
+                    req(isinstance(m.message, PaxosRequest),
+                        f"unexpected controller message {m.message!r}")
+                    reqs.add(m.message.command.sequence_num)
+                elif frm == self.master_name and to == name:
+                    req(isinstance(m.message, PaxosReply),
+                        f"unexpected controller reply {m.message!r}")
+                    reps.add(m.message.result.sequence_num)
+            want = set(range(1, G + 1))
+            req(reqs == want and reps == want,
+                f"join debris REQ {sorted(reqs)} / REP {sorted(reps)} "
+                f"!= the clean path's {sorted(want)}")
+            cts = [t.timer for t in state.timers(self._addr(name))]
+            req(all(isinstance(t, ClientTimer) for t in cts)
+                and [t.sequence_num for t in cts] == list(range(1, G + 1)),
+                f"controller timer queue {cts} != ClientTimer(1..{G})")
+        return None, []
+
+    # ------------------------------------------------------------- protocol
+
+    def build_protocol(self, net_cap, timer_cap):
+        from dslabs_tpu_torch.tpu.specs_lab4 import \
+            make_shardstore_protocol
+
+        p = make_shardstore_protocol(
+            self.groups_of, net_cap=max(net_cap, 48),
+            timer_cap=max(timer_cap, 6),
+            model_master_timers=self._model_mh,
+            model_ctl=self._model_ctl)
+        return dataclasses.replace(
+            p, decode_message=self._decode_message,
+            decode_timer=self._decode_timer)
+
+    # ------------------------------------------------------------ decoders
+
+    def _addr(self, name):
+        from dslabs_tpu_torch.core.address import LocalAddress
+
+        return LocalAddress(name)
+
+    def _decode_message(self, rec):
+        from dslabs_tpu_torch.labs.clientserver.amo import (
+            AMOCommand, AMOResult)
+        from dslabs_tpu_torch.labs.paxos.paxos import PaxosReply, PaxosRequest
+        from dslabs_tpu_torch.labs.shardedstore.shardmaster import (
+            Query, ShardConfig)
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ShardMove, ShardMoveAck, ShardStoreReply, ShardStoreRequest,
+            WrongGroup)
+        from dslabs_tpu_torch.tpu.specs_lab4 import (
+            JREP, JREQ, QREP, QRY, SM, SMACK, SSREP, SSREQ, WG)
+        from dslabs_tpu_torch.tpu.trace import MessageTemplate
+
+        # Compiled rows are [tag, frm, to, payload...]; the payload
+        # field orders below mirror the spec's MessageType tuples.
+        r = [int(x) for x in rec]
+        tag, a, b, c = r[0], r[3], r[4], (r[5] if len(r) > 5 else 0)
+        master = self._addr(self.master_name)
+        NC = self.NC
+        final_num = self.configs[-1].config_num
+        if tag == QRY:
+            frm = (self._addr(self.client_names[a]) if a < NC
+                   else self._addr(self.server_names[a - NC]))
+            return frm, master, PaxosRequest(
+                AMOCommand(Query(c), frm, b))
+        if tag == QREP:
+            to = (self._addr(self.client_names[a]) if a < NC
+                  else self._addr(self.server_names[a - NC]))
+            return master, to, MessageTemplate(
+                PaxosReply, None,
+                lambda m, s=b: (m.result.sequence_num == s
+                                and isinstance(m.result.result,
+                                               ShardConfig)))
+        if tag == SSREQ:
+            client = self._addr(self.client_names[a])
+            g = self.groups_of[a][b - 1]
+            cmd = self.pairs[a][b - 1][0]
+            return client, self._addr(self.server_names[g - 1]), \
+                ShardStoreRequest(AMOCommand(cmd, client, b))
+        if tag == SSREP:
+            client = self._addr(self.client_names[a])
+            g = self.groups_of[a][b - 1]
+            res = self.pairs[a][b - 1][1]
+            fallback = (ShardStoreReply(AMOResult(res, b))
+                        if res is not None else None)
+            return self._addr(self.server_names[g - 1]), client, \
+                MessageTemplate(
+                    ShardStoreReply, fallback,
+                    lambda m, s=b: m.result.sequence_num == s)
+        if tag == WG:
+            client = self._addr(self.client_names[a])
+            g = self.groups_of[a][b - 1]
+            return (self._addr(self.server_names[g - 1]), client,
+                    WrongGroup(b))
+        if tag == SM:
+            return (self._addr(self.server_names[0]),
+                    self._addr(self.server_names[1]),
+                    MessageTemplate(
+                        ShardMove, None,
+                        lambda m: (m.config_num == final_num
+                                   and m.from_group == 1)))
+        if tag == SMACK:
+            return (self._addr(self.server_names[1]),
+                    self._addr(self.server_names[0]),
+                    MessageTemplate(
+                        ShardMoveAck, None,
+                        lambda m: m.config_num == final_num))
+        if tag == JREQ:
+            ctl = self._addr(self.ctl_names[0])
+            cmd = self.ctl_pairs[0][a - 1][0]
+            return ctl, master, PaxosRequest(AMOCommand(cmd, ctl, a))
+        if tag == JREP:
+            ctl = self._addr(self.ctl_names[0])
+            res = self.ctl_pairs[0][a - 1][1]
+            fallback = (PaxosReply(AMOResult(res, a))
+                        if res is not None else None)
+            return master, ctl, MessageTemplate(
+                PaxosReply, fallback,
+                lambda m, s=a: m.result.sequence_num == s)
+        raise NoTensorTwin(f"unknown shardstore message tag {tag}")
+
+    def _decode_timer(self, node_idx, rec):
+        from dslabs_tpu_torch.core.address import SubAddress
+        from dslabs_tpu_torch.labs.paxos import paxos as P
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ClientTimer, QueryTimer)
+        from dslabs_tpu_torch.tpu.specs_lab4 import (
+            CLIENT_MS, ELECTION_MAX, ELECTION_MIN, HEARTBEAT_MS, QUERY_MS,
+            T_CLIENT, T_ELECTION, T_HEARTBEAT, T_QUERY)
+
+        tag, p0 = int(rec[0]), int(rec[3])
+        node_idx = int(node_idx)
+        if node_idx == 0:
+            # Master-level paxos timers (model_master_timers).
+            if tag == T_ELECTION:
+                return (self._addr(self.master_name), P.ElectionTimer(),
+                        ELECTION_MIN, ELECTION_MAX)
+            return (self._addr(self.master_name),
+                    P.HeartbeatTimer(self.master_ballot),
+                    HEARTBEAT_MS, HEARTBEAT_MS)
+        if node_idx == self.G + 1 + self.NC:
+            # The controller's stale join-phase ClientTimer (model_ctl).
+            return (self._addr(self.ctl_names[0]), P.ClientTimer(p0),
+                    CLIENT_MS, CLIENT_MS)
+        if tag == T_CLIENT:
+            c = node_idx - self.G - 1
+            return (self._addr(self.client_names[c]), ClientTimer(p0),
+                    CLIENT_MS, CLIENT_MS)
+        g = node_idx                           # 1..G
+        name = self.server_names[g - 1]
+        if tag == T_QUERY:
+            return (self._addr(name), QueryTimer(), QUERY_MS, QUERY_MS)
+        sub = SubAddress(self._addr(name), PAXOS_ID)
+        if tag == T_ELECTION:
+            return (sub, P.ElectionTimer(), ELECTION_MIN, ELECTION_MAX)
+        if tag == T_HEARTBEAT:
+            return (sub, P.HeartbeatTimer(self.ballots[g - 1]),
+                    HEARTBEAT_MS, HEARTBEAT_MS)
+        raise NoTensorTwin(f"unknown shardstore timer tag {tag}")
+
+    # ---------------------------------------------------------------- masks
+
+    def msg_mask_fn(self):
+        # Compiled rows carry frm/to lanes directly, and the spec's node
+        # order matches addr_index (master 0, servers 1..G, clients
+        # G+1.., controller last).
+        return _link_mask_fn(len(self.addr_index))
+
+    # ----------------------------------------------------------- predicates
+
+    def predicate(self, tkey):
+        kind = tkey[0]
+        Ws, cli0 = self.Ws, self._cli0
+
+        def k(s, c):
+            return s["nodes"][:, cli0 + 3 * c]
+
+        def const_true(s):
+            return k(s, 0) >= 1
+        const_true.value_level = True
+
+        if kind in ("RESULTS_OK", "RESULTS_LINEARIZABLE",
+                    "ALL_RESULTS_SAME"):
+            return const_true
+        if kind == "CLIENTS_DONE":
+            def fn(s):
+                return torch.stack([k(s, c) == Ws[c] + 1
+                                    for c in range(self.NC)]).all(0)
+            return fn
+        if kind in ("CLIENT_DONE", "CLIENT_HAS_RESULTS"):
+            name = str(tkey[1].root_address())
+            if name not in self.client_names:
+                return None
+            c = self.client_names.index(name)
+            if kind == "CLIENT_DONE":
+                return lambda s: k(s, c) == Ws[c] + 1
+            num = tkey[2]
+            return lambda s: k(s, c) >= num + 1
+        if kind == "NONE_DECIDED":
+            def fn(s):
+                return torch.stack([k(s, c) == 1
+                                    for c in range(self.NC)]).all(0)
+            return fn
+        return None
+
+
+class ShardStoreTxBinding(TwinBinding):
+    """Cross-group-transaction binding (ShardStorePart2Test.test09 /
+    our test09_single_client_multi_group_tx_search): two one-server
+    groups, one client whose every command is a Transaction spanning
+    BOTH groups with its minimum shard owned by group 1 (the static
+    coordinator) — the shardstore_tx twin's exact scope.  Node order
+    mirrors the twin: master 0, servers 1..2, client 3."""
+
+    def __init__(self, state, master_addr, kv_addr, ctl_addrs):
+        from dslabs_tpu_torch.labs.shardedstore.shardmaster import ShardConfig
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ShardStoreServer, key_to_shard)
+        from dslabs_tpu_torch.labs.shardedstore.txkvstore import Transaction
+
+        self.master_name = str(master_addr)
+        self.client_name = str(kv_addr)
+        self.ctl_names = [str(a) for a in ctl_addrs]
+        master = state.servers[master_addr]
+
+        by_group = {}
+        for a, s in state.servers.items():
+            if isinstance(s, ShardStoreServer):
+                if s.group_id in by_group:
+                    raise NoTensorTwin(
+                        "tx twin models ONE server per group")
+                by_group[s.group_id] = (a, s)
+        if sorted(by_group) != [1, 2]:
+            raise NoTensorTwin(
+                f"tx twin models exactly groups 1..2, got "
+                f"{sorted(by_group)}")
+        self.server_names = [str(by_group[g][0]) for g in (1, 2)]
+        self.ballots = [by_group[g][1].paxos.ballot for g in (1, 2)]
+        self.master_ballot = master.ballot
+        self.num_shards = by_group[1][1].num_shards
+
+        self.addr_index = {self.master_name: 0,
+                           self.server_names[0]: 1,
+                           self.server_names[1]: 2,
+                           self.client_name: 3}
+
+        app = master.app.application if master.app is not None else None
+        configs = getattr(app, "configs", None)
+        if not configs or len(configs) != 2:
+            raise NoTensorTwin(
+                f"master has {len(configs or [])} configs, tx twin "
+                "expects 2 (Join(1), Join(2))")
+        if not all(isinstance(c, ShardConfig) for c in configs):
+            raise NoTensorTwin("master configs are not ShardConfigs")
+        self.configs = list(configs)
+        for s in range(1, self.num_shards + 1):
+            if self.configs[0].group_of(s) != 1:
+                raise NoTensorTwin(
+                    "tx twin assumes cfg0 assigns every shard to g1")
+
+        workers = state.client_workers()
+        pairs = _workload_pairs(workers[kv_addr], kv_addr)
+        final = self.configs[-1]
+        for cmd, _ in pairs:
+            if not isinstance(cmd, Transaction):
+                raise NoTensorTwin(
+                    f"tx twin models all-transaction workloads, got "
+                    f"{cmd!r}")
+            shards = sorted(key_to_shard(k, self.num_shards)
+                            for k in cmd.key_set())
+            tgs = {final.group_of(s) for s in shards}
+            if tgs != {1, 2}:
+                raise NoTensorTwin(
+                    f"transaction {cmd!r} spans groups {sorted(tgs)}, "
+                    "the tx twin models both-group transactions")
+            if final.group_of(min(shards)) != 1:
+                raise NoTensorTwin(
+                    "tx twin's static coordinator is group 1 (the "
+                    "minimum shard's owner)")
+        self.pairs = pairs
+        self.W = len(pairs)
+        self.key = ("shardstore-tx", self.master_name, self.client_name,
+                    tuple(self.server_names),
+                    tuple(repr(c) for c, _ in pairs))
+        # Client workload-index lane (tx twin layout: master 2+G, then
+        # per-server blocks 9 + 3W + 7W — the coordinator slot block
+        # rides on BOTH servers in the uniform compiled layout, zero
+        # on g2).
+        self._ck = (2 + 2) + (9 + 10 * self.W) * 2
+
+    def initial_caps(self):
+        return 48, 6
+
+    def check_settings(self, settings) -> None:
+        from dslabs_tpu_torch.core.address import LocalAddress
+
+        if settings.should_deliver_timer(
+                LocalAddress(self.master_name)):
+            raise NoTensorTwin(
+                "tx twin freezes the master's timers — settings must "
+                "deliver_timers(master, False)")
+        live = _ctl_live(settings, self.ctl_names, self.master_name)
+        if live:
+            raise NoTensorTwin(
+                f"controllers {live} must be fully suppressed — the "
+                "tx twin does not model their debris")
+
+    def derive_root(self, search, state):
+        prov = getattr(state, "_tensor_provenance", None)
+        if prov is not None and prov.key == self.key:
+            from dslabs_tpu_torch.tpu import backend as _b
+
+            return _b.derive_root(self, search, state)
+        if getattr(state, "_staged_ops", None):
+            raise NoTensorTwin(
+                "staged network ops on the joined root are not part of "
+                "the canonical lab4 shape")
+        _validate_joined_root(state, self.master_name,
+                              self.server_names, [self.client_name])
+        return None, []
+
+    def build_protocol(self, net_cap, timer_cap):
+        from dslabs_tpu_torch.tpu.specs_lab4 import \
+            make_shardstore_tx_protocol
+
+        p = make_shardstore_tx_protocol(
+            n_tx=self.W, net_cap=max(net_cap, 48),
+            timer_cap=max(timer_cap, 6))
+        return dataclasses.replace(
+            p, decode_message=self._decode_message,
+            decode_timer=self._decode_timer)
+
+    # ------------------------------------------------------------ decoders
+
+    def _addr(self, name):
+        from dslabs_tpu_torch.core.address import LocalAddress
+
+        return LocalAddress(name)
+
+    def _amo(self, t):
+        from dslabs_tpu_torch.labs.clientserver.amo import AMOCommand
+
+        return AMOCommand(self.pairs[t - 1][0],
+                          self._addr(self.client_name), t)
+
+    def _decode_message(self, rec):
+        from dslabs_tpu_torch.labs.clientserver.amo import (
+            AMOCommand, AMOResult)
+        from dslabs_tpu_torch.labs.paxos.paxos import PaxosReply, PaxosRequest
+        from dslabs_tpu_torch.labs.shardedstore.shardmaster import (
+            Query, ShardConfig)
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ShardMove, ShardMoveAck, ShardStoreReply, ShardStoreRequest, TxAck,
+            TxDecision, TxPrepare, TxVote, WrongGroup)
+        from dslabs_tpu_torch.tpu.specs_lab4 import (
+            QREP, QRY, SM, SMACK, SSREP, SSREQ, TXA, TXD, TXP, TXV, WG)
+        from dslabs_tpu_torch.tpu.trace import MessageTemplate
+
+        r = [int(x) for x in rec]
+        # Compiled rows are [tag, frm, to, payload...].
+        tag, a, b, c = r[0], r[3], r[4], r[5]
+        master = self._addr(self.master_name)
+        client = self._addr(self.client_name)
+        s1 = self._addr(self.server_names[0])
+        s2 = self._addr(self.server_names[1])
+        srv_of = {1: s1, 2: s2}
+        final_num = self.configs[-1].config_num
+        tx_id = lambda t: (client, t)     # noqa: E731
+        if tag == QRY:
+            frm = client if a == 0 else srv_of[a]
+            return frm, master, PaxosRequest(
+                AMOCommand(Query(c), frm, b))
+        if tag == QREP:
+            to = client if a == 0 else srv_of[a]
+            return master, to, MessageTemplate(
+                PaxosReply, None,
+                lambda m, s=b: (m.result.sequence_num == s
+                                and isinstance(m.result.result,
+                                               ShardConfig)))
+        if tag == SSREQ:
+            return client, s1, ShardStoreRequest(self._amo(a))
+        if tag == SSREP:
+            res = self.pairs[a - 1][1]
+            fallback = (ShardStoreReply(AMOResult(res, a))
+                        if res is not None else None)
+            return s1, client, MessageTemplate(
+                ShardStoreReply, fallback,
+                lambda m, s=a: m.result.sequence_num == s)
+        if tag == WG:
+            return s1, client, WrongGroup(a)
+        if tag == SM:
+            return s1, s2, MessageTemplate(
+                ShardMove, None,
+                lambda m: (m.config_num == final_num
+                           and m.from_group == 1))
+        if tag == SMACK:
+            return s2, s1, MessageTemplate(
+                ShardMoveAck, None,
+                lambda m: m.config_num == final_num)
+        if tag == TXP:
+            # The coordinator's prepare: config_num is constantly the
+            # final config's (coordination only happens at cfg1), the
+            # member tuple is g1's single server.
+            return s1, srv_of[c], TxPrepare(
+                self._amo(a), b, 1, final_num, (s1,))
+        if tag == TXV:
+            fg, ok = c // 2, bool(c % 2)
+            # Vote VALUES are () in every reachable voting state (the
+            # twin's collapse argument, shardstore_tx.py docstring).
+            return srv_of[fg], s1, TxVote(tx_id(a), b, fg, ok, ())
+        if tag == TXD:
+            dst, commit = c // 2, bool(c % 2)
+            return s1, srv_of[dst], MessageTemplate(
+                TxDecision, None,
+                lambda m, t=a, rnd=b, cm=commit: (
+                    m.tx_id == tx_id(t) and m.round == rnd
+                    and m.commit == cm))
+        if tag == TXA:
+            return srv_of[c], s1, TxAck(tx_id(a), b, c)
+        raise NoTensorTwin(f"unknown tx twin message tag {tag}")
+
+    def _decode_timer(self, node_idx, rec):
+        from dslabs_tpu_torch.core.address import SubAddress
+        from dslabs_tpu_torch.labs.paxos import paxos as P
+        from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+            ClientTimer, QueryTimer)
+        from dslabs_tpu_torch.tpu.specs_lab4 import (
+            CLIENT_MS, ELECTION_MAX, ELECTION_MIN, HEARTBEAT_MS, QUERY_MS,
+            T_CLIENT, T_ELECTION, T_HEARTBEAT, T_QUERY)
+
+        tag, p0 = int(rec[0]), int(rec[3])
+        node_idx = int(node_idx)
+        if tag == T_CLIENT:
+            return (self._addr(self.client_name), ClientTimer(p0),
+                    CLIENT_MS, CLIENT_MS)
+        name = self.server_names[node_idx - 1]
+        if tag == T_QUERY:
+            return (self._addr(name), QueryTimer(), QUERY_MS, QUERY_MS)
+        sub = SubAddress(self._addr(name), "paxos")
+        if tag == T_ELECTION:
+            return (sub, P.ElectionTimer(), ELECTION_MIN, ELECTION_MAX)
+        if tag == T_HEARTBEAT:
+            return (sub, P.HeartbeatTimer(self.ballots[node_idx - 1]),
+                    HEARTBEAT_MS, HEARTBEAT_MS)
+        raise NoTensorTwin(f"unknown tx twin timer tag {tag}")
+
+    # ---------------------------------------------------------------- masks
+
+    def msg_mask_fn(self):
+        # Compiled rows carry real frm/to lanes at msg[1]/msg[2] (node
+        # order matches addr_index: master, s1, s2, client).
+        return _link_mask_fn(len(self.addr_index))
+
+    # ----------------------------------------------------------- predicates
+
+    def predicate(self, tkey):
+        kind = tkey[0]
+        W, ck = self.W, self._ck
+
+        def k(s):
+            return s["nodes"][:, ck]
+
+        def const_true(s):
+            return k(s) >= 1
+        const_true.value_level = True
+
+        if kind in ("RESULTS_OK", "RESULTS_LINEARIZABLE",
+                    "ALL_RESULTS_SAME", "MULTI_GETS_MATCH"):
+            return const_true
+        if kind == "CLIENTS_DONE":
+            return lambda s: k(s) == W + 1
+        if kind == "CLIENT_DONE":
+            if str(tkey[1].root_address()) != self.client_name:
+                return None
+            return lambda s: k(s) == W + 1
+        if kind == "CLIENT_HAS_RESULTS":
+            if str(tkey[1].root_address()) != self.client_name:
+                return None
+            num = tkey[2]
+            return lambda s: k(s) >= num + 1
+        if kind == "NONE_DECIDED":
+            return lambda s: k(s) == 1
+        return None
+
+
+@register_adapter
+def match_shardstore(state):
+    from dslabs_tpu_torch.labs.paxos.paxos import PaxosClient, PaxosServer
+    from dslabs_tpu_torch.labs.shardedstore.shardmaster import \
+        ShardMasterCommand
+    from dslabs_tpu_torch.labs.shardedstore.shardstore import (
+        ShardStoreClient, ShardStoreServer)
+
+    servers = state.servers
+    if not servers:
+        return None
+    stores = [a for a, s in servers.items()
+              if isinstance(s, ShardStoreServer)]
+    masters = [a for a, s in servers.items()
+               if isinstance(s, PaxosServer)]
+    if not stores or not masters:
+        return None
+    workers = state.client_workers()
+    if not workers:
+        return None
+    kv = [a for a, w in workers.items()
+          if isinstance(w.client, ShardStoreClient)]
+    ctl = [a for a, w in workers.items()
+          if isinstance(w.client, PaxosClient)]
+    if len(kv) + len(ctl) != len(workers):
+        return None
+    if not kv:
+        # Join phase: one controller driving ShardMaster commands.
+        if len(ctl) != 1:
+            return None
+        wl = workers[ctl[0]].workload
+        if wl.infinite():
+            return None
+        cmds = wl._commands
+        if not cmds or not all(isinstance(c, ShardMasterCommand)
+                               for c in cmds):
+            return None
+        return JoinBinding(state, _single(masters, "shard master"),
+                           ctl[0], stores)
+    # Main phase: controllers must be finished (their workload
+    # drained).  Workloads containing a CROSS-group transaction bind to
+    # the 2PC twin; everything else (plain commands and single-group
+    # transactions, which execute without 2PC) binds to the Part-1 twin.
+    from dslabs_tpu_torch.labs.shardedstore.shardmaster import ShardConfig
+    from dslabs_tpu_torch.labs.shardedstore.shardstore import key_to_shard
+    from dslabs_tpu_torch.labs.shardedstore.txkvstore import Transaction
+
+    master_addr = _single(masters, "shard master")
+    master = servers[master_addr]
+    app = master.app.application if master.app is not None else None
+    configs = getattr(app, "configs", None)
+    cross = False
+    if configs and all(isinstance(c, ShardConfig) for c in configs):
+        final = configs[-1]
+        ns = next(s for s in servers.values()
+                  if isinstance(s, ShardStoreServer)).num_shards
+        for a in kv:
+            if workers[a].workload.infinite():
+                continue
+            # Materialize through the same path the bindings use, so
+            # string-template workloads whose PARSER yields
+            # Transactions route correctly too.
+            for cmd, _ in _workload_pairs(workers[a], a):
+                if isinstance(cmd, Transaction) and len(
+                        {final.group_of(key_to_shard(k, ns))
+                         for k in cmd.key_set()}) > 1:
+                    cross = True
+    if cross:
+        return ShardStoreTxBinding(state, master_addr,
+                                   _single(kv, "tx-workload client"),
+                                   ctl)
+    return ShardStoreBinding(state, master_addr, kv, ctl)

@@ -178,6 +178,7 @@ def register_adapter(fn: Callable) -> Callable:
 def _load_adapters() -> None:
     # Imported for their registration side effects.
     from dslabs_tpu_torch.tpu.adapters import paxos as _p  # noqa: F401
+    from dslabs_tpu_torch.tpu.adapters import shardstore as _ss  # noqa: F401
     from dslabs_tpu_torch.tpu.adapters import simple as _s  # noqa: F401
 
 

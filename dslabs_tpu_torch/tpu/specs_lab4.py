@@ -1,0 +1,1664 @@
+"""Generated lab 4 twins: the counterpart of
+``dslabs_tpu/tpu/specs_lab4.py``, the four sharded-store protocols the
+reference's lab 4 harness adapters bind, built as
+:class:`~dslabs_tpu_torch.tpu.compiler.ProtocolSpec` values on the
+replicated-protocol layer.
+
+The sharded store is a stack of sub-state machines, each declared once as
+a :class:`~dslabs_tpu_torch.tpu.compiler.Fragment` and composed onto the
+node kinds that carry it:
+
+* a reconfiguration-epoch fragment (config number, outgoing/incoming
+  handoff flags, the ShardMove/ShardMoveAck exchange),
+* a per-group Paxos fragment (ballots, slot log, P2b vote bitmaps,
+  election/heartbeat: the multi-server shape),
+* a 2PC vote fragment (per-transaction participant locks and the
+  coordinator's vote/ack ledgers, TxPrepare..TxAck).
+
+Slot-shaped state declares :class:`~dslabs_tpu_torch.tpu.slots.Slots`
+blocks; group majorities declare
+:class:`~dslabs_tpu_torch.tpu.quorum.QuorumCount`.  Every handler mirrors
+the reference spec handler for handler, and the layouts, lane domains and
+record widths equal the reference's, so the pinned unique-state counts
+carry over.  Handlers compute on the port's batched values: a scalar
+field is ``[P]``, an array field ``[P, size]``; static where-chains over
+per-pair values become ``torch.where`` chains with int32 lanes and bool
+masks, and per-pair indices go through the compiler's one-hot selects.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from dslabs_tpu_torch.tpu.compiler import (Field, Fragment, MessageType,
+                                           NodeKind, ProtocolSpec,
+                                           TimerType)
+from dslabs_tpu_torch.tpu.quorum import QuorumCount
+from dslabs_tpu_torch.tpu.slots import SlotField, Slots
+from dslabs_tpu_torch.tpu.specs_lab3 import _max
+
+__all__ = [
+    "make_join_spec", "make_join_protocol",
+    "make_shardstore_spec", "make_shardstore_protocol",
+    "make_shardstore_tx_spec", "make_shardstore_tx_protocol",
+    "make_shardstore_multi_spec", "make_shardstore_multi_protocol",
+    "make_shardstore_crash_spec",
+    "JOIN_REQ", "JOIN_REP",
+    "JOIN_T_CLIENT", "JOIN_T_ELECTION", "JOIN_T_HEARTBEAT",
+    "QRY", "QREP", "SSREQ", "SSREP", "WG", "SM", "SMACK", "JREQ",
+    "JREP", "TXP", "TXV", "TXD", "TXA",
+    "T_CLIENT", "T_QUERY", "T_ELECTION", "T_HEARTBEAT",
+    "CLIENT_MS", "QUERY_MS", "ELECTION_MIN", "ELECTION_MAX",
+    "HEARTBEAT_MS",
+]
+
+CLIENT_MS = 100     # shardstore.py CLIENT_RETRY_MILLIS
+QUERY_MS = 50       # shardstore.py QUERY_MILLIS
+ELECTION_MIN, ELECTION_MAX = 150, 300   # paxos.py
+HEARTBEAT_MS = 50
+
+# Wire tags, for the harness adapters (tpu/adapters/shardstore.py).
+# The join twin is its own enum space; the store twins share the first
+# seven tags, and the tx twin's 2PC fragment merges TXP..TXA after them.
+JOIN_REQ, JOIN_REP = 0, 1
+JOIN_T_CLIENT, JOIN_T_ELECTION, JOIN_T_HEARTBEAT = 1, 2, 3
+QRY, QREP, SSREQ, SSREP, WG, SM, SMACK, JREQ, JREP = range(9)
+TXP, TXV, TXD, TXA = 7, 8, 9, 10
+T_CLIENT, T_QUERY, T_ELECTION, T_HEARTBEAT = 1, 2, 3, 4
+
+
+def _select(idx: torch.Tensor, values) -> torch.Tensor:
+    """``values[idx]`` over a static int list, 0 where ``idx`` is out of
+    range: the reference's one-hot sum, as a where-chain."""
+    out = torch.zeros_like(idx)
+    for j, v in enumerate(values):
+        out = torch.where(idx == j, v, out)
+    return out
+
+
+# ===================================================================
+# join phase
+# ===================================================================
+
+def make_join_spec(n_joins: int = 1, net_cap: int = 12,
+                   timer_cap: int = 4) -> ProtocolSpec:
+    """Lab 4's join phase: one shard master (a lone PaxosServer running
+    ShardMaster) and the config controller driving ``n_joins``
+    sequential Join commands, store servers partitioned away.  The state
+    is [mc, amo, heard] on the master and the controller's workload
+    index."""
+    W = n_joins
+
+    master = NodeKind("master", 1, (
+        Field("mc", hi=W),          # decided-slot count (<= W joins)
+        Field("amo", hi=W),         # controller AMO high-water mark
+        Field("heard", hi=1),       # heard_from_leader
+    ))
+    ctl = NodeKind("ctl", 1, (
+        Field("k", init=1, lo=0, hi=W + 1),))
+
+    messages = [
+        MessageType("Request", ("seq",), bounds={"seq": (1, W)}),
+        MessageType("Reply", ("seq",), bounds={"seq": (1, W)}),
+    ]
+    timers = [
+        TimerType("Client", ("k",), min_ms=CLIENT_MS, max_ms=CLIENT_MS,
+                  bounds={"k": (1, W)}),
+        TimerType("Election", (), min_ms=ELECTION_MIN,
+                  max_ms=ELECTION_MAX),
+        TimerType("Heartbeat", (), min_ms=HEARTBEAT_MS,
+                  max_ms=HEARTBEAT_MS),
+    ]
+
+    spec = ProtocolSpec(
+        name=f"shardmaster-join-w{W}",
+        nodes=[master, ctl], messages=messages, timers=timers,
+        net_cap=net_cap, timer_cap=timer_cap)
+
+    @spec.on("master", "Request")
+    def m_request(ctx, p):
+        seq = p["seq"]
+        last = ctx.get("amo")
+        fresh = seq > last
+        ctx.put("amo", seq, when=fresh)
+        ctx.put("mc", ctx.get("mc") + 1, when=fresh)
+        ctx.put("heard", 1, when=fresh)
+        # reply for fresh or exactly-cached seq (AMO re-reply)
+        ctx.send("Reply", to=1, when=seq >= last, seq=seq)
+
+    @spec.on("ctl", "Reply")
+    def c_reply(ctx, p):
+        k = ctx.get("k")
+        match = (p["seq"] == k) & (k <= W)
+        k2 = torch.where(match, k + 1, k)
+        ctx.put("k", k2)
+        has_next = match & (k2 <= W)
+        ctx.send("Request", to=0, when=has_next, seq=k2)
+        ctx.set_timer("Client", when=has_next, k=k2)
+
+    @spec.on_timer("master", "Election")
+    def m_election(ctx, p):
+        # Lone master is its own decided leader: only heard resets.
+        ctx.put("heard", 0)
+        ctx.set_timer("Election")
+
+    @spec.on_timer("master", "Heartbeat")
+    def m_heartbeat(ctx, p):
+        ctx.set_timer("Heartbeat")       # no peers, nothing in flight
+
+    @spec.on_timer("ctl", "Client")
+    def c_timer(ctx, p):
+        k = ctx.get("k")
+        live = (p["k"] == k) & (k <= W)
+        ctx.send("Request", to=0, when=live, seq=k)
+        ctx.set_timer("Client", when=live, k=k)
+
+    spec.initial_messages.append(("Request", 1, 0, {"seq": 1}))
+    spec.initial_timers.append(("Election", 0, {}))
+    spec.initial_timers.append(("Heartbeat", 0, {}))
+    spec.initial_timers.append(("Client", 1, {"k": 1}))
+
+    def clients_done(view):
+        return view.get("ctl", 0, "k") == W + 1
+
+    spec.goals["CLIENTS_DONE"] = clients_done
+    return spec
+
+
+def make_join_protocol(n_joins: int, net_cap: int = 12,
+                       timer_cap: int = 4):
+    """The compiled join twin."""
+    return make_join_spec(n_joins, net_cap, timer_cap).compile()
+
+
+# ===================================================================
+# Part 1 store: G groups of ONE server
+# ===================================================================
+
+def _reconfig_fragment(NC: int, N_CFG: int, Ws: List[int], G: int):
+    """The reconfiguration-epoch sub-machine carried by every store
+    server: config number, outgoing/incoming handoff flags, the
+    per-client snapshot AMO vector, and the ShardMove/ShardMoveAck
+    exchange that walks a handoff to completion.  Handlers close over
+    the shape statics; the config-install trigger itself lives on the
+    including spec (it needs the QueryReply routing)."""
+    maxW = max(Ws)
+    frag = Fragment(
+        "reconfig",
+        fields=(
+            Field("scfg", hi=N_CFG),
+            Field("out", hi=1), Field("in", hi=1),
+            Field("osamo", size=NC, hi=maxW, index_group="client"),
+        ),
+        messages=(
+            MessageType("ShardMove",
+                        ("g",) + tuple(f"s{c + 1}" for c in range(NC)),
+                        bounds={"g": (2, 2)}
+                        | {f"s{c + 1}": (0, Ws[c]) for c in range(NC)}),
+            MessageType("ShardMoveAck", ("g",), bounds={"g": (1, 1)}),
+        ))
+
+    @frag.on("ShardMove")
+    def s_shard_move(ctx, p):
+        # Group 2 proposes InstallShards when at the final config with
+        # the shards still incoming; re-acks when already installed;
+        # ignores when behind (shardstore.py handle_ShardMove).
+        if G == 1 or ctx.node_index() != 2:
+            return
+        at_final = ctx.get("scfg") == N_CFG
+        inst = at_final & (ctx.get("in") == 1)
+        reack = at_final & (ctx.get("in") == 0)
+        ctx.put("scnt", ctx.get("scnt") + 1, when=inst)
+        ctx.put("sh", 1, when=inst)
+        for c in range(NC):    # AMO merge: per-client max with snapshot
+            samo = ctx.get_at("samo", c)
+            ctx.put_at("samo", c, torch.maximum(samo, p[f"s{c + 1}"]),
+                       when=inst)
+        ctx.put("in", 0, when=inst)
+        ctx.send("ShardMoveAck", to=1, when=inst | reack, g=1)
+
+    @frag.on("ShardMoveAck")
+    def s_shard_move_ack(ctx, p):
+        # Group 1 proposes MoveDone while the handoff is outstanding.
+        if G == 1 or ctx.node_index() != 1:
+            return
+        fin = ctx.get("out") == 1
+        ctx.put("scnt", ctx.get("scnt") + 1, when=fin)
+        ctx.put("sh", 1, when=fin)
+        ctx.put("out", 0, when=fin)
+
+    return frag
+
+
+def make_shardstore_spec(groups_of=(1, 1), net_cap: int = 48,
+                         timer_cap: int = 6,
+                         model_master_timers: bool = False,
+                         model_ctl: bool = False,
+                         fault=None) -> ProtocolSpec:
+    """``groups_of``: per-client, per-command owning group (1-based)
+    under the FINAL config; a flat int list means one client.  Each
+    group is one server (the one-server-group collapse of the
+    reference's hand twin); the handlers walk the config sequence and
+    the g1 -> g2 handoff as ``shardstore.py`` does."""
+    if groups_of and isinstance(groups_of[0], int):
+        groups_of = [list(groups_of)]
+    per_client: List[List[int]] = [list(g) for g in groups_of]
+    NC = len(per_client)
+    Ws = [len(g) for g in per_client]
+    G = max(max(g) for g in per_client)
+    assert all(min(g) >= 1 for g in per_client)
+    assert G <= 2, "3+-group configs need multi-hop handoff modelling"
+    N_CFG = G                       # one config per staged Join
+    maxW = max(Ws)
+    CLI0 = G + 1                    # first client node index
+    CCA = 1 + G + NC                # controller (model_ctl only)
+
+    def grp_of(c, k):
+        """(client, per-pair workload index) -> owning group under the
+        final config (static where-chain); ``c`` is an int or [P]."""
+        out = torch.full_like(k, per_client[0][0])
+        for cs in range(NC):
+            for kk in range(1, Ws[cs] + 1):
+                if (cs, kk) == (0, 1):
+                    continue
+                out = torch.where((c == cs) & (k == kk),
+                                  per_client[cs][kk - 1], out)
+        return out
+
+    def served_kind(arg):
+        # shardmaster.py Query: arg < 0 or >= len -> latest config.
+        latest = N_CFG - 1
+        return torch.where((arg < 0) | (arg >= N_CFG), latest, arg)
+
+    def cfg_mine(g, cfg_idx, c, k):
+        """Does group g own command (c, k)'s shard under configs[
+        cfg_idx] (0-based)?  cfg0 assigns everything to group 1; the
+        final config follows groups_of."""
+        under_final = grp_of(c, k) == g
+        if g == 1:
+            return (cfg_idx == 0) | under_final
+        return (cfg_idx != 0) & under_final
+
+    master = NodeKind("master", 1, (
+        Field("mc", init=G),        # G decided Joins at the seam
+        Field("heard", init=1, hi=1),
+        Field("amoc", size=NC, index_group="client"),
+        Field("amos", size=G, index_group="server"),
+    ))
+    server = NodeKind("server", G, (
+        Field("scnt"), Field("sh", hi=1), Field("sq"),
+        Field("samo", size=NC, hi=maxW, index_group="client"),
+    ))
+    client = NodeKind("client", NC, (
+        Field("k", init=1, hi=maxW + 1),
+        Field("cfg", hi=1),
+        Field("cq", init=2),
+    ))
+    nodes = [master, server, client]
+    if model_ctl:
+        # The controller's only mutable state is its (engine-modelled)
+        # timer queue: a node kind with no lanes.
+        nodes.append(NodeKind("ctl", 1, ()))
+
+    messages = [
+        MessageType("Query", ("src", "seq", "arg"),
+                    bounds={"src": (0, NC + G - 1),
+                            "arg": (-1, N_CFG)}),
+        MessageType("QueryReply", ("dst", "seq", "kind"),
+                    bounds={"dst": (0, NC + G - 1),
+                            "kind": (0, N_CFG - 1)}),
+        MessageType("ShardStoreRequest", ("c", "k"),
+                    bounds={"c": (0, NC - 1), "k": (1, maxW)}),
+        MessageType("ShardStoreReply", ("c", "k"),
+                    bounds={"c": (0, NC - 1), "k": (1, maxW)}),
+        MessageType("WrongGroup", ("c", "k"),
+                    bounds={"c": (0, NC - 1), "k": (1, maxW)}),
+    ]
+    timers = [
+        TimerType("Client", ("k",), min_ms=CLIENT_MS, max_ms=CLIENT_MS,
+                  bounds={"k": (1, max(maxW, G) if model_ctl
+                                else maxW)}),
+        TimerType("Query", (), min_ms=QUERY_MS, max_ms=QUERY_MS),
+        TimerType("Election", (), min_ms=ELECTION_MIN,
+                  max_ms=ELECTION_MAX),
+        TimerType("Heartbeat", (), min_ms=HEARTBEAT_MS,
+                  max_ms=HEARTBEAT_MS),
+    ]
+
+    spec = ProtocolSpec(
+        name=f"shardstore-g{G}-c{NC}-w{sum(Ws)}",
+        nodes=nodes, messages=messages, timers=timers,
+        net_cap=net_cap, timer_cap=timer_cap, fault=fault)
+    spec.include("server", _reconfig_fragment(NC, N_CFG, Ws, G))
+    spec.include("master", Fragment(
+        "join-debris",
+        messages=(MessageType("JoinRequest", ("j",),
+                              bounds={"j": (1, G)}),
+                  MessageType("JoinReply", ("j",),
+                              bounds={"j": (1, G)}))))
+
+    # ----------------------------------------------- message handlers
+
+    @spec.on("master", "Query")
+    def m_query(ctx, p):
+        # paxos.py handle_PaxosRequest; n=1: fresh commands decide,
+        # execute and GC inline.  Sources: clients 0..NC-1, servers
+        # NC..NC+G-1 (out-of-range halves of the AMO pair are one-hot
+        # no-ops).
+        src, seq, arg = p["src"], p["seq"], p["arg"]
+        last = torch.where(src < NC, ctx.get_at("amoc", src),
+                           ctx.get_at("amos", src - NC))
+        fresh = seq > last
+        ctx.put_at("amoc", src, seq, when=fresh)
+        ctx.put_at("amos", src - NC, seq, when=fresh)
+        ctx.put("mc", ctx.get("mc") + 1, when=fresh)
+        # A fresh proposal's self-delivered P2a sets heard_from_leader.
+        ctx.put("heard", 1, when=fresh)
+        ctx.send("QueryReply",
+                 to=torch.where(src < NC, CLI0 + src, src - NC + 1),
+                 when=seq >= last, dst=src, seq=seq,
+                 kind=served_kind(arg))
+
+    @spec.on("master", "JoinRequest")
+    def m_join_debris(ctx, p):
+        # model_ctl join-phase debris: REQ(G) re-replies the cached
+        # result, an identical row the network set dedupes.
+        ctx.send("JoinReply", to=CCA, when=p["j"] == G, j=G)
+
+    @spec.on("server", "QueryReply")
+    def s_query_reply(ctx, p):
+        # Propose NewConfig iff the carried config is exactly
+        # _next_config_num() and reconfig is done; installing the FINAL
+        # config starts the handoff (g1 loses, g2 gains).
+        g = ctx.node_index()
+        kind = p["kind"]
+        scfg = ctx.get("scfg")
+        done = (ctx.get("out") == 0) & (ctx.get("in") == 0)
+        install = (kind == scfg) & (scfg < N_CFG) & done
+        if G > 1:
+            is_final = install & (scfg == N_CFG - 1)
+            if g == 1:
+                ctx.put("out", 1, when=is_final)
+                for c in range(NC):
+                    ctx.put_at("osamo", c, ctx.get_at("samo", c),
+                               when=is_final)
+                # leader installs -> _send_moves inline
+                ctx.send("ShardMove", to=2, when=is_final, g=2,
+                         **{f"s{c + 1}": ctx.get_at("samo", c)
+                            for c in range(NC)})
+            else:
+                ctx.put("in", 1, when=is_final)
+        ctx.put("scfg", scfg + 1, when=install)
+        ctx.put("scnt", ctx.get("scnt") + 1, when=install)
+        ctx.put("sh", 1, when=install)
+
+    @spec.on("server", "ShardStoreRequest")
+    def s_ssreq(ctx, p):
+        # ALWAYS proposes (relay-mode chosen entries are not deduped)
+        # -> count+1, heard; execution gated by config coverage and
+        # ownership (shardstore.py _execute_client_command).  Routing
+        # already delivered this to grp_of(c, k).
+        g = ctx.node_index()
+        cc, kk = p["c"], p["k"]
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        scfg = ctx.get("scfg")
+        has_cfg = scfg >= 1
+        mine = cfg_mine(g, (scfg - 1).clip(0, N_CFG - 1), cc, kk) \
+            & has_cfg
+        # wrong group: current config exists but shard is not mine
+        ctx.send("WrongGroup", to=CLI0 + cc, when=has_cfg & ~mine,
+                 c=cc, k=kk)
+        # mine but still incoming -> silent (client retries); only
+        # group 2 ever gains shards
+        if g == 2 and G > 1:
+            owned = mine & (ctx.get("in") == 0)
+        else:
+            owned = mine
+        samo = ctx.get_at("samo", cc)
+        ctx.put_at("samo", cc, kk, when=owned & (kk > samo))
+        ctx.send("ShardStoreReply", to=CLI0 + cc,
+                 when=owned & (kk >= samo), c=cc, k=kk)
+
+    @spec.on("client", "QueryReply")
+    def c_query_reply(ctx, p):
+        # Adopt the (always latest) config if newer, then send the
+        # pending command.
+        c = ctx.node_index() - CLI0
+        k = ctx.get("k")
+        adopt = ctx.get("cfg") == 0
+        ctx.put("cfg", 1, when=adopt)
+        ctx.send("ShardStoreRequest", to=grp_of(c, k),
+                 when=adopt & (k <= Ws[c]), c=c, k=k)
+
+    @spec.on("client", "ShardStoreReply")
+    def c_ssrep(ctx, p):
+        c = ctx.node_index() - CLI0
+        k = ctx.get("k")
+        match = (p["c"] == c) & (p["k"] == k) & (k <= Ws[c])
+        k2 = torch.where(match, k + 1, k)
+        ctx.put("k", k2)
+        has_next = match & (k2 <= Ws[c])
+        ctx.send("ShardStoreRequest", to=grp_of(c, k2), when=has_next,
+                 c=c, k=k2)
+        ctx.set_timer("Client", when=has_next, k=k2)
+
+    @spec.on("client", "WrongGroup")
+    def c_wrong_group(ctx, p):
+        c = ctx.node_index() - CLI0
+        k = ctx.get("k")
+        is_wg = (p["c"] == c) & (p["k"] == k) & (k <= Ws[c])
+        cq = ctx.get("cq")
+        ctx.put("cq", cq + 1, when=is_wg)
+        ctx.send("Query", to=0, when=is_wg, src=c, seq=cq + 1, arg=-1)
+
+    # ------------------------------------------------- timer handlers
+
+    @spec.on_timer("client", "Client")
+    def c_timer(ctx, p):
+        # Re-query (+1 more query when there is no config yet:
+        # _send_pending falls back to _query_config) and re-send the
+        # pending command, as two complementary guarded sends.
+        c = ctx.node_index() - CLI0
+        k = ctx.get("k")
+        live = (p["k"] == k) & (k <= Ws[c])
+        cq = ctx.get("cq")
+        has_cfg = ctx.get("cfg") == 1
+        ctx.put("cq", torch.where(has_cfg, cq + 1, cq + 2), when=live)
+        ctx.send("Query", to=0, when=live, src=c, seq=cq + 1, arg=-1)
+        ctx.send("ShardStoreRequest", to=grp_of(c, k),
+                 when=live & has_cfg, c=c, k=k)
+        ctx.send("Query", to=0, when=live & ~has_cfg, src=c,
+                 seq=cq + 2, arg=-1)
+        ctx.set_timer("Client", when=live, k=k)
+
+    @spec.on_timer("server", "Query")
+    def s_query_timer(ctx, p):
+        # The query itself is gated on _reconfig_done; _send_moves
+        # always runs (re-sends the stored ShardMove while a handoff
+        # is pending).
+        g = ctx.node_index()
+        done = (ctx.get("out") == 0) & (ctx.get("in") == 0)
+        sq = ctx.get("sq")
+        ctx.put("sq", sq + 1, when=done)
+        ctx.send("Query", to=0, when=done, src=NC + g - 1, seq=sq + 1,
+                 arg=ctx.get("scfg"))
+        if g == 1 and G > 1:
+            ctx.send("ShardMove", to=2, when=ctx.get("out") == 1, g=2,
+                     **{f"s{c + 1}": ctx.get_at("osamo", c)
+                        for c in range(NC)})
+        ctx.set_timer("Query")
+
+    @spec.on_timer("server", "Election")
+    def s_election(ctx, p):
+        # Lone server is its own decided leader; only heard resets.
+        ctx.put("sh", 0)
+        ctx.set_timer("Election")
+
+    @spec.on_timer("server", "Heartbeat")
+    def s_heartbeat(ctx, p):
+        ctx.set_timer("Heartbeat")     # no peers, nothing in flight
+
+    if model_master_timers:
+        @spec.on_timer("master", "Election")
+        def m_election(ctx, p):
+            ctx.put("heard", 0)
+            ctx.set_timer("Election")
+
+        @spec.on_timer("master", "Heartbeat")
+        def m_heartbeat(ctx, p):
+            ctx.set_timer("Heartbeat")
+
+    # The controller's stale ClientTimers (model_ctl) have NO handler:
+    # delivery only consumes the timer; the state change IS the pop.
+
+    # -------------------------------------------- initials/predicates
+
+    for c in range(NC):
+        for s in (1, 2):
+            # init() queries once; send_command with no config falls
+            # back to _query_config and queries AGAIN.
+            spec.initial_messages.append(
+                ("Query", CLI0 + c, 0, {"src": c, "seq": s, "arg": -1}))
+    if model_ctl:
+        for j in range(1, G + 1):
+            spec.initial_messages.append(
+                ("JoinRequest", CCA, 0, {"j": j}))
+            spec.initial_messages.append(
+                ("JoinReply", 0, CCA, {"j": j}))
+    if model_master_timers:
+        spec.initial_timers.append(("Election", 0, {}))
+        spec.initial_timers.append(("Heartbeat", 0, {}))
+    if model_ctl:
+        for j in range(1, G + 1):
+            spec.initial_timers.append(("Client", CCA, {"k": j}))
+    for g in range(1, G + 1):
+        # ShardStoreServer.init: paxos.init (Election, then the
+        # immediate self-election arms Heartbeat), then QueryTimer.
+        spec.initial_timers.append(("Election", g, {}))
+        spec.initial_timers.append(("Heartbeat", g, {}))
+        spec.initial_timers.append(("Query", g, {}))
+    for c in range(NC):
+        spec.initial_timers.append(("Client", CLI0 + c, {"k": 1}))
+
+    def clients_done(view):
+        done = True
+        for c in range(NC):
+            done = done & (view.get("client", c, "k") == Ws[c] + 1)
+        return done
+
+    spec.goals["CLIENTS_DONE"] = clients_done
+    return spec
+
+
+def make_shardstore_protocol(groups_of, net_cap: int = 48,
+                             timer_cap: int = 6,
+                             model_master_timers: bool = False,
+                             model_ctl: bool = False, fault=None):
+    """The compiled part-1 store twin (the reference factory's
+    signature, protocol name and searched state space)."""
+    return make_shardstore_spec(
+        groups_of, net_cap, timer_cap, model_master_timers,
+        model_ctl, fault=fault).compile()
+
+
+def make_shardstore_crash_spec(groups_of=(1, 1), net_cap: int = 48,
+                               timer_cap: int = 6) -> ProtocolSpec:
+    """The generated part-1 shardstore under a crash-recovery scenario:
+    any server group may crash once and restart.  The per-client
+    ``samo`` at-most-once table is durable (it survives the crash) while
+    the config walk (scnt/sh/sq) is volatile and resets to inits on
+    restart.  The spec builds; compiling it raises until fault models
+    are ported."""
+    from dslabs_tpu_torch.tpu.faults import Crash, FaultModel
+
+    fm = FaultModel(crash=Crash(durable={"server": ("samo",)},
+                                max_crashes=1))
+    spec = make_shardstore_spec(list(groups_of), net_cap, timer_cap,
+                                fault=fm)
+    spec.name += "-crash"
+    return spec
+
+
+# ===================================================================
+# Part 2 transactions: 2PC over the two-group store, the reconfig
+# fragment above plus a 2PC vote fragment
+# ===================================================================
+
+def _twopc_fragment(W: int, CLIENT: int):
+    """The 2PC sub-machine carried by both store groups: the
+    per-transaction participant record (promised round, vote, applied
+    flag) and key lock on every server, plus the coordinator's vote and
+    ack ledgers (constant-zero lanes on group 2: a uniform layout).
+    Group 1 doubles as coordinator, so fragment handlers branch on
+    ``ctx.node_index()``."""
+    frag = Fragment(
+        "twopc",
+        fields=(
+            Field("lock", hi=W),
+            Slots("ptx", W, base=1, fields=(
+                SlotField("rnd"), SlotField("ok", hi=1),
+                SlotField("done", hi=1))),
+            Slots("coord", W, base=1, fields=(
+                SlotField("lrnd"), SlotField("rnd"),
+                SlotField("v1", hi=2), SlotField("v2", hi=2),
+                SlotField("dec", hi=2),
+                SlotField("a1", hi=1), SlotField("a2", hi=1))),
+        ),
+        messages=(
+            MessageType("TxPrepare", ("t", "rnd", "g"),
+                        bounds={"t": (1, W), "g": (1, 2)}),
+            MessageType("TxVote", ("t", "rnd", "v"),
+                        bounds={"t": (1, W), "v": (2, 5)}),
+            MessageType("TxDecision", ("t", "rnd", "d"),
+                        bounds={"t": (1, W), "d": (2, 5)}),
+            MessageType("TxAck", ("t", "rnd", "g"),
+                        bounds={"t": (1, W), "g": (1, 2)}),
+        ))
+
+    @frag.on("TxPrepare")
+    def s_tx_prepare(ctx, p):
+        # Participant path (handle_TxPrepare): immediate yes for an
+        # already-applied txn, no under cfg0, else the promise/lock
+        # dance: supersede an older round, refuse a held lock, group 2
+        # refuses while shards are incoming.
+        g = ctx.node_index()
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        scfg = ctx.get("scfg")
+        for t in range(1, W + 1):
+            h = p["t"] == t
+            rnd = p["rnd"]
+            dn = ctx.slot_get("ptx", "done", t) == 1
+            ctx.send("TxVote", to=1, when=h & (scfg >= 1) & dn,
+                     t=t, rnd=rnd, v=2 * g + 1)
+            ctx.send("TxVote", to=1, when=h & (scfg == 1) & ~dn,
+                     t=t, rnd=rnd, v=2 * g)
+            m = h & (scfg == 2) & ~dn
+            prnd = ctx.slot_get("ptx", "rnd", t)
+            stale = prnd > rnd
+            supersede = (prnd > 0) & (prnd < rnd)
+            ctx.put("lock", 0,
+                    when=m & supersede & (ctx.get("lock") == t))
+            fresh = (prnd == 0) | supersede
+            lock2 = ctx.get("lock")          # RE-READ after release
+            conflict = (lock2 != 0) & (lock2 != t)
+            ok = fresh & ~conflict
+            if g == 2:
+                ok = ok & (ctx.get("in") == 0)
+            ctx.put("lock", t, when=m & ok)
+            ctx.slot_put("ptx", "rnd", t, rnd, when=m & fresh)
+            ctx.slot_put("ptx", "ok", t, ok.to(torch.int32),
+                         when=m & fresh)
+            # vote from the STORED record (fresh writes land first)
+            ctx.send("TxVote", to=1, when=m & ~stale, t=t,
+                     rnd=ctx.slot_get("ptx", "rnd", t),
+                     v=2 * g + ctx.slot_get("ptx", "ok", t))
+
+    @frag.on("TxVote")
+    def s_tx_vote(ctx, p):
+        # Coordinator path: record the vote, decide on both-in, reply
+        # to the client on commit, broadcast the decision.
+        if ctx.node_index() != 1:
+            return
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        for t in range(1, W + 1):
+            h = p["t"] == t
+            rnd = p["rnd"]
+            fg, okv = p["v"] // 2, p["v"] % 2
+            live = h & (ctx.slot_get("coord", "rnd", t) == rnd) \
+                & (rnd > 0) & (ctx.slot_get("coord", "dec", t) == 0)
+            vval = torch.where(okv == 1, 1, 2).to(torch.int32)
+            ctx.slot_put("coord", "v1", t, vval, when=live & (fg == 1))
+            ctx.slot_put("coord", "v2", t, vval, when=live & (fg == 2))
+            v1 = ctx.slot_get("coord", "v1", t)   # RE-READ
+            v2 = ctx.slot_get("coord", "v2", t)
+            dec_abort = live & ((v1 == 2) | (v2 == 2))
+            dec_commit = live & (v1 == 1) & (v2 == 1)
+            ctx.slot_put("coord", "dec", t, 2, when=dec_abort)
+            ctx.slot_put("coord", "dec", t, 1, when=dec_commit)
+            ctx.put_at("samo", 0, t,
+                       when=dec_commit & (ctx.get_at("samo", 0) < t))
+            ctx.send("ShardStoreReply", to=CLIENT, when=dec_commit,
+                     k=t)
+            decided = dec_abort | dec_commit
+            cbit = dec_commit.to(torch.int32)
+            ctx.send("TxDecision", to=1, when=decided, t=t, rnd=rnd,
+                     d=2 + cbit)
+            ctx.send("TxDecision", to=2, when=decided, t=t, rnd=rnd,
+                     d=4 + cbit)
+
+    @frag.on("TxDecision")
+    def s_tx_decision(ctx, p):
+        # Participant applies a commit it voted for, releases the
+        # lock and promise; the coordinator half additionally clears an
+        # ABORT ledger early (commit ledgers wait for both acks).
+        g = ctx.node_index()
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        commit = p["d"] % 2 == 1
+        for t in range(1, W + 1):
+            h = p["t"] == t
+            rnd = p["rnd"]
+            pmatch = h & (ctx.slot_get("ptx", "rnd", t) == rnd) \
+                & (rnd > 0)
+            ctx.slot_put("ptx", "done", t, 1,
+                         when=pmatch & commit
+                         & (ctx.slot_get("ptx", "ok", t) == 1))
+            ctx.put("lock", 0, when=pmatch & (ctx.get("lock") == t))
+            ctx.slot_put("ptx", "rnd", t, 0, when=pmatch)
+            ctx.slot_put("ptx", "ok", t, 0, when=pmatch)
+            if g == 1:
+                clear = h & ~commit \
+                    & (ctx.slot_get("coord", "dec", t) == 2) \
+                    & (ctx.slot_get("coord", "rnd", t) == rnd)
+                for f in ("rnd", "v1", "v2", "dec", "a1", "a2"):
+                    ctx.slot_put("coord", f, t, 0, when=clear)
+            ctx.send("TxAck", to=1, when=h & (ctx.get("scfg") >= 1),
+                     t=t, rnd=rnd, g=g)
+
+    @frag.on("TxAck")
+    def s_tx_ack(ctx, p):
+        # Coordinator: second ack retires the ledger (LRND persists:
+        # it is the round generator).
+        if ctx.node_index() != 1:
+            return
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        fg = p["g"]
+        for t in range(1, W + 1):
+            h = p["t"] == t
+            rnd = p["rnd"]
+            live = h & (ctx.slot_get("coord", "rnd", t) == rnd) \
+                & (rnd > 0)
+            ctx.slot_put("coord", "a1", t, 1, when=live & (fg == 1))
+            ctx.slot_put("coord", "a2", t, 1, when=live & (fg == 2))
+            full = live & (ctx.slot_get("coord", "a1", t) == 1) \
+                & (ctx.slot_get("coord", "a2", t) == 1)   # RE-READ
+            for f in ("rnd", "v1", "v2", "dec", "a1", "a2"):
+                ctx.slot_put("coord", f, t, 0, when=full)
+
+    return frag
+
+
+def make_shardstore_tx_spec(n_tx: int = 1, net_cap: int = 48,
+                            timer_cap: int = 6) -> ProtocolSpec:
+    """Lab 4 part 2: every client command is a 2-shard transaction (one
+    key per group under the final config), group 1 coordinating 2PC
+    across both groups.  The reconfiguration epoch is the same fragment
+    part 1 composes in; the 2PC records are the ``twopc`` fragment."""
+    W, G, N_CFG = n_tx, 2, 2
+    CLIENT = 3
+
+    master = NodeKind("master", 1, (
+        Field("mc", init=G),
+        Field("amoc", size=1, index_group="client"),
+        Field("amos", size=G, index_group="group"),
+    ))
+    group = NodeKind("group", G, (
+        Field("scnt"), Field("sh", hi=1), Field("sq"),
+        Field("samo", size=1, hi=W, index_group="client"),
+    ))
+    client = NodeKind("client", 1, (
+        Field("k", init=1, hi=W + 1),
+        Field("cfg", hi=1),
+        Field("cq", init=2),
+    ))
+
+    messages = [
+        MessageType("Query", ("src", "seq", "arg"),
+                    bounds={"src": (0, G), "arg": (-1, N_CFG)}),
+        MessageType("QueryReply", ("dst", "seq", "kind"),
+                    bounds={"dst": (0, G), "kind": (0, N_CFG - 1)}),
+        MessageType("ShardStoreRequest", ("k",), bounds={"k": (1, W)}),
+        MessageType("ShardStoreReply", ("k",), bounds={"k": (1, W)}),
+        MessageType("WrongGroup", ("k",), bounds={"k": (1, W)}),
+    ]
+    timers = [
+        TimerType("Client", ("k",), min_ms=CLIENT_MS, max_ms=CLIENT_MS,
+                  bounds={"k": (1, W)}),
+        TimerType("Query", (), min_ms=QUERY_MS, max_ms=QUERY_MS),
+        TimerType("Election", (), min_ms=ELECTION_MIN,
+                  max_ms=ELECTION_MAX),
+        TimerType("Heartbeat", (), min_ms=HEARTBEAT_MS,
+                  max_ms=HEARTBEAT_MS),
+    ]
+
+    spec = ProtocolSpec(
+        name=f"shardstore-tx-g{G}-w{W}",
+        nodes=[master, group, client], messages=messages,
+        timers=timers, net_cap=net_cap, timer_cap=timer_cap,
+        max_live_sends=6)
+    spec.include("group", _reconfig_fragment(1, N_CFG, [W], G))
+    spec.include("group", _twopc_fragment(W, CLIENT))
+
+    def reconfig_done(ctx, g):
+        # _reconfig_done: no handoff in flight AND no 2PC state held
+        # (locks, promises; the coordinator also drains its ledgers).
+        done = (ctx.get("out") == 0) & (ctx.get("in") == 0) \
+            & (ctx.get("lock") == 0)
+        for t in range(1, W + 1):
+            done = done & (ctx.slot_get("ptx", "rnd", t) == 0)
+            if g == 1:
+                done = done & (ctx.slot_get("coord", "rnd", t) == 0)
+        return done
+
+    # ----------------------------------------------- message handlers
+
+    @spec.on("master", "Query")
+    def m_query(ctx, p):
+        # Collapsed lone-master paxos: NO heard lane here (the part-2
+        # harness never partitions the master, so heard_from_leader is
+        # constant).
+        src, seq, arg = p["src"], p["seq"], p["arg"]
+        last = torch.where(src == 0, ctx.get_at("amoc", 0),
+                           ctx.get_at("amos", src - 1))
+        fresh = seq > last
+        ctx.put_at("amoc", 0, seq, when=fresh & (src == 0))
+        ctx.put_at("amos", src - 1, seq, when=fresh)
+        ctx.put("mc", ctx.get("mc") + 1, when=fresh)
+        served = torch.where((arg < 0) | (arg >= N_CFG), N_CFG - 1, arg)
+        ctx.send("QueryReply", to=torch.where(src == 0, CLIENT, src),
+                 when=seq >= last, dst=src, seq=seq, kind=served)
+
+    @spec.on("group", "QueryReply")
+    def s_query_reply(ctx, p):
+        g = ctx.node_index()
+        kind = p["kind"]
+        scfg = ctx.get("scfg")
+        install = (kind == scfg) & (scfg < N_CFG) \
+            & reconfig_done(ctx, g)
+        is_final = install & (scfg == N_CFG - 1)
+        if g == 1:
+            ctx.put("out", 1, when=is_final)
+            ctx.put_at("osamo", 0, ctx.get_at("samo", 0),
+                       when=is_final)
+            ctx.send("ShardMove", to=2, when=is_final, g=2,
+                     s1=ctx.get_at("samo", 0))
+        else:
+            ctx.put("in", 1, when=is_final)
+        ctx.put("scfg", scfg + 1, when=install)
+        ctx.put("scnt", ctx.get("scnt") + 1, when=install)
+        ctx.put("sh", 1, when=install)
+
+    @spec.on("group", "ShardStoreRequest")
+    def s_ssreq(ctx, p):
+        # Only the coordinator (group 1) receives client requests.
+        # cfg1: direct single-group execute.  cfg2: answer from cache
+        # or start a 2PC round (one per txn in flight).
+        if ctx.node_index() != 1:
+            return
+        kk = p["k"]
+        ctx.put("scnt", ctx.get("scnt") + 1)
+        ctx.put("sh", 1)
+        scfg = ctx.get("scfg")
+        samo = ctx.get_at("samo", 0)
+        direct = scfg == 1
+        ctx.put_at("samo", 0, kk, when=direct & (kk > samo))
+        ctx.send("ShardStoreReply", to=CLIENT,
+                 when=direct & (kk >= samo), k=kk)
+        co = scfg == 2
+        cached = co & (samo >= kk)
+        ctx.send("ShardStoreReply", to=CLIENT,
+                 when=cached & (kk == samo), k=kk)
+        in_prog = ctx.slot_get("coord", "rnd", kk) > 0
+        start = co & ~cached & ~in_prog
+        for t in range(1, W + 1):
+            here = start & (kk == t)
+            rnd = ctx.slot_get("coord", "lrnd", t) + 1
+            ctx.slot_put("coord", "lrnd", t, rnd, when=here)
+            ctx.slot_put("coord", "rnd", t, rnd, when=here)
+            for f in ("v1", "v2", "dec", "a1", "a2"):
+                ctx.slot_put("coord", f, t, 0, when=here)
+            ctx.send("TxPrepare", to=1, when=here, t=t, rnd=rnd, g=1)
+            ctx.send("TxPrepare", to=2, when=here, t=t, rnd=rnd, g=2)
+
+    @spec.on("client", "QueryReply")
+    def c_query_reply(ctx, p):
+        k = ctx.get("k")
+        adopt = ctx.get("cfg") == 0
+        ctx.put("cfg", 1, when=adopt)
+        ctx.send("ShardStoreRequest", to=1, when=adopt & (k <= W),
+                 k=k)
+
+    @spec.on("client", "ShardStoreReply")
+    def c_ssrep(ctx, p):
+        k = ctx.get("k")
+        match = (p["k"] == k) & (k <= W)
+        k2 = torch.where(match, k + 1, k)
+        ctx.put("k", k2)
+        has_next = match & (k2 <= W)
+        ctx.send("ShardStoreRequest", to=1, when=has_next, k=k2)
+        ctx.set_timer("Client", when=has_next, k=k2)
+
+    @spec.on("client", "WrongGroup")
+    def c_wrong_group(ctx, p):
+        # Unreachable in this workload (nothing sends WrongGroup); the
+        # handler keeps the wire alphabet of the part-1 client.
+        k = ctx.get("k")
+        is_wg = (p["k"] == k) & (k <= W)
+        cq = ctx.get("cq")
+        ctx.put("cq", cq + 1, when=is_wg)
+        ctx.send("Query", to=0, when=is_wg, src=0, seq=cq + 1, arg=-1)
+
+    # ------------------------------------------------- timer handlers
+
+    @spec.on_timer("client", "Client")
+    def c_timer(ctx, p):
+        k = ctx.get("k")
+        live = (p["k"] == k) & (k <= W)
+        cq = ctx.get("cq")
+        has_cfg = ctx.get("cfg") == 1
+        ctx.put("cq", torch.where(has_cfg, cq + 1, cq + 2), when=live)
+        ctx.send("Query", to=0, when=live, src=0, seq=cq + 1, arg=-1)
+        ctx.send("ShardStoreRequest", to=1, when=live & has_cfg, k=k)
+        ctx.send("Query", to=0, when=live & ~has_cfg, src=0,
+                 seq=cq + 2, arg=-1)
+        ctx.set_timer("Client", when=live, k=k)
+
+    @spec.on_timer("group", "Query")
+    def s_query_timer(ctx, p):
+        g = ctx.node_index()
+        ask = reconfig_done(ctx, g)
+        sq = ctx.get("sq")
+        ctx.put("sq", sq + 1, when=ask)
+        ctx.send("Query", to=0, when=ask, src=g, seq=sq + 1,
+                 arg=ctx.get("scfg"))
+        if g == 1:
+            ctx.send("ShardMove", to=2, when=ctx.get("out") == 1, g=2,
+                     s1=ctx.get_at("osamo", 0))
+        ctx.set_timer("Query")
+
+    @spec.on_timer("group", "Election")
+    def s_election(ctx, p):
+        ctx.put("sh", 0)
+        ctx.set_timer("Election")
+
+    @spec.on_timer("group", "Heartbeat")
+    def s_heartbeat(ctx, p):
+        ctx.set_timer("Heartbeat")
+
+    # -------------------------------------------- initials/predicates
+
+    for s in (1, 2):
+        spec.initial_messages.append(
+            ("Query", CLIENT, 0, {"src": 0, "seq": s, "arg": -1}))
+    for g in (1, 2):
+        spec.initial_timers.append(("Election", g, {}))
+        spec.initial_timers.append(("Heartbeat", g, {}))
+        spec.initial_timers.append(("Query", g, {}))
+    spec.initial_timers.append(("Client", CLIENT, {"k": 1}))
+
+    def clients_done(view):
+        return view.get("client", 0, "k") == W + 1
+
+    def multi_gets_match(view):
+        # A replied txn t is committed on the coordinator (samo >= t).
+        ok = True
+        for t in range(1, W + 1):
+            replied = view.get("client", 0, "k") > t
+            ok = ok & (~replied
+                       | (view.get("group", 0, "samo") >= t))
+        return ok
+
+    spec.goals["CLIENTS_DONE"] = clients_done
+    spec.invariants["MULTI_GETS_MATCH"] = multi_gets_match
+    return spec
+
+
+def make_shardstore_tx_protocol(n_tx: int = 1, net_cap: int = 48,
+                                timer_cap: int = 6):
+    """The compiled 2PC twin."""
+    return make_shardstore_tx_spec(n_tx, net_cap,
+                                   timer_cap).compile()
+
+
+# ===================================================================
+# Part 3 multi-server groups: the per-group Paxos fragment composed onto
+# two replica-group kinds
+# ===================================================================
+
+BALLOT_HI = (1 << 12) - 1       # paxos ballots: round*n + idx, 12 bits
+
+
+def _staged_configs(G: int, n: int, num_shards: int):
+    """Run the object ShardMaster on the staged Join sequence; return
+    per-config per-group shard bitmasks (bit s-1 = shard s)."""
+    from dslabs_tpu_torch.core.address import LocalAddress
+    from dslabs_tpu_torch.labs.shardedstore.shardmaster import (
+        Join, Query, ShardMaster)
+
+    sm = ShardMaster(num_shards)
+    for g in range(1, G + 1):
+        sm.execute(Join(g, tuple(
+            LocalAddress(f"server{g}-{i}") for i in range(1, n + 1))))
+    out = []
+    for j in range(G):
+        cfg = sm.execute(Query(j))
+        masks = {}
+        for gid, (_, shards) in cfg.group_info:
+            m = 0
+            for s in shards:
+                m |= 1 << (s - 1)
+            masks[gid] = m
+        out.append(masks)
+    return out
+
+
+def _gpaxos_fragment(kind: str, base: int, n: int, S: int,
+                     cmd_hi: int, exec_effect):
+    """The multi-server replicated-log sub-machine carried by ONE
+    replica-group kind: ballots, slot log, raw P1b votes, P2b vote
+    bitmaps, executed/cleared/gc frontiers (the lab 3 twin's lane
+    discipline minus the AMO layer).  Chosen commands execute through
+    the ``exec_effect`` callback the including spec supplies (the
+    shardstore effect switch), so the same fragment body serves both
+    groups.
+
+    ``base`` is the group's first GLOBAL node index; quorum reads go
+    through the spec-declared QuorumCount named after the kind."""
+    e_hi = 3 + (BALLOT_HI << 2) + (cmd_hi << 14)
+    bal = (0, BALLOT_HI)
+    vote_fields = [SlotField("have", hi=1)]
+    for s in range(1, S + 1):
+        vote_fields += [SlotField(f"ex{s}", hi=1),
+                        SlotField(f"lb{s}", hi=BALLOT_HI),
+                        SlotField(f"cmd{s}", hi=cmd_hi),
+                        SlotField(f"ch{s}", hi=1)]
+    votes = Slots("votes", n, fields=tuple(vote_fields))
+    frag = Fragment(
+        "gpaxos",
+        fields=(
+            Field("b", hi=BALLOT_HI), Field("ld", hi=1),
+            Field("hd", hi=1), Field("si", init=1, lo=1, hi=S + 1),
+            Field("ex", hi=S), Field("cl", hi=S), Field("gc", hi=S),
+            Field("pm", hi=(1 << n) - 1),
+            Field("peer", size=n, hi=S, index_group=kind),
+            Slots("p2bv", S, base=1,
+                  fields=(SlotField("v", hi=(1 << n) - 1),)),
+            Slots("log", S, base=1, fields=(
+                SlotField("ex", hi=1), SlotField("lb", hi=BALLOT_HI),
+                SlotField("cmd", hi=cmd_hi), SlotField("ch", hi=1))),
+            votes,
+        ),
+        messages=(
+            MessageType("PaxosRequest", ("cmd",),
+                        bounds={"cmd": (0, cmd_hi)}),
+            MessageType("P1a", ("b",), bounds={"b": bal}),
+            MessageType("P1b",
+                        ("b",) + tuple(f"e{s}"
+                                       for s in range(1, S + 1)),
+                        bounds={"b": bal} | {f"e{s}": (0, e_hi)
+                                             for s in range(1, S + 1)}),
+            MessageType("P2a", ("b", "slot", "cmd"),
+                        bounds={"b": bal, "slot": (1, S),
+                                "cmd": (0, cmd_hi)}),
+            MessageType("P2b", ("b", "slot"),
+                        bounds={"b": bal, "slot": (1, S)}),
+            MessageType("Heartbeat", ("b", "commit", "gc"),
+                        bounds={"b": bal, "commit": (0, S),
+                                "gc": (0, S)}),
+            MessageType("HeartbeatReply", ("b", "exec"),
+                        bounds={"b": bal, "exec": (0, S)}),
+        ),
+        timers=(
+            TimerType("Election", (), min_ms=ELECTION_MIN,
+                      max_ms=ELECTION_MAX),
+            TimerType("Heartbeat", ("b",), min_ms=HEARTBEAT_MS,
+                      max_ms=HEARTBEAT_MS, bounds={"b": bal}),
+        ))
+
+    def local(ctx):
+        return ctx.node_index() - base
+
+    def pack_entry(ex, lb, cmd, ch):
+        return ex | (ch << 1) | (lb << 2) | (cmd << 14)
+
+    def unpack_entry(v):
+        return v & 1, (v >> 2) & 0xFFF, v >> 14, (v >> 1) & 1
+
+    def log_get(ctx, slot):
+        return (ctx.slot_get("log", "ex", slot),
+                ctx.slot_get("log", "lb", slot),
+                ctx.slot_get("log", "cmd", slot),
+                ctx.slot_get("log", "ch", slot))
+
+    def log_set(ctx, slot, ex, lb, cmd, ch, when=True):
+        ctx.slot_put("log", "ex", slot, ex, when=when)
+        ctx.slot_put("log", "lb", slot, lb, when=when)
+        ctx.slot_put("log", "cmd", slot, cmd, when=when)
+        ctx.slot_put("log", "ch", slot, ch, when=when)
+
+    def gc_to(ctx, through, when):
+        do = when & (through > ctx.get("cl"))
+        ctx.slot_clear_upto("log", through + 1, when=do)
+        ctx.put("cl", through, when=do)
+
+    def maybe_gc(ctx, when):
+        have_all = ctx.get("pm") == (1 << n) - 1
+        floor = ctx.get_at("peer", 0)
+        for t in range(1, n):
+            floor = torch.minimum(floor, ctx.get_at("peer", t))
+        do = when & have_all & (floor > ctx.get("gc"))
+        ctx.put("gc", floor, when=do)
+        gc_to(ctx, ctx.get("gc"), do)
+
+    def exec_chain(ctx):
+        """_execute_chosen: advance ex through contiguous chosen
+        slots, driving the spec's effect per slot; the leader tracks
+        its own peer_executed and may GC."""
+        for _ in range(S):
+            nxt = ctx.get("ex") + 1
+            e_ex, _lb, e_cmd, e_ch = log_get(ctx, nxt)
+            run = (nxt <= S) & (e_ex == 1) & (e_ch == 1)
+            exec_effect(ctx.cond(run), e_cmd)
+            ctx.put("ex", nxt, when=run)
+        i = local(ctx)
+        is_leader = (ctx.get("ld") == 1) & (ctx.get("b") % n == i)
+        ctx.put_at("peer", i, ctx.get("ex"), when=is_leader)
+        maybe_gc(ctx, is_leader)
+
+    def send_p2a(ctx, slot):
+        """Broadcast P2a for log[slot] + inline self-accept/vote."""
+        i = local(ctx)
+        _ex, _lb, cmd0, _ch = log_get(ctx, slot)
+        ballot = ctx.get("b")
+        for t in range(n):
+            if t != i:
+                ctx.send("P2a", to=base + t, b=ballot, slot=slot,
+                         cmd=cmd0)
+        e_ex, _lb2, e_cmd, e_ch = log_get(ctx, slot)
+        write = (slot > ctx.get("cl")) & ~((e_ex == 1) & (e_ch == 1))
+        log_set(ctx, slot, 1, ballot, e_cmd, 0, when=write)
+        ctx.put("hd", 1)
+        v_ex, v_lb, _c, v_ch = log_get(ctx, slot)
+        ok = (v_ex == 1) & (v_ch == 0) & (v_lb == ballot)
+        ctx.slot_put("p2bv", "v", slot,
+                     ctx.slot_get("p2bv", "v", slot) | (1 << i),
+                     when=ok)
+
+    def heartbeat_sends(ctx):
+        i = local(ctx)
+        for t in range(n):
+            if t != i:
+                ctx.send("Heartbeat", to=base + t, b=ctx.get("b"),
+                         commit=ctx.get("ex"), gc=ctx.get("gc"))
+
+    def propose(ctx, cmd, when):
+        """Leader proposal with the relay dedup rule: an equal
+        in-flight unchosen entry absorbs the request."""
+        dup = False
+        for s in range(1, S + 1):
+            e_ex, _lb, e_cmd, e_ch = log_get(ctx, s)
+            dup = dup | ((e_ex == 1) & (e_ch == 0) & (e_cmd == cmd))
+        slot = ctx.get("si")
+        do = when & ~dup & (slot <= S)
+        dctx = ctx.cond(do)
+        log_set(dctx, slot, 1, ctx.get("b"), cmd, 0)
+        ctx.put("si", slot + 1, when=do)
+        send_p2a(dctx, slot)
+
+    def handle_request(ctx, cmd, when, injected):
+        """_propose: the leader proposes; a parent-injected request
+        forwards ONCE to the believed leader; a peer's forward is
+        never re-forwarded."""
+        i = local(ctx)
+        b = ctx.get("b")
+        is_leader = (ctx.get("ld") == 1) & (b % n == i)
+        propose(ctx, cmd, when & is_leader)
+        if injected:
+            believed = b % n
+            fwd = when & ~is_leader & (believed != i)
+            for t in range(n):
+                if t != i:
+                    ctx.send("PaxosRequest", to=base + t,
+                             when=fwd & (believed == t), cmd=cmd)
+
+    def p1b_win(ctx):
+        """Phase-1 victory; ctx is refined to the win condition."""
+        i = local(ctx)
+        ballot = ctx.get("b")
+        ctx.put("ld", 1)
+        ctx.put("p2bv.v", 0)
+        ctx.put("pm", 1 << i)
+        ex_self = ctx.get("ex")
+        for j in range(n):
+            ctx.put_at("peer", j, ex_self if j == i else 0)
+        for s in range(1, S + 1):
+            # a_ex is held as a flag: it only ever goes from 0 to 1.
+            a_ex, a_b, a_c, a_ch = False, -1, 0, 0
+            for t in range(n):
+                have = ctx.slot_get("votes", "have", t)
+                ex = ctx.slot_get("votes", f"ex{s}", t)
+                vb = ctx.slot_get("votes", f"lb{s}", t)
+                vc = ctx.slot_get("votes", f"cmd{s}", t)
+                vch = ctx.slot_get("votes", f"ch{s}", t)
+                valid = (have == 1) & (ex == 1)
+                not_ex = ~a_ex if isinstance(a_ex, torch.Tensor) else True
+                take = valid & ((vch == 1) & (a_ch == 0)
+                                | (a_ch == 0) & (not_ex | (vb > a_b)))
+                a_b = torch.where(take, vb, a_b)
+                a_c = torch.where(take, vc, a_c)
+                a_ch = torch.where(take, _max(a_ch, vch), a_ch)
+                a_ex = take | a_ex
+            m_ex, _lb, _c, m_ch = log_get(ctx, s)
+            adopt = a_ex & (s > ctx.get("cl")) \
+                & ~((m_ex == 1) & (m_ch == 1))
+            log_set(ctx, s, 1, ballot, a_c, a_ch, when=adopt)
+        top = ctx.get("cl")
+        for s in range(1, S + 1):
+            top = torch.where(ctx.slot_get("log", "ex", s) == 1, s, top)
+        for s in range(1, S + 1):
+            in_span = (s > ctx.get("ex")) & (s <= top)
+            log_set(ctx, s, 1, ballot, 0, 0,
+                    when=in_span
+                    & (ctx.slot_get("log", "ex", s) == 0))
+            reprop = in_span & (ctx.slot_get("log", "ch", s) == 0)
+            send_p2a(ctx.cond(reprop), s)
+        ctx.put("si", top + 1)
+        exec_chain(ctx)
+        ctx.set_timer("Heartbeat", b=ballot)
+        heartbeat_sends(ctx)
+
+    # ------------------------------------------------ paxos handlers
+
+    @frag.on("PaxosRequest")
+    def srv_preq(ctx, p):
+        handle_request(ctx, p["cmd"], True, injected=False)
+
+    @frag.on("P1a")
+    def srv_p1a(ctx, p):
+        mb, frm = p["b"], p["_from"]
+        adopt = mb > ctx.get("b")
+        ctx.put("b", mb, when=adopt)
+        ctx.put("ld", 0, when=adopt)
+        ctx.send("P1b", to=frm, when=mb == ctx.get("b"),
+                 b=ctx.get("b"),
+                 **{f"e{s}": pack_entry(*log_get(ctx, s))
+                    for s in range(1, S + 1)})
+
+    @frag.on("P1b")
+    def srv_p1b(ctx, p):
+        i = local(ctx)
+        vb = p["b"]
+        frm_i = (p["_from"] - base).clip(0, n - 1)
+        accept_vote = (vb == ctx.get("b")) \
+            & (ctx.get("b") % n == i) & (ctx.get("ld") == 0)
+        ctx.slot_put("votes", "have", frm_i, 1, when=accept_vote)
+        for s in range(1, S + 1):
+            ex, lb, cmd, ch = unpack_entry(p[f"e{s}"])
+            ctx.slot_put("votes", f"ex{s}", frm_i, ex,
+                         when=accept_vote)
+            ctx.slot_put("votes", f"lb{s}", frm_i, lb,
+                         when=accept_vote)
+            ctx.slot_put("votes", f"cmd{s}", frm_i, cmd,
+                         when=accept_vote)
+            ctx.slot_put("votes", f"ch{s}", frm_i, ch,
+                         when=accept_vote)
+        q = ctx.quorum(kind)
+        win = accept_vote & q.met(ctx.get("votes.have"))
+        p1b_win(ctx.cond(win))
+
+    @frag.on("P2a")
+    def srv_p2a(ctx, p):
+        ab, aslot, acmd = p["b"], p["slot"], p["cmd"]
+        ok = ab >= ctx.get("b")
+        ctx.put("ld", 0, when=ok & (ab > ctx.get("b")))
+        ctx.put("b", ab, when=ok)
+        ctx.put("hd", 1, when=ok)
+        e_ex, _lb, _c, e_ch = log_get(ctx, aslot)
+        write = ok & (aslot > ctx.get("cl")) \
+            & ~((e_ex == 1) & (e_ch == 1))
+        log_set(ctx, aslot, 1, ab, acmd, 0, when=write)
+        ctx.send("P2b", to=p["_from"], when=ok, b=ab, slot=aslot)
+
+    @frag.on("P2b")
+    def srv_p2b(ctx, p):
+        i = local(ctx)
+        bb, bslot = p["b"], p["slot"]
+        frm_i = (p["_from"] - base).clip(0, n - 1)
+        lead_ok = (bb == ctx.get("b")) & (ctx.get("ld") == 1) \
+            & (ctx.get("b") % n == i)
+        e_ex, e_lb, e_cmd, e_ch = log_get(ctx, bslot)
+        count_ok = lead_ok & (e_ex == 1) & (e_ch == 0) & (e_lb == bb)
+        vmask = ctx.slot_get("p2bv", "v", bslot)
+        vmask2 = torch.where(count_ok, vmask | (1 << frm_i), vmask)
+        q = ctx.quorum(kind)
+        chosen_now = count_ok & q.met_bits(vmask2)
+        ctx.slot_put("p2bv", "v", bslot,
+                     torch.where(chosen_now, 0, vmask2), when=count_ok)
+        log_set(ctx, bslot, 1, e_lb, e_cmd, 1, when=chosen_now)
+        exec_chain(ctx.cond(chosen_now))
+
+    @frag.on("Heartbeat")
+    def srv_heartbeat(ctx, p):
+        hb_b, hb_commit, hb_gc = p["b"], p["commit"], p["gc"]
+        ok = hb_b >= ctx.get("b")
+        ctx.put("ld", 0, when=ok & (hb_b > ctx.get("b")))
+        ctx.put("b", hb_b, when=ok)
+        ctx.put("hd", 1, when=ok)
+        gc_to(ctx, hb_gc, ok)
+        # NO catchup exchange in this lab's alphabet (the object
+        # harness runs small windows; decisions re-arrive via P2a).
+        ctx.send("HeartbeatReply", to=p["_from"], when=ok,
+                 b=ctx.get("b"), exec=ctx.get("ex"))
+
+    @frag.on("HeartbeatReply")
+    def srv_heartbeat_reply(ctx, p):
+        i = local(ctx)
+        frm_i = (p["_from"] - base).clip(0, n - 1)
+        ok = (p["b"] == ctx.get("b")) & (ctx.get("ld") == 1) \
+            & (ctx.get("b") % n == i)
+        pcur = ctx.get_at("peer", frm_i)
+        ctx.put_at("peer", frm_i, torch.maximum(pcur, p["exec"]),
+                   when=ok)
+        ctx.put("pm", ctx.get("pm") | (1 << frm_i), when=ok)
+        maybe_gc(ctx, ok)
+
+    @frag.on_timer("Election")
+    def srv_election(ctx, p):
+        i = local(ctx)
+        b = ctx.get("b")
+        is_leader = (ctx.get("ld") == 1) & (b % n == i)
+        elect = ~is_leader & (ctx.get("hd") == 0)
+        new_ballot = (b // n + 1) * n + i
+        ctx.put("b", new_ballot, when=elect)
+        ctx.put("ld", 0, when=elect)
+        for sf in votes.fields:
+            ctx.put(votes.lane(sf.name), 0, when=elect)
+        for t in range(n):
+            if t != i:
+                ctx.send("P1a", to=base + t, when=elect, b=new_ballot)
+        # Self-promise: own vote with own log.
+        ectx = ctx.cond(elect)
+        ectx.slot_put("votes", "have", i, 1)
+        for s in range(1, S + 1):
+            e_ex, e_lb, e_cmd, e_ch = log_get(ectx, s)
+            ectx.slot_put("votes", f"ex{s}", i, e_ex)
+            ectx.slot_put("votes", f"lb{s}", i, e_lb)
+            ectx.slot_put("votes", f"cmd{s}", i, e_cmd)
+            ectx.slot_put("votes", f"ch{s}", i, e_ch)
+        ctx.put("hd", 0)
+        ctx.set_timer("Election")
+
+    @frag.on_timer("Heartbeat")
+    def srv_heartbeat_timer(ctx, p):
+        i = local(ctx)
+        live = (p["b"] == ctx.get("b")) & (ctx.get("ld") == 1) \
+            & (ctx.get("b") % n == i)
+        heartbeat_sends(ctx.cond(live))
+        for s in range(1, S + 1):
+            inflight = live & (s > ctx.get("ex")) \
+                & (s < ctx.get("si")) \
+                & (ctx.slot_get("log", "ex", s) == 1) \
+                & (ctx.slot_get("log", "ch", s) == 0)
+            send_p2a(ctx.cond(inflight), s)
+        ctx.set_timer("Heartbeat", when=live, b=p["b"])
+
+    return frag, handle_request
+
+
+def make_shardstore_multi_spec(n_groups: int = 2, n: int = 3,
+                               num_shards: int = 10, w: int = 1,
+                               net_cap: int = 48,
+                               timer_cap: int = 6) -> ProtocolSpec:
+    """Lab 4 with MULTI-SERVER replica groups: G groups of n
+    Paxos-replicated ShardStoreServers, one frozen shard master, one
+    client.  Each group kind composes the ``gpaxos`` fragment; chosen
+    commands drive the shardstore effect switch the spec supplies.  The
+    scope is one handoff edge (G == 2)."""
+    from dslabs_tpu_torch.labs.shardedstore.shardstore import key_to_shard
+
+    G, NC, W = n_groups, 1, w
+    assert G == 2, "scope bound: one handoff edge"
+    S = 2 + W + 2
+    CFG = _staged_configs(G, n, num_shards)
+    NCMD = NC * W
+    CMD_NC0 = NCMD + 1
+    CMD_IS0 = CMD_NC0 + G
+    CMD_MD = CMD_IS0 + NC * W + 1
+    N_CMDS = CMD_MD + 1
+    cmd_hi = N_CMDS - 1
+    put_shard = [key_to_shard(f"key-{k}", num_shards)
+                 for k in range(1, W + 1)]
+    put_mask = [1 << (s - 1) for s in put_shard]
+    MOVE_MASK = CFG[0][1] & ~CFG[1][1]
+    SHMASK = (1 << num_shards) - 1
+    CLIENT = 1 + G * n
+
+    def srv(g, i):
+        return 1 + g * n + i            # g, i 0-based
+
+    def group_mask(g, cfg_idx):
+        return _select(cfg_idx, [CFG[j].get(g + 1, 0) for j in range(G)])
+
+    master = NodeKind("master", 1, (
+        Field("mc", init=G),
+        Field("mamo", size=1 + G * n),
+    ))
+    gkinds = [NodeKind(f"g{g + 1}", n, (
+        Field("scfg", hi=G),
+        Field("own", hi=SHMASK), Field("inc", hi=SHMASK),
+        Field("outf", hi=1), Field("osamo", hi=W),
+        Field("samo", hi=W), Field("qseq"),
+    )) for g in range(G)]
+    client = NodeKind("client", 1, (
+        Field("k", init=1, hi=W + 1),
+        Field("cfg", hi=G),
+        Field("cq", init=2),
+    ))
+
+    messages = [
+        MessageType("Query", ("seq", "arg"), bounds={"arg": (-1, G)}),
+        MessageType("QueryReply", ("seq", "kind"),
+                    bounds={"kind": (0, G - 1)}),
+        MessageType("ShardStoreRequest", ("k",), bounds={"k": (1, W)}),
+        MessageType("ShardStoreReply", ("k",), bounds={"k": (1, W)}),
+        MessageType("WrongGroup", ("k",), bounds={"k": (1, W)}),
+    ]
+    timers = [
+        TimerType("Election", (), min_ms=ELECTION_MIN,
+                  max_ms=ELECTION_MAX),
+        TimerType("Heartbeat", ("b",), min_ms=HEARTBEAT_MS,
+                  max_ms=HEARTBEAT_MS, bounds={"b": (0, BALLOT_HI)}),
+        TimerType("Query", (), min_ms=QUERY_MS, max_ms=QUERY_MS),
+        TimerType("Client", ("k",), min_ms=CLIENT_MS, max_ms=CLIENT_MS,
+                  bounds={"k": (1, W)}),
+    ]
+
+    spec = ProtocolSpec(
+        name=f"shardstore-multi-g{G}x{n}-w{W}",
+        nodes=[master] + gkinds + [client],
+        messages=messages, timers=timers,
+        net_cap=net_cap, timer_cap=timer_cap,
+        quorums=tuple(QuorumCount(f"g{g + 1}", over=f"g{g + 1}",
+                                  threshold="majority")
+                      for g in range(G)),
+        max_live_sends=32)
+
+    # ---- per-group effect switch + fragment composition -------------
+
+    def make_group(gi):
+        kname = f"g{gi + 1}"
+        base = 1 + gi * n
+
+        def reconfig_done(ctx):
+            return (ctx.get("inc") == 0) & (ctx.get("outf") == 0)
+
+        def exec_effect(ctx, cmd):
+            """handle_PaxosDecision's switch for one executed command;
+            ctx is refined to the exec condition."""
+            i = ctx.node_index() - base
+            is_leader = (ctx.get("ld") == 1) & (ctx.get("b") % n == i)
+
+            # NewConfig(j) (_apply_new_config)
+            j = cmd - CMD_NC0
+            nc_ok = (cmd >= CMD_NC0) & (cmd < CMD_NC0 + G) \
+                & (j == ctx.get("scfg")) & reconfig_done(ctx)
+            mine_new = group_mask(gi, j)
+            first = ctx.get("scfg") == 0
+            own = ctx.get("own")
+            lost = own & ~mine_new
+            gained = mine_new & ~own
+            ctx.put("own", torch.where(first, mine_new, own & ~lost),
+                    when=nc_ok)
+            ctx.put("inc", gained, when=nc_ok & ~first)
+            has_out = nc_ok & ~first & (lost != 0)
+            ctx.put("outf", 1, when=has_out)
+            ctx.put("osamo", ctx.get("samo"), when=has_out)
+            ctx.put("scfg", j + 1, when=nc_ok)
+            if gi == 0:
+                # executing leader: _send_moves (only edge: g1 -> g2)
+                move = has_out & is_leader
+                for t in range(n):
+                    ctx.send("ShardMove", to=srv(1, t), when=move,
+                             g=1, v=ctx.get("samo"))
+
+            # client command (_execute_client_command)
+            cl_ok = (cmd >= 1) & (cmd <= NCMD)
+            have_cfg = ctx.get("scfg") > 0
+            cmask = _select((cmd - 1) % W, put_mask)
+            mine = group_mask(gi, ctx.get("scfg") - 1)
+            in_mine = (cmask & mine) == cmask
+            wrong = cl_ok & have_cfg & ~in_mine
+            ctx.send("WrongGroup", to=CLIENT, when=wrong,
+                     k=(cmd - 1) % W + 1)
+            owned_now = (cmask & ctx.get("own")) == cmask
+            do = cl_ok & have_cfg & in_mine & owned_now
+            seq = (cmd - 1) % W + 1
+            ctx.put("samo", torch.maximum(ctx.get("samo"), seq),
+                    when=do)
+            ctx.send("ShardStoreReply", to=CLIENT, when=do, k=seq)
+
+            # InstallShards (_apply_install); only g2 receives it
+            if gi == 1:
+                v = cmd - CMD_IS0
+                is_ok = (cmd >= CMD_IS0) \
+                    & (cmd < CMD_IS0 + NC * W + 1) \
+                    & (ctx.get("scfg") == 2) \
+                    & ((MOVE_MASK & ctx.get("inc")) == MOVE_MASK)
+                ctx.put("own", ctx.get("own") | MOVE_MASK, when=is_ok)
+                ctx.put("inc", ctx.get("inc") & ~MOVE_MASK,
+                        when=is_ok)
+                ctx.put("samo", torch.maximum(ctx.get("samo"), v),
+                        when=is_ok)
+                ack = is_ok & is_leader
+                for t in range(n):
+                    ctx.send("ShardMoveAck", to=srv(0, t), when=ack,
+                             g=1)
+
+            # MoveDone
+            ctx.put("outf", 0, when=cmd == CMD_MD)
+
+        frag, handle_request = _gpaxos_fragment(
+            kname, base, n, S, cmd_hi, exec_effect)
+        spec.include(kname, frag)
+
+        # ---- store-layer wiring (QueryReply/SSREQ/SM/SMACK inject
+        # commands into the group log; QueryTimer is leader-gated)
+
+        @spec.on(kname, "QueryReply")
+        def s_query_reply(ctx, p):
+            want = (p["kind"] == ctx.get("scfg")) & reconfig_done(ctx)
+            handle_request(ctx, CMD_NC0 + p["kind"], want,
+                           injected=True)
+
+        @spec.on(kname, "ShardStoreRequest")
+        def s_ssreq(ctx, p):
+            handle_request(ctx, p["k"], True, injected=True)
+
+        if gi == 1:
+            @spec.on(kname, "ShardMove")
+            def s_shard_move(ctx, p):
+                sm_ok = ctx.get("scfg") == 2
+                handle_request(ctx, CMD_IS0 + p["v"], sm_ok,
+                               injected=True)
+        else:
+            @spec.on(kname, "ShardMoveAck")
+            def s_shard_move_ack(ctx, p):
+                sa_ok = ctx.get("outf") == 1
+                handle_request(ctx, CMD_MD, sa_ok, injected=True)
+
+        @spec.on_timer(kname, "Query")
+        def s_query_timer(ctx, p):
+            i = ctx.node_index() - base
+            is_leader = (ctx.get("ld") == 1) \
+                & (ctx.get("b") % n == i)
+            q_ok = is_leader & (reconfig_done(ctx)
+                                | (ctx.get("scfg") == 0))
+            ctx.put("qseq", ctx.get("qseq") + 1, when=q_ok)
+            ctx.send("Query", to=0, when=q_ok, seq=ctx.get("qseq"),
+                     arg=ctx.get("scfg"))
+            if gi == 0:
+                resend = is_leader & (ctx.get("outf") == 1) \
+                    & (ctx.get("scfg") == 2)
+                for t in range(n):
+                    ctx.send("ShardMove", to=srv(1, t), when=resend,
+                             g=1, v=ctx.get("osamo"))
+            ctx.set_timer("Query")
+
+    for gi in range(G):
+        make_group(gi)
+
+    # the handoff WIRE types merge last so the tag order matches the
+    # hand twin's enum (SM, SMACK after the paxos tags)
+    spec.include("g1", Fragment("handoff-wire", messages=(
+        MessageType("ShardMove", ("g", "v"),
+                    bounds={"g": (1, 1), "v": (0, NC * W)}),
+        MessageType("ShardMoveAck", ("g",), bounds={"g": (1, 1)}),
+    )))
+
+    # ---------------- master (collapsed lone ShardMaster paxos)
+
+    @spec.on("master", "Query")
+    def m_query(ctx, p):
+        frm = p["_from"]
+        qseq, arg = p["seq"], p["arg"]
+        idx = torch.where(frm == CLIENT, 0, frm)
+        cur = ctx.get_at("mamo", idx)
+        fresh = qseq > cur
+        ctx.put("mc", ctx.get("mc") + 1, when=fresh)
+        ctx.put_at("mamo", idx, qseq, when=fresh)
+        kind = torch.where((arg < 0) | (arg >= G), G - 1, arg)
+        ctx.send("QueryReply", to=frm, when=qseq >= cur, seq=qseq,
+                 kind=kind)
+
+    # ---------------- client (ShardStoreClient)
+
+    def client_send_pending(ctx, cond):
+        """_send_pending: broadcast SSREQ(k) to every server of the
+        owning group under the client's known config."""
+        k = ctx.get("k")
+        kmask = _select((k - 1) % W, put_mask)
+        ccfg = ctx.get("cfg")
+        for g in range(G):
+            gm = group_mask(g, ccfg - 1)
+            owns = (kmask & gm) == kmask
+            for i in range(n):
+                ctx.send("ShardStoreRequest", to=srv(g, i),
+                         when=cond & owns & (ccfg > 0), k=k)
+
+    @spec.on("client", "QueryReply")
+    def c_query_reply(ctx, p):
+        newer = p["kind"] + 1 > ctx.get("cfg")
+        ctx.put("cfg", p["kind"] + 1, when=newer)
+        client_send_pending(ctx, newer & (ctx.get("k") <= W))
+
+    @spec.on("client", "ShardStoreReply")
+    def c_ssrep(ctx, p):
+        k = ctx.get("k")
+        match = (p["k"] == k) & (k <= W)
+        ctx.put("k", k + 1, when=match)
+
+    @spec.on("client", "WrongGroup")
+    def c_wrong_group(ctx, p):
+        k = ctx.get("k")
+        is_wg = (p["k"] == k) & (k <= W)
+        cq = ctx.get("cq")
+        ctx.put("cq", cq + 1, when=is_wg)
+        ctx.send("Query", to=0, when=is_wg, seq=cq + 1, arg=-1)
+
+    @spec.on_timer("client", "Client")
+    def c_timer(ctx, p):
+        k = ctx.get("k")
+        live = (p["k"] == k) & (k <= W)
+        cq = ctx.get("cq")
+        ctx.put("cq", cq + 1, when=live)
+        ctx.send("Query", to=0, when=live, seq=cq + 1, arg=-1)
+        no_cfg = ctx.get("cfg") == 0
+        ctx.put("cq", ctx.get("cq") + 1, when=live & no_cfg)
+        ctx.send("Query", to=0, when=live & no_cfg, seq=cq + 2,
+                 arg=-1)
+        client_send_pending(ctx, live & ~no_cfg)
+        ctx.set_timer("Client", when=live, k=k)
+
+    # -------------------------------------------- initials/predicates
+
+    for s in (1, 2):
+        spec.initial_messages.append(
+            ("Query", CLIENT, 0, {"seq": s, "arg": -1}))
+    for g in range(G):
+        for i in range(n):
+            # server init: paxos Election, then QueryTimer (the first
+            # heartbeat arms on phase-1 victory).
+            spec.initial_timers.append(("Election", srv(g, i), {}))
+            spec.initial_timers.append(("Query", srv(g, i), {}))
+    spec.initial_timers.append(("Client", CLIENT, {"k": 1}))
+
+    def clients_done(view):
+        return view.get("client", 0, "k") == W + 1
+
+    spec.goals["CLIENTS_DONE"] = clients_done
+    return spec
+
+
+def make_shardstore_multi_protocol(n_groups: int = 2, n: int = 3,
+                                   num_shards: int = 10, w: int = 1,
+                                   net_cap: int = 48,
+                                   timer_cap: int = 6):
+    """The compiled multi-server twin."""
+    return make_shardstore_multi_spec(
+        n_groups, n, num_shards, w, net_cap, timer_cap).compile()

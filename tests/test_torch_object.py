@@ -3,13 +3,15 @@ equals the reference's source with the import root ``dslabs_tpu.``
 rewritten to ``dslabs_tpu_torch.`` (so the copy cannot drift), and the
 object checkers of both packages give the same verdict, depth and
 ``discovered_count`` on the lab 0-3 search-test shapes of
-``tests/torch_harness_cases.py``.  Every comparison is exact."""
+``tests/torch_harness_cases.py`` and the lab 4 join phase of
+``tests/torch_lab4_cases.py``.  Every comparison is exact."""
 
 import pathlib
 
 import pytest
 
 from tests import torch_harness_cases as H
+from tests import torch_lab4_cases as L4
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -33,6 +35,8 @@ COPIED = [
     "labs/primarybackup/__init__.py", "labs/primarybackup/viewserver.py",
     "labs/primarybackup/pb.py", "labs/paxos/__init__.py",
     "labs/paxos/paxos.py", "labs/paxos/predicates.py",
+    "labs/shardedstore/__init__.py", "labs/shardedstore/shardmaster.py",
+    "labs/shardedstore/txkvstore.py", "labs/shardedstore/shardstore.py",
 ]
 
 
@@ -45,7 +49,7 @@ def test_copy_equals_reference(rel):
 
 def test_no_other_object_layer_module_is_copied():
     """The port holds the closure above and nothing more of the object
-    layer (no runner/, harness/, viz/, service/, analysis/ or lab 4)."""
+    layer (no runner/, harness/, viz/, service/ or analysis/)."""
     port = REPO / "dslabs_tpu_torch"
     have = sorted(str(f.relative_to(port)) for d in
                   ("utils", "core", "testing", "search", "labs")
@@ -62,6 +66,7 @@ def _object_run(root, build):
 SHAPES = {name: fn for name, fn in H.LAB02.items()
           if name != "lab1_infinite"}      # time-limited: no fixed count
 SHAPES["lab3_depth4"] = H.lab3_depth4
+SHAPES["lab4_join_g2"] = lambda pkg: L4.join_case(pkg, 2)
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))

@@ -250,6 +250,7 @@ def test_port_imports_no_jax():
     for name in ("tpu/trace.py", "tpu/protocols/primarybackup.py",
                  "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py",
                  "tpu/backend.py", "tpu/adapters/paxos.py",
+                 "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
                  "search/search.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
