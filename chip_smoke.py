@@ -101,13 +101,34 @@ table) once.  Each phase prints one JSON line:
            count-parity shape, equal to the port's object checker (219).
            Per search: seconds, unique states/min, peak device memory,
            chunk steps or the ladder rung, and each kernel's launches;
+  swarm    the swarm rollout probe (tpu/swarm.py): _step_batch on the
+           card bit for bit against per-row _step_one on 128 (row, event)
+           pairs (message, timer and undeliverable ids) of the compiled
+           flagship and the lab 4 store [1, 1], and on 32 ids outside the
+           grid against the CPU; the lock twin (m=8, k=12) twice with one
+           seed: a 12-event witness replayed to progress 12, and equal
+           raw and minimized traces and counters; the lab 1 deep probe
+           (INVARIANT_VIOLATED at depth >= 18, object-verified witness) and
+           the ten lab dfs call sites of tests/torch_harness_cases.py and
+           tests/torch_lab4_cases.py through the port's search.dfs at the
+           lab tests' sizes and budgets (each ends as its lab test
+           accepts; lab1 test11's two calls raise the ladder's top-rung
+           CapacityOverflow and three lab 4 sites the NoTensorTwin the
+           reference raises too); the reference's slow deep-narrow Paxos
+           shape (128 walkers, 90 s), whose verdict, if any, must be
+           replay-verified; and both kernels at the walker's shapes.  Per
+           search: seconds, walk steps/s, ms per walk step, the aten ops
+           one walk step dispatches, rounds, deepest depth, overflow
+           restarts, witness sizes and seconds, and each kernel's
+           launches;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
            memory, bytes per state, chunk steps, and the launch count of
            each kernel during that run (each must be > 0).
 
-Then one line ``{"kernels": [...]}`` with every kernel's numbers, the
+Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
+launches those of the search and swarm phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -1158,6 +1179,387 @@ def lab4_harness(torch, mods):
           "searches": hr.records})
 
 
+# The lab 4 dfs call sites no twin binds, in either package: the
+# NoTensorTwin text of the JAX package's tensor_dfs on the same shapes
+# (tests/test_torch_lab4_harness.py holds the port's equal to it).
+SWARM_REFUSED = {
+    "p2_test14": "shardstore twin models ONE server per group (group 1 has "
+                 "several) — use the multi-server twin shapes",
+    "p3_test11": "shardstore twin models exactly one tx-workload client "
+                 "(found 2)",
+    "p3_test12": "shardstore twin models ONE server per group (group 1 has "
+                 "several) — use the multi-server twin shapes",
+}
+# The wall budget of the reference's slow deep-narrow Paxos shape
+# (tests/test_swarm.py:398), for the swarm alone.
+PAXOS_DEEP_SECS = 90.0
+
+
+class SwarmRuns:
+    """Swarm runs on the card with their kernel counts: inside the
+    ``with`` block every ``SwarmSearch.run`` is recorded (the search and
+    its outcome) and every witness pipeline is timed, so a probe inside
+    ``search.dfs`` is seen as well as a swarm run directly."""
+
+    def __init__(self, torch, mods):
+        from dslabs_tpu_torch.tpu import swarm
+
+        self.torch, self.mods, self.swarm = torch, mods, swarm
+        self.runs = []
+        self.witness_secs = []
+
+    def __enter__(self):
+        swarm = self.swarm
+        self._run, self._build = swarm.SwarmSearch.run, swarm.build_witness
+        run, build = self._run, self._build
+
+        def spy_run(sw, *a, **kw):
+            out = run(sw, *a, **kw)
+            self.runs.append((sw, out))
+            return out
+
+        def spy_build(*a, **kw):
+            t = time.time()
+            w = build(*a, **kw)
+            self.witness_secs.append(time.time() - t)
+            return w
+
+        swarm.SwarmSearch.run = spy_run
+        swarm.build_witness = spy_build
+        return self
+
+    def __exit__(self, *exc):
+        self.swarm.SwarmSearch.run = self._run
+        self.swarm.build_witness = self._build
+
+    def reset(self):
+        """Set every kernel count to 0 and forget earlier runs."""
+        self.torch.cuda.synchronize()
+        self.mods["kernels"].LAUNCHES["fingerprint_rows"] = 0
+        self.mods["visited"].LAUNCHES["insert"] = 0
+        del self.runs[:]
+        del self.witness_secs[:]
+
+    def launches(self):
+        self.torch.cuda.synchronize()
+        return {"fingerprint_rows":
+                self.mods["kernels"].LAUNCHES["fingerprint_rows"],
+                "insert": self.mods["visited"].LAUNCHES["insert"]}
+
+    def record(self):
+        """The last swarm run: verdict, fleet statistics, walk steps per
+        second and milliseconds per walk step (host clock around the
+        rounds, one sync per step), warm-up and witness seconds, and the
+        aten ops one walk step and one ``_step_batch`` of its fleet
+        dispatch (counted after the run, on a fresh carry)."""
+        if not self.runs:
+            return None
+        sw, out = self.runs[-1]
+        steps = sw.walk_steps
+        rec = dict(end=out.end_condition, walk_steps=steps,
+                   walk_secs=sw.walk_secs,
+                   walk_steps_per_s=steps / max(sw.walk_secs, 1e-9),
+                   ms_per_walk_step=sw.walk_secs / max(steps, 1) * 1e3,
+                   compile_secs=out.compile_secs, lanes=sw.lanes,
+                   stats=out.swarm)
+        counts = (self.mods["kernels"].LAUNCHES,
+                  self.mods["visited"].LAUNCHES)
+        before = [dict(c) for c in counts]
+        carry = sw._init_carry(sw.initial_state())
+        rec["ops_per_walk_step"] = dispatched_ops(lambda: sw._walk(carry))
+        rec["ops_per_step_batch"] = dispatched_ops(
+            lambda: sw._step_batch(carry["rows"], carry["depths"]))
+        # The counted walk step's launches are not the run's.
+        for c, b in zip(counts, before):
+            c.update(b)
+        if out.witness is not None:
+            w = out.witness
+            rec["witness"] = dict(
+                raw=len(w.raw_trace), trace=len(w.trace),
+                passes=w.minimize_passes, verified=w.replay_verified,
+                object_verified=w.object_verified,
+                secs=self.witness_secs[-1] if self.witness_secs else None)
+        return rec
+
+
+def dispatched_ops(fn) -> int:
+    """The aten ops ``fn()`` dispatches: the host's dispatch work of an eager
+    step (on the card most are one kernel launch each)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def reachable_rows(torch, ts, depth, gen, keep=32):
+    """Rows of levels 0..depth of ``ts``'s twin on its device, each level
+    expanded by every grid event through ``_step_batch`` and subsampled
+    to ``keep`` rows by ``gen``."""
+    p = ts.p
+    grid = p.net_cap + p.n_nodes * p.timer_cap
+    from dslabs_tpu_torch.tpu.engine import flatten_state
+
+    rows = flatten_state(ts.initial_state())
+    levels = [rows]
+    for _ in range(depth):
+        succ, ok, over = ts._step_batch(
+            rows.repeat_interleave(grid, 0),
+            torch.arange(grid, device=rows.device).repeat(rows.shape[0]))
+        rows = torch.unique(succ[ok & (over == 0)], dim=0)
+        if len(rows) > keep:
+            rows = rows[torch.randperm(len(rows), generator=gen)[:keep]
+                        .to(rows.device)]
+        levels.append(rows)
+    return torch.cat(levels)
+
+
+def swarm_step_parity(torch, mods, name, proto, gen):
+    """``_step_batch`` on the card against per-row ``_step_one`` on the
+    card, bit for bit, on 128 (row, event) pairs of reachable rows with
+    message ids (deliverable or not) and timer ids; and on 32 pairs with
+    ids outside the grid, which ``_step_one`` refuses, against
+    ``_step_batch`` on the CPU."""
+    engine = mods["engine"]
+    t0 = time.time()
+    ts = engine.TensorSearch(proto, chunk=16, device="cuda")
+    p = ts.p
+    grid = p.net_cap + p.n_nodes * p.timer_cap
+    rows = reachable_rows(torch, ts, 2, gen)
+    idx = torch.randint(0, len(rows), (160,), generator=gen)
+    ev = torch.randint(0, grid, (160,), generator=gen)
+    ev[:40] = p.net_cap + torch.randint(0, grid - p.net_cap, (40,),
+                                        generator=gen)
+    ev[128:144] = -torch.randint(1, 4, (16,), generator=gen)
+    ev[144:] = grid + torch.randint(0, 6, (16,), generator=gen)
+    pick = rows[idx.to("cuda")]
+    succ, ok, over = ts._step_batch(pick, ev.to("cuda"))
+    for i in range(128):
+        r1, v1, o1 = ts._step_one(pick[i], int(ev[i]))
+        check(torch.equal(r1, succ[i]) and bool(v1) == bool(ok[i])
+              and int(o1) == int(over[i]),
+              f"swarm step parity {name}: pair {i} (event {int(ev[i])}) "
+              "differs from _step_one")
+    cpu = engine.TensorSearch(proto, chunk=16, device="cpu")
+    s_c, ok_c, over_c = cpu._step_batch(pick[128:].cpu(), ev[128:])
+    check(torch.equal(s_c, succ[128:].cpu())
+          and torch.equal(ok_c, ok[128:].cpu())
+          and torch.equal(over_c, over[128:].cpu()),
+          f"swarm step parity {name}: ids outside the grid differ from "
+          "the CPU")
+    return dict(lanes=ts.lanes, grid=grid, pairs=128, outside_grid=32,
+                valid=int(ok[:128].sum()), timer_ids=40,
+                overflowed=int((over[:128] > 0).sum()),
+                secs=time.time() - t0)
+
+
+def swarm_kernel_times(torch, mods, lanes_list, gen):
+    """Both kernels at the walker's shapes: the fingerprint of 128 rows
+    at each probe twin's width and the insert of 128 keys into a 2^18-slot
+    table already holding 2^14 keys; bit-exact against the plain versions,
+    timed as in the kernels phase beside their bounds."""
+    kernels, visited, engine = mods["kernels"], mods["visited"], \
+        mods["engine"]
+    dev = "cuda"
+    out = {}
+    for lanes in lanes_list:
+        flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (128, lanes),
+                             generator=gen, dtype=torch.int32).to(dev)
+        check(torch.equal(kernels.fingerprint_rows(flat),
+                          engine.row_fingerprints(flat)),
+              f"fingerprint_rows [128, {lanes}] disagrees with its plain "
+              "version")
+        b_ms, b_by = bound_ms(128 * lanes * 4 + 128 * 16,
+                              128 * lanes * FP_OPS_PER_LANE)
+        out[f"fingerprint_rows[128,{lanes}]"] = dict(
+            ms=cuda_ms(torch, lambda _: kernels.fingerprint_rows(flat)),
+            plain_ms=cuda_ms(torch, lambda _: engine.row_fingerprints(flat)),
+            bound_ms=b_ms, bound_by=b_by)
+
+    def keys(n):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 4), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    base, _, unres = visited.build_table(1 << 18, keys(1 << 14), dev)
+    check(unres == 0, "swarm table prefill left keys unresolved")
+    k = keys(128)
+    valid = torch.ones(128, dtype=torch.bool, device=dev)
+    ta, ia, ua = visited.insert(base.clone(), k, valid)
+    tb, ib, ub = visited.insert_plain(base.clone(), k, valid)
+    check(torch.equal(ta, tb) and torch.equal(ia, ib) and torch.equal(ua, ub),
+          "insert [128 keys, 2^18 slots] disagrees with insert_plain")
+    b_ms, b_by = bound_ms(128 * 17 + 128 * 128 + int(ia.sum()) * 16
+                          + 128 * 2, 0)
+    out["insert[128,2^18]"] = dict(
+        ms=cuda_ms(torch, lambda t: visited.insert(t, k, valid),
+                   setup=lambda: base.clone()),
+        plain_ms=cuda_ms(torch, lambda t: visited.insert_plain(t, k, valid),
+                         setup=lambda: base.clone()),
+        bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def phase_swarm(torch, mods):
+    """The swarm rollout probe on the card (module docstring): step
+    parity, the lock twin and its same-seed rerun, the lab 1 deep probe
+    and the ten lab dfs call sites through the port's search.dfs, the
+    slow deep-narrow Paxos shape, then both kernels at the walker's
+    shapes.  Returns the kernels' launches over the phase's searches."""
+    from dslabs_tpu_torch.search import search as osearch
+    from dslabs_tpu_torch.tpu import backend, specs_lab3, specs_lab4
+    from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+    from dslabs_tpu_torch.tpu.swarm import SwarmSearch, replay_events
+    from tests import torch_harness_cases as H
+    from tests import torch_lab4_cases as C
+
+    t_phase = time.time()
+    gen = torch.Generator().manual_seed(7)
+    parity = {
+        "flagship": swarm_step_parity(torch, mods, "flagship",
+                                      flagship_protocol(), gen),
+        "store_11": swarm_step_parity(
+            torch, mods, "store_11",
+            specs_lab4.make_shardstore_protocol([1, 1]), gen)}
+    emit({"phase": "swarm", "part": "step_parity", **parity})
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    P = H.Pkg("dslabs_tpu_torch")
+    with SwarmRuns(torch, mods) as sr:
+        # ---- the lock twin, twice with one seed.
+        locks = []
+        for _ in range(2):
+            sr.reset()
+            proto = H.make_lock_protocol(m=8, k=12, noise_bits=22)
+            sw = SwarmSearch(proto, walkers_per_device=128, max_steps=240,
+                             steps_per_round=64, seed=0,
+                             visited_cap=1 << 14, device="cuda")
+            t0 = time.time()
+            out = sw.run()
+            rec = dict(secs=time.time() - t0, **sr.record(),
+                       launches=sr.launches())
+            add(rec["launches"])
+            w = out.witness
+            root = mods["engine"].flatten_state(
+                sw.initial_state())[0].cpu().numpy()
+            row, applied = replay_events(sw, root, w.trace)
+            check(out.end_condition == "INVARIANT_VIOLATED"
+                  and len(w.trace) == 12 and applied == 12
+                  and int(row[0]) == 12 and w.replay_verified,
+                  f"swarm lock: {rec}")
+            locks.append((w.raw_trace, w.trace, {
+                k: v for k, v in out.swarm.items()
+                if not k.endswith(("_per_sec", "_per_min"))}, rec))
+        check(locks[0][:3] == locks[1][:3],
+              "swarm lock: same seed, different walks on the card")
+        emit({"phase": "swarm", "part": "lock", "runs": [x[3] for x in locks],
+              "same_seed_identical": True})
+
+        # ---- lab dfs call sites through search.dfs on the card.
+        records = {}
+        with HarnessRuns(torch, mods) as hr:
+            def dfs(name, case):
+                sr.reset()
+                del hr._runs[:]
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                try:
+                    res = osearch.dfs(case.state, case.settings)
+                except (CapacityOverflow, backend.NoTensorTwin) as e:
+                    res = e
+                rec = dict(secs=time.time() - t0, launches=sr.launches(),
+                           peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                           probe=sr.record())
+                add(rec["launches"])
+                if isinstance(res, Exception):
+                    rec.update(end=type(res).__name__, error=str(res))
+                else:
+                    rec.update(end=H.end_name(res),
+                               depth=H.terminal_depth(res),
+                               unique=res.discovered_count)
+                    if hr._runs:
+                        search, outcome, _ = hr._runs[-1]
+                        rec["bfs"] = dict(
+                            end=outcome.end_condition, depth=outcome.depth,
+                            rung=[f for f, _ in backend._LADDER].index(
+                                search.frontier_cap))
+                if name not in SWARM_REFUSED:
+                    check(rec["launches"]["fingerprint_rows"] > 0
+                          and rec["launches"]["insert"] > 0,
+                          f"swarm {name}: a kernel never launched: {rec}")
+                records[name] = rec
+                return res, rec
+
+            res, rec = dfs("lab1_deep_probe", H.lab1_deep_probe(P))
+            bad = H.terminal(res)
+            check(rec["end"] == "INVARIANT_VIOLATED" and bad.depth >= 18
+                  and rec["probe"]["witness"]["object_verified"]
+                  and rec["probe"]["witness"]["verified"],
+                  f"swarm lab1_deep_probe: {rec}")
+            for name, build in H.DFS.items():
+                case = build(P)
+                res, rec = dfs(name, case)
+                if name.startswith("lab1_test11") and \
+                        rec["end"] == "CapacityOverflow":
+                    # The twin outgrows the ladder's top rung at depth 16,
+                    # in both packages' tensor_bfs (ROADMAP.md Queue C).
+                    check(re.search(r"net_cap=64, timer_cap=8.*depth 16 ",
+                                    rec["error"]) is not None,
+                          f"swarm {name}: {rec['error']}")
+                    continue
+                check(rec["end"] in case.expect
+                      and H.terminal(res) is None,
+                      f"swarm {name}: {rec}")
+            for name in C.DFS:
+                # The join phase goes through search.bfs on the card.
+                (case,) = C.dfs_cases(P, name, run=lambda c, n=name:
+                                      hr.search(f"{n}_join", c)[0])
+                res, rec = dfs(name, case)
+                if name in SWARM_REFUSED:
+                    check(rec.get("error") == SWARM_REFUSED[name],
+                          f"swarm {name}: {rec}")
+                    continue
+                check(rec["end"] in case.expect and H.terminal(res) is None,
+                      f"swarm {name}: {rec}")
+        emit({"phase": "swarm", "part": "dfs", "searches": records})
+
+        # ---- the reference's slow deep-narrow Paxos shape.
+        sr.reset()
+        proto = H.violating(specs_lab3.make_paxos_protocol(
+            n=3, n_clients=1, w=2, max_slots=3))
+        sw = SwarmSearch(proto, walkers_per_device=128, max_steps=192,
+                         steps_per_round=64, seed=0, visited_cap=1 << 16,
+                         max_secs=PAXOS_DEEP_SECS, device="cuda")
+        t0 = time.time()
+        out = sw.run()
+        rec = dict(secs=time.time() - t0, **sr.record(),
+                   launches=sr.launches())
+        add(rec["launches"])
+        check(out.end_condition in ("INVARIANT_VIOLATED", "TIME_EXHAUSTED")
+              and (out.witness is None or out.witness.replay_verified),
+              f"swarm paxos_deep: {rec}")
+        emit({"phase": "swarm", "part": "paxos_deep", **rec})
+    lanes = sorted({locks[0][3]["lanes"], rec["lanes"],
+                    records["lab1_deep_probe"]["probe"]["lanes"]})
+    emit({"phase": "swarm", "part": "kernels",
+          **swarm_kernel_times(torch, mods, lanes, gen)})
+    check(all(v > 0 for v in total.values()),
+          f"swarm phase skipped a kernel: {total}")
+    emit({"phase": "swarm", "secs": time.time() - t_phase,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -1221,6 +1623,7 @@ def main() -> int:
     phase_trace(torch, mods, PROFILE_DEPTH)
     phase_harness(torch, mods)
     phase_lab4(torch, mods)
+    swarm_launches = phase_swarm(torch, mods)
     launches = phase_search(torch, mods, SEARCH_MAX_SECS)
 
     replaces = {
@@ -1231,7 +1634,10 @@ def main() -> int:
     }
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
-         "replaces": replaces[k][1], "launches": launches[k],
+         "replaces": replaces[k][1],
+         "launches": launches[k] + swarm_launches[k],
+         "launches_by_path": {"search": launches[k],
+                              "swarm": swarm_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

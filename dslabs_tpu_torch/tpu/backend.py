@@ -36,13 +36,19 @@ Pipeline per call:
    on the object twin and re-checked with the original object predicate,
    and a twin/object divergence raises instead of returning an answer.
 
+:func:`tensor_dfs` (the ``dfs`` call sites) first runs a swarm rollout
+probe (``tpu/swarm.py``) at the capacity ladder's top rung: a violation
+it finds ships with its minimized, replay-verified witness, confirmed
+again on the object twin; otherwise a strict BFS runs under the same
+settings, its time budget less the probe's seconds.
+
 Deliberate differences from the reference: one ``TensorSearch`` on one
 device replaces ``ShardedTensorSearch`` over a mesh (a frontier past a
 rung's ``frontier_cap`` escalates the ladder, as the reference's strict
 frontier drops do, and the host keeps the visited set, so ``visited_cap``
-bounds nothing here); no transient-dispatch retry wraps the search; and
-the swarm rollout probe of :func:`tensor_dfs` is not ported, so it and
-``tensor_bfs(_probe_first=True)`` raise ``NotImplementedError``.
+bounds nothing here); no transient-dispatch retry wraps the search or the
+probe; and the probe's warm-up (``compile_secs``) is not deducted from
+the BFS's budget.
 """
 
 from __future__ import annotations
@@ -453,15 +459,18 @@ def _sampled_value_recheck(binding, search, outcome, settings, state):
     return None
 
 
-def _bind_protocol(binding, settings, net_cap, timer_cap):
+def _bind_protocol(binding, settings, net_cap, timer_cap,
+                   with_goals=True):
     """The runnable twin of one capacity rung: the protocol with its
-    translated predicates, and the runtime mask arrays."""
+    translated predicates, and the runtime mask arrays.  One code path for
+    the BFS ladder and the rollout probe, so both search identically
+    configured twins."""
     marr, tarr = compile_masks(binding, settings)
     protocol = binding.build_protocol(net_cap, timer_cap)
     inv = {p.name: translate_predicate(binding, p)
            for p in settings.invariants}
-    goals = {p.name: translate_predicate(binding, p)
-             for p in settings.goals}
+    goals = ({p.name: translate_predicate(binding, p)
+              for p in settings.goals} if with_goals else {})
     prunes = {p.name: translate_predicate(binding, p)
               for p in settings.prunes}
     protocol = dataclasses.replace(
@@ -503,11 +512,60 @@ def _object_minimize_verify(obj, pred, result):
     return mini, r2
 
 
-def _later_probe() -> NotImplementedError:
-    return NotImplementedError(
-        "the rollout probe of tensor_dfs needs SwarmSearch, which is not "
-        "ported yet; it comes with the swarm, lanes and service slice of "
-        "the PyTorch port (see ROADMAP.md)")
+def _rollout_probe(binding, settings, state, device):
+    """The swarm deep probe before a dfs-routed BFS: a diversified
+    random-walk fleet (``SwarmSearch``) reaches depth d in O(d) steps, so
+    the deep, narrow violations the object RandomDFS could hit inside a
+    budget are covered before the level-by-level search starts.  This
+    function keeps only the budget accounting; the walkers, dedup,
+    overflow-restart counting and the witness pipeline live in
+    ``tpu/swarm.py``.  Returns ``((search, outcome, history),
+    probe_secs)`` on a violation or exception, else ``(None,
+    probe_secs)``; a CapacityOverflow skips the probe (the BFS ladder
+    owns the caps).  ``probe_secs`` leaves out the probe's warm-up."""
+    import time
+
+    from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+    from dslabs_tpu_torch.tpu.swarm import SwarmSearch
+    from dslabs_tpu_torch.utils.flags import GlobalSettings
+
+    t_probe = time.time()
+    search = None
+
+    def secs():
+        warm = search.compile_secs if search is not None else 0.0
+        return time.time() - t_probe - warm
+
+    try:
+        binding.check_settings(settings)
+        net_cap, timer_cap = binding.initial_caps()
+        # Probe at the ladder's top rung outright: walkers hold K rows,
+        # not a frontier, so the wide caps cost little, and at base caps
+        # every truncated step would restart a walker below the depths
+        # the probe exists to reach.
+        top = len(_LADDER) - 1
+        protocol, marr, tarr = _bind_protocol(
+            binding, settings, net_cap << top, timer_cap + 2 * top,
+            with_goals=False)
+        rel = (settings.max_depth - state.depth
+               if settings.depth_limited() else 192)
+        if rel <= 0:
+            return None, secs()
+        search = SwarmSearch(protocol, walkers_per_device=128,
+                             max_steps=min(rel, 192), seed=0, device=device)
+        search.set_runtime_masks(marr, tarr)
+        root, history = binding.derive_root(search, state)
+        budget = 10.0 * GlobalSettings.time_scale
+        if settings.max_time_secs is not None:
+            budget = min(budget, settings.max_time_secs / 3
+                         * GlobalSettings.time_scale)
+        search.max_secs = budget
+        outcome = search.run(initial=root, check_initial=False)
+    except CapacityOverflow:
+        return None, secs()
+    if outcome.end_condition in ("INVARIANT_VIOLATED", "EXCEPTION_THROWN"):
+        return (search, outcome, history), secs()
+    return None, secs()
 
 
 def tensor_bfs(initial_state, settings=None, _probe_first=False, *,
@@ -515,17 +573,32 @@ def tensor_bfs(initial_state, settings=None, _probe_first=False, *,
     """The tensor-strategy analog of ``search.bfs``: same inputs, same
     ``SearchResults`` contract.  Runs on the card unless ``device`` names
     another (``device="cpu"`` is the plain PyTorch path); with no card
-    and no device it raises."""
+    and no device it raises.  ``_probe_first`` runs the rollout probe
+    first (:func:`tensor_dfs`)."""
     from dslabs_tpu_torch.search.results import EndCondition, SearchResults
     from dslabs_tpu_torch.search.settings import SearchSettings
 
-    if _probe_first:
-        raise _later_probe()
     device = resolve_device(device)
     settings = settings if settings is not None else SearchSettings()
     binding = resolve_binding(initial_state)
-    search, outcome, history = _run_tensor(binding, settings,
-                                           initial_state, device)
+    trip = None
+    if _probe_first:
+        trip, probe_secs = _rollout_probe(binding, settings, initial_state,
+                                          device)
+        if trip is None and settings.max_time_secs is not None:
+            # The probe spends part of the same maxTime the object
+            # RandomDFS honours: the BFS gets the rest, on a copy (the
+            # caller's settings are theirs).
+            import copy
+
+            settings = copy.copy(settings)
+            settings.max_time_secs = max(
+                1.0, settings.max_time_secs - probe_secs)
+    if trip is not None:
+        search, outcome, history = trip
+    else:
+        search, outcome, history = _run_tensor(binding, settings,
+                                               initial_state, device)
     results = SearchResults(settings.invariants, settings.goals)
     results.discovered_count = outcome.unique_states
     results.visited_overflow = outcome.visited_overflow
@@ -553,6 +626,11 @@ def tensor_bfs(initial_state, settings=None, _probe_first=False, *,
                 f"twin/object divergence: tensor invariant violation "
                 f"{outcome.predicate_name!r} holds on the replayed "
                 "object state")
+        if trip is not None:
+            # A probe witness, already minimized and replay-verified in
+            # tensor space, is confirmed again on the object twin.
+            obj, r = _object_minimize_verify(obj, pred, r)
+            outcome.witness.object_verified = True
         results.invariant_violated(obj, r)
         results.end_condition = EndCondition.INVARIANT_VIOLATED
     elif end == "EXCEPTION_THROWN":
@@ -577,8 +655,12 @@ def tensor_bfs(initial_state, settings=None, _probe_first=False, *,
     return results
 
 
-def tensor_dfs(initial_state, settings=None):
-    """Tensor strategy for dfs call sites: in the reference, a swarm
-    rollout probe followed by a strict BFS.  The probe is not ported, and
-    the port does not fall back to a plain BFS or the object checker."""
-    raise _later_probe()
+def tensor_dfs(initial_state, settings=None, *, device=None):
+    """Tensor strategy for dfs call sites: the swarm rollout probe
+    (RandomDFS's O(d) depth reach), then a strict BFS under the same
+    settings when the probe finds nothing.  A probe violation carries its
+    replayed object state and witness; the BFS adds what RandomDFS never
+    could, exhaustiveness at every level it completes.  Runs on the card
+    unless ``device`` names another."""
+    return tensor_bfs(initial_state, settings, _probe_first=True,
+                      device=device)

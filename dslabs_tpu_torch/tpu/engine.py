@@ -187,6 +187,16 @@ class SearchOutcome:
     bytes_per_state: Optional[int] = None
     bytes_per_state_unpacked: Optional[int] = None
     pack_ratio: Optional[float] = None
+    # Seconds of warm-up (kernel build, first round) kept out of
+    # elapsed_secs and the wall budget.
+    compile_secs: float = 0.0
+    # Swarm accounting (tpu/swarm.py): walker restarts of every cause,
+    # the capacity-truncated steps among them, the fleet's statistics, and
+    # the minimized, replay-verified witness of a swarm verdict.
+    walker_restarts: int = 0
+    swarm_overflow: int = 0
+    swarm: Optional[dict] = None
+    witness: Optional[object] = None
 
 
 # ----------------------------------------------------------------- hashing
@@ -663,13 +673,17 @@ class TensorSearch:
     def _tmr_step_raw(self, chunk: dict, par: torch.Tensor,
                       t_idx: torch.Tensor):
         """Handler half of a timer step: timer grid index t_idx = node *
-        timer_cap + queue slot."""
+        timer_cap + queue slot.  An index past the grid (node >= n_nodes)
+        reads an all-zero queue and writes no queue back, as the
+        reference's one-hot selects do."""
         p = self.p
         t_node = torch.div(t_idx, p.timer_cap, rounding_mode="floor")
         t_slot = t_idx % p.timer_cap
         ar = torch.arange(par.shape[0], device=par.device)
         timers = chunk["timers"][par]                       # [P, NN, T, TW]
-        queue = timers[ar, t_node]                          # [P, T, TW]
+        inside = (t_node < p.n_nodes)[:, None, None]
+        t_row = t_node.clamp(max=p.n_nodes - 1)
+        queue = torch.where(inside, timers[ar, t_row], 0)   # [P, T, TW]
         ok = timer_deliverable_mask(queue)[ar, t_slot]
         if p.deliver_timer is not None:
             ok = ok & p.deliver_timer(t_node)
@@ -679,7 +693,8 @@ class TensorSearch:
             par.shape[0], par.device)
         # Firing consumes the timer.  ``timers`` is a fresh gather, so the
         # write below touches no chunk state.
-        timers[ar, t_node] = remove_timer(queue, t_slot)
+        timers[ar, t_row] = torch.where(inside, remove_timer(queue, t_slot),
+                                        timers[ar, t_row])
         timers2, t_over = append_timers(timers, new_t)
         return nodes2, sends, timers2, exc, ok, t_over
 
@@ -721,6 +736,29 @@ class TensorSearch:
             raw = self._tmr_step_raw(cs, par, par + (ev - p.net_cap))
         rows, over = self._batched_tail(cs, par, *raw)
         return rows[0], raw[4][0], over[0]
+
+    def _step_batch(self, rows: torch.Tensor, ev: torch.Tensor):
+        """Expand each row of ``rows`` [K, lanes] by its own grid event id
+        ``ev`` [K] -> (successor rows [K, lanes], valid [K], over [K]), on
+        the rows' device with no host sync: ``jax.vmap`` of the
+        reference's ``_step_one``.  Both handler halves run over every row
+        and the selected half goes through one merge tail.  Ids outside
+        the grid read as the reference reads them, never raise: a negative
+        id is message slot 0, and an id past the timer grid selects
+        nothing (an all-zero queue whose slot 0 the partial order
+        admits)."""
+        p = self.p
+        n = rows.shape[0]
+        cs = self.unflatten_rows(rows)
+        par = torch.arange(n, device=rows.device)
+        ev = ev.to(torch.int64)
+        is_msg = ev < p.net_cap
+        m = self._msg_step_raw(cs, par, ev)
+        t = self._tmr_step_raw(cs, par, (ev - p.net_cap).clamp(min=0))
+        raw = [torch.where(is_msg.reshape((n,) + (1,) * (a.dim() - 1)),
+                           a, b) for a, b in zip(m, t)]
+        succ, over = self._batched_tail(cs, par, *raw)
+        return succ, raw[4], over
 
     @staticmethod
     def _compact_ids(valid_ev: torch.Tensor, budget: int, offset: int = 0):
@@ -895,6 +933,31 @@ class TensorSearch:
         else:
             out = self._run_device(check_initial, initial)
         return self._stamp_capacity(out)
+
+    def random_rollouts(self, n_walkers: int = 256, n_steps: int = 64,
+                        seed: int = 0, initial: Optional[dict] = None,
+                        max_secs: Optional[float] = None) -> SearchOutcome:
+        """RandomDFS-style deep probes: ``n_walkers`` random walks of up to
+        ``n_steps`` events each, as a thin client of
+        :class:`~dslabs_tpu_torch.tpu.swarm.SwarmSearch` on this search's
+        device (its table dedup, overflow-restart accounting and witness
+        pipeline).  INVARIANT_VIOLATED / EXCEPTION_THROWN carry a
+        minimized, replay-verified root-first trace; otherwise
+        TIME_EXHAUSTED."""
+        from dslabs_tpu_torch.tpu.swarm import SwarmSearch
+
+        sw = SwarmSearch(
+            self.p, walkers_per_device=n_walkers, max_steps=n_steps,
+            seed=seed, max_secs=max_secs,
+            visited_cap=min(self.visited_cap, 1 << 18),
+            ev_budget=(self._ev_msg, self._ev_tmr), device=self.device)
+        if self._rt_masks is not None:
+            sw.set_runtime_masks(*self._rt_masks)
+        out = sw.run(initial=initial, check_initial=False)
+        # decode_trace reads the walk root off whichever search the caller
+        # holds.
+        self._trace_root = sw._trace_root
+        return out
 
     def _stamp_capacity(self, out: SearchOutcome) -> SearchOutcome:
         """Attach the frontier bytes per state that every verdict

@@ -343,13 +343,103 @@ def test_search_bfs_routes_tensor_backend_to_port(monkeypatch):
         tsearch.bfs(case.state, case.settings)
 
 
-def test_tensor_dfs_raises_naming_swarm(monkeypatch):
+def _spy_probe(monkeypatch):
+    """Wrap the port's rollout probe to record each call's return."""
+    calls = []
+    probe = tback._rollout_probe
+
+    def spy(*a, **kw):
+        calls.append(probe(*a, **kw))
+        return calls[-1]
+
+    monkeypatch.setattr(tback, "_rollout_probe", spy)
+    return calls
+
+
+def test_lab1_deep_probe_dfs_matches_jax(tensor, monkeypatch):
+    """test_search_backend.py's deep probe (w=10, 45 s): the violation
+    lies at least 18 levels deep, past what the BFS clears in the budget.
+    The port's tensor_dfs finds it through the probe, with the JAX
+    tensor_dfs's predicate, a witness minimized and replay-verified in
+    tensor space and then confirmed on the object twin.  The time scale
+    gives the CPU's contended walk steps room; the walk is seeded."""
+    monkeypatch.setattr(TFlags, "time_scale", 3.0)
+    calls = _spy_probe(monkeypatch)
+    case = H.lab1_deep_probe(PORT)
+    port = tback.tensor_dfs(case.state, case.settings, device="cpu")
+    jcase = H.lab1_deep_probe(REF)
+    ref = jback.tensor_dfs(jcase.state, jcase.settings)
+    assert H.end_name(port) == H.end_name(ref) == "INVARIANT_VIOLATED"
+    bad = port.invariant_violating_state
+    assert not case.settings.invariants[0].check(bad).value
+    assert (port.invariant_violating_state.depth >= 18
+            and ref.invariant_violating_state.depth >= 18)
+    c1 = PORT.LocalAddress("client1")
+    assert len(bad.client_workers()[c1].results) >= 9
+    (trip, probe_secs), = calls
+    search, outcome, _ = trip
+    w = outcome.witness
+    assert outcome.predicate_name == case.settings.invariants[0].name
+    assert w.replay_verified and w.minimized and w.object_verified
+    assert 18 <= len(w.trace) <= len(w.raw_trace)
+    assert search.walk_steps > 0 and probe_secs > 0
+
+
+def test_lab0_dfs_shape_exhausts_clean(tensor):
+    """test_lab0_search.py test 9 (depth 100, 5 s): the probe finds
+    nothing and the BFS ends TIME_EXHAUSTED or SPACE_EXHAUSTED with no
+    violating state, as the lab test accepts."""
+    case = H.lab0_dfs(PORT)
+    res = tback.tensor_dfs(case.state, case.settings, device="cpu")
+    assert H.end_name(res) in case.expect
+    assert res.invariant_violating_state is None
+
+
+def test_probe_miss_hands_bfs_the_rest_of_the_budget(tensor, monkeypatch):
+    """A probe that finds nothing hands the BFS max(1, max_time -
+    probe_secs) on a copy of the settings; the caller's stay as they
+    were."""
+    calls = _spy_probe(monkeypatch)
+    seen = []
+    run = tback._run_tensor
+
+    def spy(binding, settings, *a, **kw):
+        seen.append((settings, settings.max_time_secs))
+        return run(binding, settings, *a, **kw)
+
+    monkeypatch.setattr(tback, "_run_tensor", spy)
+    case = H.lab0_dfs(PORT)
+    tback.tensor_dfs(case.state, case.settings, device="cpu")
+    (trip, probe_secs), = calls
+    assert trip is None and probe_secs > 0
+    (settings, budget), = seen
+    assert settings is not case.settings
+    assert budget == max(1.0, 5 - probe_secs)
+    assert case.settings.max_time_secs == 5
+
+
+def test_search_dfs_routes_tensor_backend_to_port(monkeypatch):
+    """The port's search.dfs sends the tensor backend to the port's
+    tensor_dfs."""
     monkeypatch.setattr(TFlags, "search_backend", "tensor")
-    case = H.lab0_goal(PORT)
+    calls = []
+    monkeypatch.setattr(tback, "tensor_dfs",
+                        lambda st, s: calls.append((st, s)) or "port")
+    case = H.lab0_dfs(PORT)
+    assert tsearch.dfs(case.state, case.settings) == "port"
+    assert calls == [(case.state, case.settings)]
+
+
+def test_tensor_dfs_without_card_raises(monkeypatch):
+    """tensor_dfs runs on the card by default: without CUDA it raises, as
+    tensor_bfs does, and never falls back to the CPU or the object
+    checker."""
+    monkeypatch.setattr(TFlags, "search_backend", "tensor")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    case = H.lab0_dfs(PORT)
     for call in (lambda: tback.tensor_dfs(case.state, case.settings),
                  lambda: tsearch.dfs(case.state, case.settings),
                  lambda: tback.tensor_bfs(case.state, case.settings,
-                                          _probe_first=True,
-                                          device="cpu")):
-        with pytest.raises(NotImplementedError, match="swarm"):
+                                          _probe_first=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -214,6 +214,30 @@ def test_refusals_match_jax(name, match):
     assert str(et.value) == str(ej.value)
 
 
+# The lab 4 dfs call sites that no twin binds, in either package.
+DFS_REFUSED = {
+    "p2_test14": "ONE server per group",
+    "p3_test11": "exactly one tx-workload client \\(found 2\\)",
+    "p3_test12": "ONE server per group",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DFS_REFUSED))
+def test_dfs_sites_without_twin_refused_as_jax(tensor, name):
+    """Part 2 test14 (three servers per group), part 3 test11 (two
+    transactional clients) and part 3 test12 (three servers per group,
+    reconfiguration during the search): the port's tensor_dfs refuses
+    each with the JAX tensor_dfs's NoTensorTwin text, before any probe
+    or search runs."""
+    (jcase,) = C.dfs_cases(REF, name, run=_object(REF))
+    (tcase,) = C.dfs_cases(PORT, name, run=_object(PORT))
+    with pytest.raises(jback.NoTensorTwin, match=DFS_REFUSED[name]) as ej:
+        jback.tensor_dfs(jcase.state, jcase.settings)
+    with pytest.raises(tback.NoTensorTwin, match=DFS_REFUSED[name]) as et:
+        tback.tensor_dfs(tcase.state, tcase.settings, device="cpu")
+    assert str(et.value) == str(ej.value)
+
+
 # -------------------------------------------------------------- searches
 
 def test_test10_two_phase_flow_matches_jax_and_object(tensor):

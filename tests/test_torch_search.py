@@ -251,7 +251,7 @@ def test_port_imports_no_jax():
                  "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py",
                  "tpu/backend.py", "tpu/adapters/paxos.py",
                  "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
-                 "search/search.py"):
+                 "tpu/swarm.py", "search/search.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):

@@ -3,14 +3,15 @@ package: ``dslabs_tpu`` (the JAX reference and its object checker) or
 ``dslabs_tpu_torch`` (the port and its own copy of the object layer).
 One builder per shape, parametrised by the package root, so the two sides
 cannot drift.  Shared by ``tests/test_torch_harness.py``,
-``tests/test_torch_object.py`` and the ``harness`` phase of
-``chip_smoke.py``.
+``tests/test_torch_object.py`` and the ``harness`` and ``swarm`` phases
+of ``chip_smoke.py``.
 
 Each case is ``fn(pkg) -> Case``: a fresh object ``SearchState``, its
 ``SearchSettings``, the end conditions the lab test accepts, and whether
 the run ends by depth or by space (so its ``discovered_count`` is exact
 and comparable across checkers).  The shapes are those of
-``tests/test_search_backend.py`` and ``tests/test_lab3_paxos.py``."""
+``tests/test_search_backend.py`` and ``tests/test_lab3_paxos.py``, and
+:data:`DFS` holds the lab 0-3 ``dfs`` call sites."""
 
 import dataclasses
 import importlib
@@ -47,6 +48,8 @@ _NAMES = {
     "client_has_results": "testing.predicates",
     "kv_workload": "labs.clientserver.kv_workload",
     "different_keys_infinite_workload": "labs.clientserver.kv_workload",
+    "append_same_key_workload": "labs.clientserver.kv_workload",
+    "APPENDS_LINEARIZABLE": "labs.clientserver.kv_workload",
     "KVStore": "labs.clientserver.kvstore",
     "Put": "labs.clientserver.kvstore",
     "SimpleClient": "labs.clientserver.clientserver",
@@ -60,6 +63,7 @@ _NAMES = {
     "PBServer": "labs.primarybackup.pb",
     "PaxosClient": "labs.paxos.paxos",
     "PaxosServer": "labs.paxos.paxos",
+    "LOGS_CONSISTENT": "labs.paxos.predicates",
     "LOGS_CONSISTENT_ALL_SLOTS": "labs.paxos.predicates",
 }
 
@@ -112,11 +116,14 @@ def lab1_state(pkg, workloads=None, workload_factory=None):
     return state
 
 
-def lab2_state(pkg, ns=1):
+def lab2_state(pkg, ns=1, nc=1, workload=None):
     """``tests/test_lab2_pb.py`` test16: ViewServer, ``ns`` PBServers, one
-    client with PUT foo=bar then GET foo."""
+    client with PUT foo=bar then GET foo; or ``nc`` clients sharing
+    ``workload``, as make_search_state hands every client the same one."""
     vsa = pkg.LocalAddress("viewserver")
-    workload = pkg.kv_workload(["PUT:foo:bar", "GET:foo"], ["PutOk", "bar"])
+    if workload is None:
+        workload = pkg.kv_workload(["PUT:foo:bar", "GET:foo"],
+                                   ["PutOk", "bar"])
 
     def server_supplier(a):
         if a == vsa:
@@ -130,7 +137,8 @@ def lab2_state(pkg, ns=1):
     state.add_server(vsa)
     for i in range(1, ns + 1):
         state.add_server(server(pkg, i))
-    state.add_client_worker(pkg.LocalAddress("client1"))
+    for i in range(1, nc + 1):
+        state.add_client_worker(client(pkg, i))
     return state
 
 
@@ -325,6 +333,90 @@ def test22_phase2(pkg, goal, other, spectator):
     return Case(goal, s, ("GOAL_FOUND",))
 
 
+# ---------------------------------------------------------- dfs call sites
+
+# End conditions of a lab dfs test that asserts ``not terminal_found()``.
+NO_TERMINAL = ("TIME_EXHAUSTED", "SPACE_EXHAUSTED")
+
+
+def lab0_dfs(pkg):
+    """``tests/test_lab0_search.py:72`` (test 9): RESULTS_OK, depth 100,
+    5 s; no violating state."""
+    s = _s(pkg).add_invariant(pkg.RESULTS_OK).set_max_depth(100)
+    return Case(lab0_state(pkg), s.max_time(5), NO_TERMINAL)
+
+
+def lab1_test11_dfs(pkg, n_clients=1):
+    """``tests/test_lab1.py:381,386`` (test11's two dfs calls): the
+    infinite workload, RESULTS_OK, depth 1000, 5 s; the second call with
+    a second infinite-workload client."""
+    state = lab1_state(pkg, workload_factory=lambda:
+                       pkg.different_keys_infinite_workload())
+    if n_clients == 2:
+        state.add_client_worker(pkg.LocalAddress("client2"),
+                                pkg.different_keys_infinite_workload())
+    s = _s(pkg).add_invariant(pkg.RESULTS_OK).set_max_depth(1000)
+    return Case(state, s.max_time(5), NO_TERMINAL)
+
+
+def lab1_deep_probe(pkg, w=10):
+    """``tests/test_search_backend.py:342`` test_lab1_deep_probe_dfs: w
+    PUTs, the invariant "client1 has fewer than w - 1 results", depth
+    1000, 45 s; the violation lies at least 2 (w - 1) levels deep."""
+    state = lab1_state(pkg, workload_factory=lambda: pkg.kv_workload(
+        [f"PUT:key{i}:v{i}" for i in range(1, w + 1)]))
+    s = _s(pkg).max_time(45).set_max_depth(1000)
+    s.add_invariant(pkg.client_has_results(pkg.LocalAddress("client1"),
+                                           w - 1).negate())
+    return Case(state, s, ("INVARIANT_VIOLATED",))
+
+
+def lab2_test20_dfs(pkg):
+    """``tests/test_lab2_pb.py:658`` (test20): two PBServers, two clients
+    sharing append_same_key_workload(1), APPENDS_LINEARIZABLE,
+    CLIENTS_DONE pruned, depth 1000, 8 s."""
+    state = lab2_state(pkg, ns=2, nc=2,
+                       workload=pkg.append_same_key_workload(1))
+    s = _s(pkg).set_max_depth(1000).max_time(8)
+    s.add_invariant(pkg.APPENDS_LINEARIZABLE).add_prune(pkg.CLIENTS_DONE)
+    return Case(state, s, NO_TERMINAL)
+
+
+def _lab3_random(pkg, n, workloads, expect):
+    s = _s(pkg).set_max_depth(1000).max_time(8)
+    s.add_invariant(pkg.APPENDS_LINEARIZABLE).add_invariant(
+        pkg.LOGS_CONSISTENT)
+    s.add_prune(pkg.CLIENTS_DONE)
+    return Case(lab3_state(pkg, n, workloads), s, expect)
+
+
+def lab3_test25_dfs(pkg):
+    """``tests/test_lab3_paxos.py:331`` (test25): three servers, two
+    clients appending x, APPENDS_LINEARIZABLE and LOGS_CONSISTENT,
+    CLIENTS_DONE pruned, depth 1000, 8 s; the test demands
+    TIME_EXHAUSTED."""
+    return _lab3_random(pkg, 3, [(["APPEND:foo:x"], None)] * 2,
+                        ("TIME_EXHAUSTED",))
+
+
+def lab3_test26_dfs(pkg):
+    """``tests/test_lab3_paxos.py:758`` (test26): five servers, clients
+    appending x and y, otherwise test25's settings; no terminal state."""
+    return _lab3_random(pkg, 5, [(["APPEND:foo:x"], None),
+                                 (["APPEND:foo:y"], None)], NO_TERMINAL)
+
+
+# The lab 0-3 dfs call sites (the lab 4 ones are in torch_lab4_cases.py).
+DFS: Dict[str, Callable] = {
+    "lab0_test9": lab0_dfs,
+    "lab1_test11_c1": lab1_test11_dfs,
+    "lab1_test11_c2": lambda pkg: lab1_test11_dfs(pkg, 2),
+    "lab2_test20": lab2_test20_dfs,
+    "lab3_test25": lab3_test25_dfs,
+    "lab3_test26": lab3_test26_dfs,
+}
+
+
 # The lab 0-2 shapes of tests/test_search_backend.py, by name.
 LAB02: Dict[str, Callable] = {
     "lab0_goal": lab0_goal,
@@ -351,3 +443,61 @@ def terminal(results):
 def terminal_depth(results):
     st = terminal(results)
     return None if st is None else st.depth
+
+
+# ------------------------------------------------------------- swarm twins
+
+def make_lock_protocol(m=6, k=9, noise_bits=16):
+    """The deep-narrow combination lock of ``tests/test_swarm.py:71``, as a
+    batched port twin: ``m`` persistent digit messages, progress advances
+    only on the one correct next digit, and a noise register folds every
+    delivered digit into the state, so the space branches ``m`` ways per
+    step while the violation (progress == ``k``) lies down exactly one
+    digit sequence at depth >= ``k``.  A minimized witness has exactly
+    ``k`` events."""
+    import numpy as np
+    import torch
+
+    from dslabs_tpu_torch.tpu.engine import SENTINEL, TensorProtocol
+
+    MW, TW = 2, 3
+    mask = (1 << noise_bits) - 1
+
+    def none(n, width):
+        return torch.full((n, 1, width), SENTINEL, dtype=torch.int32)
+
+    def step_message(nodes, msg):
+        d = msg[:, 0]
+        p, noise = nodes[:, 0], nodes[:, 1]
+        good = d == (p * 5 + 3) % m
+        nodes2 = torch.stack([torch.where(good, p + 1, p),
+                              (noise * 31 + d + 1) & mask], dim=1)
+        n = nodes.shape[0]
+        return (nodes2.to(torch.int32), none(n, MW).to(nodes.device),
+                none(n, 1 + TW).to(nodes.device))
+
+    def step_timer(nodes, node_idx, timer):
+        n = nodes.shape[0]
+        return (nodes, none(n, MW).to(nodes.device),
+                none(n, 1 + TW).to(nodes.device))
+
+    return TensorProtocol(
+        name=f"lock-m{m}-k{k}-b{noise_bits}", n_nodes=1, node_width=2,
+        msg_width=MW, timer_width=TW, net_cap=m, timer_cap=1,
+        max_sends=1, max_sets=1,
+        init_nodes=lambda: np.array([0, 0], np.int32),
+        init_messages=lambda: np.array([[d, 0] for d in range(m)], np.int32),
+        init_timers=lambda: np.zeros((0, 1 + TW), np.int32),
+        step_message=step_message, step_timer=step_timer,
+        msg_dest=lambda msg: torch.zeros(msg.shape[:-1], dtype=torch.int32,
+                                         device=msg.device),
+        invariants={"LOCK_HELD": lambda s: s["nodes"][:, 0] < k})
+
+
+def violating(proto):
+    """``tests/test_swarm.py`` ``_violating``: the completion goal negated
+    into an invariant, violated exactly at the done state."""
+    done = proto.goals["CLIENTS_DONE"]
+    return dataclasses.replace(
+        proto, goals={},
+        invariants={"NOT_DONE": lambda s, f=done: ~f(s)})

@@ -2,7 +2,7 @@
 package (``torch_harness_cases.Pkg``): ``dslabs_tpu`` (the JAX reference
 and its object checker) or ``dslabs_tpu_torch`` (the port and its own
 copy of the object layer).  Shared by ``tests/test_torch_lab4_harness.py``,
-``tests/test_torch_object.py`` and the ``lab4`` phase of
+``tests/test_torch_object.py`` and the ``lab4`` and ``swarm`` phases of
 ``chip_smoke.py``.
 
 A lab 4 search test runs in two phases (``tests/test_lab4_shardstore.py``
@@ -13,7 +13,7 @@ searches that.  :func:`join_case` builds the first, :func:`joined_state`
 runs it through the package's ``search.bfs`` (so on whichever backend the
 package's ``GlobalSettings.search_backend`` names), and each entry of
 :data:`SHAPES` builds the phases of one main-phase search test from a
-joined state.
+joined state.  :data:`DFS` holds the lab 4 ``dfs`` call sites.
 """
 
 from typing import Callable, Dict, List, Tuple
@@ -212,6 +212,107 @@ SHAPES: Dict[str, Tuple[int, int, Callable[..., List[Case]]]] = {
     "p3_test09": (2, 2, p3_test09),
     "count_parity": (1, NUM_SHARDS, count_parity),
 }
+
+
+# ---------------------------------------------------------- dfs call sites
+
+NO_TERMINAL = ("TIME_EXHAUSTED", "SPACE_EXHAUSTED")
+
+
+def _random_settings(pkg, max_time=8):
+    """The random searches' settings: depth 1000, RESULTS_OK, CLIENTS_DONE
+    pruned, every node active (no main-phase narrowing)."""
+    s = pkg.SearchSettings().set_max_depth(1000).max_time(max_time)
+    s.add_invariant(pkg.RESULTS_OK)
+    s.add_prune(pkg.CLIENTS_DONE)
+    return s
+
+
+def p2_random(pkg, joined):
+    """Part 2 test13 / test14 (``tests/test_lab4_shardstore.py:616``
+    ``_random_search``): two groups over two shards, clients appending to
+    foo-1 and foo-2, 8 s; no terminal state."""
+    _kv(pkg, joined, 1, ["APPEND:foo-1:x"], None)
+    _kv(pkg, joined, 2, ["APPEND:foo-2:y"], None)
+    return [Case(joined, _random_settings(pkg), NO_TERMINAL)]
+
+
+def p3_test11_random(pkg, joined):
+    """Part 3 test11 (``tests/test_lab4_shardstore.py:974``): client1
+    MultiPut then Swap over key-1 and key-2, client2 MultiGet, 8 s; no
+    terminal state."""
+    tx = pkg.mod("labs.shardedstore.txkvstore")
+    joined.add_client_worker(pkg.LocalAddress("client1"), pkg.Workload(
+        commands=[tx.MultiPut({"key-1": "x", "key-2": "y"}),
+                  tx.Swap("key-1", "key-2")]))
+    joined.add_client_worker(pkg.LocalAddress("client2"), pkg.Workload(
+        commands=[tx.MultiGet({"key-1", "key-2"})]))
+    return [Case(joined, _random_settings(pkg), NO_TERMINAL)]
+
+
+def p3_test12_random(pkg):
+    """Part 3 test12 (``tests/test_lab4_shardstore.py:941``
+    ``_tx_random_search(3)``): no join phase; the controller's Join, Join,
+    Leave(1) race client1's MultiPut and client2's MultiGet over three
+    servers per group, with the MultiGet-atomicity invariant (an object
+    predicate with no tensor translation), 20 s; no terminal state."""
+    sm = pkg.mod("labs.shardedstore.shardmaster")
+    tx = pkg.mod("labs.shardedstore.txkvstore")
+    state = make_search(pkg, 2, 3, 1, 2)
+
+    def grp(g):
+        return frozenset(store_server(pkg, g, i) for i in range(1, 4))
+
+    cmds = [sm.Join(1, grp(1)), sm.Join(2, grp(2)), sm.Leave(1)]
+    state.add_client_worker(cca(pkg), pkg.Workload(
+        commands=cmds, results=[sm.Ok()] * len(cmds)))
+    state.add_client_worker(pkg.LocalAddress("client1"), pkg.Workload(
+        commands=[tx.MultiPut({"foo-1": "X", "foo-2": "Y"})],
+        results=[tx.MultiPutOk()]))
+    state.add_client_worker(pkg.LocalAddress("client2"), pkg.Workload(
+        commands=[tx.MultiGet({"foo-1", "foo-2"})]))
+    ok_full = tx.MultiGetResult({"foo-1": "X", "foo-2": "Y"})
+    ok_none = tx.MultiGetResult({"foo-1": tx.KEY_NOT_FOUND,
+                                 "foo-2": tx.KEY_NOT_FOUND})
+
+    def multi_get_atomic(s):
+        results = s.client_workers()[pkg.LocalAddress("client2")].results
+        if not results:
+            return True
+        if len(results) > 1:
+            return False, "client2 received multiple MultiGetResults"
+        if results[0] != ok_full and results[0] != ok_none:
+            return False, f"{results[0]} matches neither"
+        return True
+
+    s = pkg.SearchSettings().set_max_depth(1000).max_time(20)
+    s.add_invariant(pkg.StatePredicate("MultiGet returns correct results",
+                                       multi_get_atomic))
+    s.add_invariant(pkg.RESULTS_OK)
+    s.add_prune(pkg.CLIENTS_DONE)
+    return Case(state, s, NO_TERMINAL)
+
+
+# The lab 4 dfs call sites: name -> (groups, shards, servers per group,
+# fn(pkg, joined) -> [Case]) after the join phase, or (None, None, None,
+# fn(pkg) -> Case) for a search with no join phase.
+DFS: Dict[str, Tuple] = {
+    "p2_test13": (2, 2, 1, p2_random),
+    "p2_test14": (2, 2, 3, p2_random),
+    "p3_test11": (2, 2, 1, p3_test11_random),
+    "p3_test12": (None, None, None, p3_test12_random),
+}
+
+
+def dfs_cases(pkg, name, run=None):
+    """The searches of one lab 4 dfs call site, its join phase run by
+    ``run`` (see :func:`joined_state`)."""
+    groups, shards, spg, build = DFS[name]
+    if groups is None:
+        return [build(pkg)]
+    joined = joined_state(pkg, groups, shards, servers_per_group=spg,
+                          run=run)
+    return build(pkg, joined)
 
 
 def reference_pins():
