@@ -68,13 +68,10 @@ table) once.  Each phase prints one JSON line:
            and count on runs that end by depth or space; the replayed
            terminal state re-checked with the object predicate), the lab 1
            infinite workload to depth 15 (51 states), a composition with
-           no twin (NoTensorTwin); lab 3 at full width against pins from
-           the reference's object checker: test20's three staged phases
-           (goal depths 7 and 11, then 138 states with timers frozen),
-           test22's first append and CLIENTS_DONE in both other
-           majorities (goal depths 7, 11 and 16), test21 (n=5, depth 12,
-           partition; with timers frozen 2 states) and the depth-4
-           count-parity shape (85).  The time-limited lab 1 infinite
+           no twin (NoTensorTwin), and lab 3's depth-4 count-parity shape
+           at full width (85, from the reference's object checker; lab 3's
+           search tests run in the labtests phase, held to the pins of
+           HARNESS_PINS).  The time-limited lab 1 infinite
            workload may raise CapacityOverflow at depth 16 on the top rung
            of the capacity ladder, where the reference's tensor_bfs raises
            too.  Per search: seconds, unique states/min, peak device
@@ -109,18 +106,30 @@ table) once.  Each phase prints one JSON line:
            seed: a 12-event witness replayed to progress 12, and equal
            raw and minimized traces and counters; the lab 1 deep probe
            (INVARIANT_VIOLATED at depth >= 18, object-verified witness) and
-           the ten lab dfs call sites of tests/torch_harness_cases.py and
-           tests/torch_lab4_cases.py through the port's search.dfs at the
-           lab tests' sizes and budgets (each ends as its lab test
-           accepts; lab1 test11's two calls raise the ladder's top-rung
-           CapacityOverflow and three lab 4 sites the NoTensorTwin the
-           reference raises too); the reference's slow deep-narrow Paxos
+           lab1 test11's two dfs calls (tests/torch_harness_cases.py),
+           which the lab test file never reaches, through the port's
+           search.dfs (both raise the ladder's top-rung CapacityOverflow,
+           as the reference does; the other lab dfs sites run in the
+           labtests phase); the reference's slow deep-narrow Paxos
            shape (128 walkers, 90 s), whose verdict, if any, must be
            replay-verified; and both kernels at the walker's shapes.  Per
            search: seconds, walk steps/s, ms per walk step, the aten ops
            one walk step dispatches, rounds, deepest depth, overflow
            restarts, witness sizes and seconds, and each kernel's
            launches;
+  labtests the lab test files (tests/test_lab*.py, unedited) through the
+           port's driver, run_tests.main(["--lab", N, "--no-run"]) for
+           labs 0-4 on the tensor backend on the card, then lab 0's run
+           tests (--no-search), each run's results file and output in a
+           temporary directory of the checkout.  Every search test passes
+           except LABTEST_FAILS (lab1 test11's CapacityOverflow at depth
+           16, and four lab 4 tests no twin binds), each with the
+           reference's error; lab 3's staged searches with a pin are held to
+           HARNESS_PINS; every dfs search launches both kernels.  Per lab:
+           seconds, tests passed, points, and per test its seconds and
+           each search's record (as the harness and swarm phases print
+           them); the kernels' launches over the phase (both > 0); and no
+           module of jax or of the JAX package loaded in the process;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -128,7 +137,7 @@ table) once.  Each phase prints one JSON line:
            each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-launches those of the search and swarm phases' runs), the
+launches those of the search, swarm and labtests phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -137,6 +146,7 @@ the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -144,6 +154,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -809,8 +820,10 @@ def phase_trace(torch, mods, depth: int):
                           "secs"]})
 
 
-# Pins of the harness phase's lab 3 searches, from the reference's object
-# checker (dslabs_tpu.search.search.BFS) on the CPU over the builders of
+# Pins of lab 3's searches (the harness phase's depth-4 shape, and the
+# staged searches of the lab test file's test20, test21 and test22 in the
+# labtests phase), from the reference's object checker
+# (dslabs_tpu.search.search.BFS) on the CPU over the builders of
 # tests/torch_harness_cases.py: goal depths, and discovered_count where
 # the object run ends by depth or by space.
 HARNESS_PINS = {
@@ -911,8 +924,8 @@ class HarnessRuns:
 def phase_harness(torch, mods):
     """Lab search tests through the harness binding on the card
     (:class:`HarnessRuns`).  The lab 0-2 shapes run beside the port's own
-    object checker in this process; the lab 3 searches are held against
-    HARNESS_PINS."""
+    object checker in this process; the lab 3 count-parity shape is held
+    against HARNESS_PINS."""
     from dslabs_tpu_torch.search import search as osearch
     from tests import torch_harness_cases as H
 
@@ -971,16 +984,8 @@ def phase_harness(torch, mods):
                       f"harness {name}: {rec} against pin {end, depth, count}")
             return res
 
-        res = lab3("test20_phase1", H.test20_phase1(P))
-        goal = H.terminal(res)
-        lab3("test20_phase2", H.test20_phase2(P, goal))
-        lab3("test20_phase3", H.test20_phase3(P, goal))
-        res = lab3("test22_phase1", H.test22_phase1(P))
-        goal = H.terminal(res)
-        lab3("test22_phase2_s1s3", H.test22_phase2(P, goal, (1, 3), 2))
-        lab3("test22_phase2_s2s3", H.test22_phase2(P, goal, (2, 3), 1))
-        lab3("test21", H.lab3_test21(P))
-        lab3("test21_no_timers", H.lab3_test21(P, timers=False))
+        # Lab 3's test20, test21 and test22 run in the labtests phase,
+        # from the lab test file.
         lab3("lab3_depth4", H.lab3_depth4(P))
     emit({"phase": "harness", "searches": hr.records})
 
@@ -1179,17 +1184,14 @@ def lab4_harness(torch, mods):
           "searches": hr.records})
 
 
-# The lab 4 dfs call sites no twin binds, in either package: the
-# NoTensorTwin text of the JAX package's tensor_dfs on the same shapes
+# The lab 4 shapes no twin binds, in either package: the NoTensorTwin
+# text of the JAX package's binding on the same shapes
 # (tests/test_torch_lab4_harness.py holds the port's equal to it).
-SWARM_REFUSED = {
-    "p2_test14": "shardstore twin models ONE server per group (group 1 has "
-                 "several) — use the multi-server twin shapes",
-    "p3_test11": "shardstore twin models exactly one tx-workload client "
-                 "(found 2)",
-    "p3_test12": "shardstore twin models ONE server per group (group 1 has "
-                 "several) — use the multi-server twin shapes",
-}
+ONE_SERVER_PER_GROUP = ("shardstore twin models ONE server per group "
+                        "(group 1 has several) — use the multi-server twin "
+                        "shapes")
+ONE_TX_CLIENT = "shardstore twin models exactly one tx-workload client " \
+                "(found 2)"
 # The wall budget of the reference's slow deep-narrow Paxos shape
 # (tests/test_swarm.py:398), for the swarm alone.
 PAXOS_DEEP_SECS = 90.0
@@ -1246,15 +1248,16 @@ class SwarmRuns:
                 self.mods["kernels"].LAUNCHES["fingerprint_rows"],
                 "insert": self.mods["visited"].LAUNCHES["insert"]}
 
-    def record(self):
-        """The last swarm run: verdict, fleet statistics, walk steps per
-        second and milliseconds per walk step (host clock around the
-        rounds, one sync per step), warm-up and witness seconds, and the
-        aten ops one walk step and one ``_step_batch`` of its fleet
-        dispatch (counted after the run, on a fresh carry)."""
+    def record(self, i=-1):
+        """Swarm run ``i`` (the last by default): verdict, fleet
+        statistics, walk steps per second and milliseconds per walk step
+        (host clock around the rounds, one sync per step), warm-up and
+        witness seconds, and the aten ops one walk step and one
+        ``_step_batch`` of its fleet dispatch (counted after the run, on a
+        fresh carry)."""
         if not self.runs:
             return None
-        sw, out = self.runs[-1]
+        sw, out = self.runs[i]
         steps = sw.walk_steps
         rec = dict(end=out.end_condition, walk_steps=steps,
                    walk_secs=sw.walk_secs,
@@ -1417,7 +1420,6 @@ def phase_swarm(torch, mods):
     from dslabs_tpu_torch.tpu.engine import CapacityOverflow
     from dslabs_tpu_torch.tpu.swarm import SwarmSearch, replay_events
     from tests import torch_harness_cases as H
-    from tests import torch_lab4_cases as C
 
     t_phase = time.time()
     gen = torch.Generator().manual_seed(7)
@@ -1493,10 +1495,9 @@ def phase_swarm(torch, mods):
                             end=outcome.end_condition, depth=outcome.depth,
                             rung=[f for f, _ in backend._LADDER].index(
                                 search.frontier_cap))
-                if name not in SWARM_REFUSED:
-                    check(rec["launches"]["fingerprint_rows"] > 0
-                          and rec["launches"]["insert"] > 0,
-                          f"swarm {name}: a kernel never launched: {rec}")
+                check(rec["launches"]["fingerprint_rows"] > 0
+                      and rec["launches"]["insert"] > 0,
+                      f"swarm {name}: a kernel never launched: {rec}")
                 records[name] = rec
                 return res, rec
 
@@ -1506,8 +1507,11 @@ def phase_swarm(torch, mods):
                   and rec["probe"]["witness"]["object_verified"]
                   and rec["probe"]["witness"]["verified"],
                   f"swarm lab1_deep_probe: {rec}")
-            for name, build in H.DFS.items():
-                case = build(P)
+            # lab1 test11's two dfs calls: the lab test file never
+            # reaches them (its bfs call fails first, in the labtests
+            # phase).  The other lab dfs sites run in that phase.
+            for name in ("lab1_test11_c1", "lab1_test11_c2"):
+                case = H.DFS[name](P)
                 res, rec = dfs(name, case)
                 if name.startswith("lab1_test11") and \
                         rec["end"] == "CapacityOverflow":
@@ -1519,17 +1523,6 @@ def phase_swarm(torch, mods):
                     continue
                 check(rec["end"] in case.expect
                       and H.terminal(res) is None,
-                      f"swarm {name}: {rec}")
-            for name in C.DFS:
-                # The join phase goes through search.bfs on the card.
-                (case,) = C.dfs_cases(P, name, run=lambda c, n=name:
-                                      hr.search(f"{n}_join", c)[0])
-                res, rec = dfs(name, case)
-                if name in SWARM_REFUSED:
-                    check(rec.get("error") == SWARM_REFUSED[name],
-                          f"swarm {name}: {rec}")
-                    continue
-                check(rec["end"] in case.expect and H.terminal(res) is None,
                       f"swarm {name}: {rec}")
         emit({"phase": "swarm", "part": "dfs", "searches": records})
 
@@ -1557,6 +1550,229 @@ def phase_swarm(torch, mods):
           f"swarm phase skipped a kernel: {total}")
     emit({"phase": "swarm", "secs": time.time() - t_phase,
           "launches": total})
+    return total
+
+
+# The lab test files' search tests that fail on the tensor backend in both
+# packages (ROADMAP.md Queue C): (lab, part, number) -> a regular
+# expression the last line of the failure must match.  lab1 test11's bfs
+# call outgrows the capacity ladder's top rung at depth 16 before its dfs
+# calls run (those two are driven by the swarm phase); part 3 test10 has
+# two transactional clients, as test11 has
+# (tests/test_torch_lab4_harness.py holds that refusal equal to the JAX
+# package's).
+NO_TWIN = r"^dslabs_tpu_torch\.tpu\.backend\.NoTensorTwin: "
+LABTEST_FAILS = {
+    ("1", 3, 11): r"^dslabs_tpu_torch\.tpu\.engine\.CapacityOverflow: "
+                  r".*net_cap=64, timer_cap=8.* at depth 16 ",
+    ("4", 2, 14): NO_TWIN + re.escape(ONE_SERVER_PER_GROUP) + "$",
+    ("4", 3, 10): NO_TWIN + re.escape(ONE_TX_CLIENT) + "$",
+    ("4", 3, 11): NO_TWIN + re.escape(ONE_TX_CLIENT) + "$",
+    ("4", 3, 12): NO_TWIN + re.escape(ONE_SERVER_PER_GROUP) + "$",
+}
+# The lab 3 search tests' searches in call order, by their HARNESS_PINS
+# name (None: no pin).
+LAB3_PINNED_CALLS = {
+    "test20_basic_search": ["test20_phase1", "test20_phase2",
+                            "test20_phase3"],
+    "test21_no_progress_in_minority_search": ["test21", "test21_no_timers"],
+    "test22_two_clients_search": ["test22_phase1", "test22_phase2_s1s3",
+                                  "test22_phase2_s2s3", None, None],
+}
+
+
+class LabTestRuns:
+    """The searches of the lab test files while the port's driver runs
+    them: every top-level call of the port's ``tensor_bfs`` or
+    ``tensor_dfs`` (``search.bfs`` / ``search.dfs`` on the tensor backend)
+    is recorded with its seconds, peak device memory, kernel launches,
+    result or exception, the BFS engine's outcome and ladder rung (through
+    :class:`HarnessRuns`' spy) and the swarm probe's runs (through
+    :class:`SwarmRuns`)."""
+
+    def __init__(self, torch, mods, hr, sr):
+        from dslabs_tpu_torch.tpu import backend
+
+        self.torch, self.mods, self.backend = torch, mods, backend
+        self.hr, self.sr = hr, sr
+        self.calls = []
+        self._depth = 0
+
+    def _spy(self, kind, fn):
+        torch = self.torch
+
+        def spy(*a, **kw):
+            if self._depth:
+                return fn(*a, **kw)
+            self._depth += 1
+            torch.cuda.reset_peak_memory_stats()
+            call = dict(kind=kind, before=self.sr.launches(),
+                        runs=len(self.hr._runs), swarm=len(self.sr.runs),
+                        t0=time.time())
+            try:
+                call["result"] = fn(*a, **kw)
+                return call["result"]
+            except Exception as e:
+                call["error"] = e
+                raise
+            finally:
+                call["after"] = self.sr.launches()
+                call["t1"] = time.time()
+                call["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+                call["runs"] = self.hr._runs[call["runs"]:]
+                call["swarm"] = range(call["swarm"], len(self.sr.runs))
+                self.calls.append(call)
+                self._depth -= 1
+        return spy
+
+    def __enter__(self):
+        b = self.backend
+        self._fns = b.tensor_bfs, b.tensor_dfs
+        b.tensor_bfs = self._spy("bfs", b.tensor_bfs)
+        b.tensor_dfs = self._spy("dfs", b.tensor_dfs)
+        return self
+
+    def __exit__(self, *exc):
+        self.backend.tensor_bfs, self.backend.tensor_dfs = self._fns
+
+    def record(self, call):
+        """One search's record, as the harness and swarm phases print
+        theirs."""
+        from tests import torch_harness_cases as H
+
+        secs = call["t1"] - call["t0"]
+        rec = dict(kind=call["kind"], secs=secs,
+                   peak_mem_bytes=call["peak_mem_bytes"],
+                   launches={k: call["after"][k] - call["before"][k]
+                             for k in call["after"]})
+        if "error" in call:
+            e = call["error"]
+            rec.update(end=type(e).__name__, error=str(e))
+        else:
+            res = call["result"]
+            rec.update(end=H.end_name(res), depth=H.terminal_depth(res),
+                       unique=res.discovered_count,
+                       unique_per_min=res.discovered_count / secs * 60)
+        if call["runs"]:
+            search, outcome, _ = call["runs"][-1]
+            rec["bfs"] = dict(
+                end=outcome.end_condition, depth=outcome.depth,
+                rung=[f for f, _ in self.backend._LADDER].index(
+                    search.frontier_cap))
+        if call["swarm"]:
+            rec["probe"] = self.sr.record(call["swarm"][-1])
+        return rec
+
+
+def labtest_run(torch, mods, lt, out_dir, argv):
+    """One call of the port's driver (``run_tests.main(argv)``) with the
+    kernel counts set to 0 just before it; its results file and its output
+    go to ``out_dir``.  Returns (exit code, results, launches, seconds)."""
+    from dslabs_tpu_torch import run_tests
+
+    name = "_".join(a.strip("-") for a in argv if a != "--lab")
+    results = os.path.join(out_dir, f"{name}.json")
+    torch.cuda.synchronize()
+    mods["kernels"].LAUNCHES["fingerprint_rows"] = 0
+    mods["visited"].LAUNCHES["insert"] = 0
+    del lt.calls[:]
+    t0 = time.time()
+    with open(os.path.join(out_dir, f"{name}.log"), "w") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = run_tests.main(list(argv) + ["--results-file", results])
+    launches = lt.sr.launches()
+    secs = time.time() - t0
+    with open(results) as f:
+        return rc, json.load(f), launches, secs
+
+
+def phase_labtests(torch, mods, labs="01234"):
+    """The lab test files through the port's driver on the card: each lab's
+    search tests (``--no-run``) on the tensor backend, and lab 0's run
+    tests once.  Every search test passes except LABTEST_FAILS, each with
+    its error; the lab 3 searches with a pin are held to HARNESS_PINS.
+    Per lab: seconds, tests passed, points, per-test seconds and each
+    search's record, and the kernels' launches.  Returns the kernels'
+    launches over the phase's search tests."""
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir, \
+            HarnessRuns(torch, mods) as hr, SwarmRuns(torch, mods) as sr, \
+            LabTestRuns(torch, mods, hr, sr) as lt:
+        for lab in labs:
+            sr.reset()
+            del hr._runs[:]
+            rc, res, launches, secs = labtest_run(
+                torch, mods, lt, out_dir, ["--lab", lab, "--no-run"])
+            for k in total:
+                total[k] += launches[k]
+            tests = []
+            for t in res["tests"]:
+                key = (t["lab"], t["part"], t["number"])
+                calls = [c for c in lt.calls
+                         if t["start_time"] <= c["t0"] <= t["end_time"]]
+                rec = dict(test=".".join(str(x) for x in key[1:]
+                                         if x is not None),
+                           name=t["name"], passed=t["passed"],
+                           secs=t["end_time"] - t["start_time"],
+                           points=t["points_earned"],
+                           searches=[lt.record(c) for c in calls])
+                if not t["passed"]:
+                    rec["error"] = t["error"].strip().splitlines()[-1]
+                tests.append(rec)
+                if key in LABTEST_FAILS:
+                    check(not t["passed"] and re.search(
+                        LABTEST_FAILS[key], rec["error"]) is not None,
+                          f"labtests lab {lab} test {rec['test']}: expected "
+                          f"to fail with {LABTEST_FAILS[key]!r}: {rec}")
+                    continue
+                check(t["passed"], f"labtests lab {lab} test {rec['test']} "
+                      f"failed: {t['error']}")
+                for c, s in zip(calls, rec["searches"]):
+                    if c["kind"] == "dfs":
+                        check(s["launches"]["fingerprint_rows"] > 0
+                              and s["launches"]["insert"] > 0,
+                              f"labtests {t['name']}: a kernel never "
+                              f"launched: {s}")
+                for pin, s in zip(LAB3_PINNED_CALLS.get(t["name"], ()),
+                                  rec["searches"]):
+                    if pin is None:
+                        continue
+                    end, depth, count = HARNESS_PINS[pin]
+                    s["pin"] = pin
+                    check(s["launches"]["fingerprint_rows"] > 0,
+                          f"labtests {pin}: the fingerprint kernel never "
+                          "launched")
+                    if s["end"] == end:
+                        check((depth is None or s["depth"] == depth)
+                              and (count is None or s["unique"] == count),
+                              f"labtests {pin}: {s} against pin "
+                              f"{end, depth, count}")
+            emit({"phase": "labtests", "lab": lab, "argv": ["--no-run"],
+                  "rc": rc, "secs": secs, "passed": res["num_passed"],
+                  "tests": res["num_tests"],
+                  "points": [res["points_earned"], res["points_available"]],
+                  "launches": launches, "per_test": tests})
+        check(total["fingerprint_rows"] > 0 and total["insert"] > 0,
+              f"labtests: a kernel never launched: {total}")
+        # Lab 0's run tests: the real-time runner (runner/) on this
+        # machine.
+        rc, res, _, secs = labtest_run(
+            torch, mods, lt, out_dir, ["--lab", "0", "--no-search"])
+        check(rc == 0, "labtests lab 0 run tests: " + "; ".join(
+            f"{t['name']}: {t['error']}" for t in res["tests"]
+            if not t["passed"]))
+        emit({"phase": "labtests", "lab": "0", "argv": ["--no-search"],
+              "rc": rc, "secs": secs, "passed": res["num_passed"],
+              "tests": res["num_tests"],
+              "per_test": {t["name"]: t["end_time"] - t["start_time"]
+                           for t in res["tests"]}})
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "dslabs_tpu"))
+    check(not loaded, f"labtests: modules of JAX or its package loaded: "
+          f"{loaded[:10]}")
+    emit({"phase": "labtests", "secs": time.time() - t_phase,
+          "launches": total, "jax_or_dslabs_tpu_modules": loaded})
     return total
 
 
@@ -1616,15 +1832,24 @@ def main() -> int:
           "nvcc_secs": _build.BUILD_SECS, "ptxas": ptxas})
 
     gen = torch.Generator().manual_seed(0)
-    kres = phase_kernels(torch, mods, gen)
-    phase_parity(torch, mods)
-    phase_compiled(torch, mods, PROFILE_DEPTH)
-    phase_profile(torch, mods, PROFILE_DEPTH)
-    phase_trace(torch, mods, PROFILE_DEPTH)
-    phase_harness(torch, mods)
-    phase_lab4(torch, mods)
-    swarm_launches = phase_swarm(torch, mods)
-    launches = phase_search(torch, mods, SEARCH_MAX_SECS)
+    phase_secs = {}
+
+    def run(phase, *args):
+        t = time.time()
+        out = phase(torch, mods, *args)
+        phase_secs[phase.__name__[len("phase_"):]] = time.time() - t
+        return out
+
+    kres = run(phase_kernels, gen)
+    run(phase_parity)
+    run(phase_compiled, PROFILE_DEPTH)
+    run(phase_profile, PROFILE_DEPTH)
+    run(phase_trace, PROFILE_DEPTH)
+    run(phase_harness)
+    run(phase_lab4)
+    swarm_launches = run(phase_swarm)
+    lab_launches = run(phase_labtests)
+    launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
         "fingerprint_rows": ("dslabs_tpu_torch/csrc/fingerprint.cu",
@@ -1635,14 +1860,16 @@ def main() -> int:
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
-         "launches": launches[k] + swarm_launches[k],
+         "launches": launches[k] + swarm_launches[k] + lab_launches[k],
          "launches_by_path": {"search": launches[k],
-                              "swarm": swarm_launches[k]},
+                              "swarm": swarm_launches[k],
+                              "labtests": lab_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}
         for k in ("fingerprint_rows", "insert")]})
-    print(f"chip_smoke: {time.time() - t_start:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s; phases (s): "
+          f"{json.dumps(phase_secs)}", file=sys.stderr)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

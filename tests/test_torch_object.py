@@ -37,6 +37,36 @@ COPIED = [
     "labs/paxos/paxos.py", "labs/paxos/predicates.py",
     "labs/shardedstore/__init__.py", "labs/shardedstore/shardmaster.py",
     "labs/shardedstore/txkvstore.py", "labs/shardedstore/shardstore.py",
+    # The lab test driver's closure: the harness, the real-time runner and
+    # the trace viewer.
+    "harness/__init__.py", "harness/annotations.py", "harness/junit.py",
+    "harness/tee.py", "harness/runner.py",
+    "runner/__init__.py", "runner/network.py", "runner/run_settings.py",
+    "runner/run_state.py",
+    "viz/__init__.py", "viz/config.py", "viz/server.py", "viz/debugger.py",
+]
+# search/trace.py is a copy too, apart from two hunks: cloudpickle is
+# imported where a trace is saved or loaded, and loading refuses a trace
+# that names a module of the JAX package.  Each hunk: the first and last
+# lines of the port's text, and the reference's text it stands for.
+TRACE = "search/trace.py"
+TRACE_HUNKS = [
+    ("# Port deviation 1: cloudpickle is imported where a trace is saved or\n",
+     "import pickle\n",
+     "import cloudpickle as pickle\n"),
+    ("        cloudpickle = SerializableTrace._cloudpickle()\n",
+     "                trace = SerializableTrace._Unpickler(f).load()\n",
+     """        with open(path, "wb") as f:
+            pickle.dump(self, f)
+        self.file_name = path
+        return path
+
+    @staticmethod
+    def load(path: str) -> Optional["SerializableTrace"]:
+        try:
+            with open(path, "rb") as f:
+                trace = pickle.load(f)
+"""),
 ]
 
 
@@ -47,14 +77,27 @@ def test_copy_equals_reference(rel):
     assert port == ref.replace("dslabs_tpu.", "dslabs_tpu_torch.")
 
 
+def test_trace_equals_reference_outside_its_two_hunks():
+    ref = (REPO / "dslabs_tpu" / TRACE).read_text().replace(
+        "dslabs_tpu.", "dslabs_tpu_torch.")
+    port = (REPO / "dslabs_tpu_torch" / TRACE).read_text()
+    for n, (first, last, ref_text) in enumerate(TRACE_HUNKS, 1):
+        start = port.index(first)
+        end = port.index(last, start) + len(last)
+        assert f"Port deviation {n}" in port[start:end]
+        port = port[:start] + ref_text + port[end:]
+    assert port == ref
+
+
 def test_no_other_object_layer_module_is_copied():
-    """The port holds the closure above and nothing more of the object
-    layer (no runner/, harness/, viz/, service/ or analysis/)."""
+    """The port holds the closure above, search/trace.py, and nothing more
+    of the object layer (no service/ or analysis/)."""
     port = REPO / "dslabs_tpu_torch"
     have = sorted(str(f.relative_to(port)) for d in
-                  ("utils", "core", "testing", "search", "labs")
+                  ("utils", "core", "testing", "search", "labs", "harness",
+                   "runner", "viz")
                   for f in (port / d).rglob("*.py"))
-    assert have == sorted(COPIED)
+    assert have == sorted(COPIED + [TRACE])
 
 
 def _object_run(root, build):

@@ -251,7 +251,13 @@ def test_port_imports_no_jax():
                  "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py",
                  "tpu/backend.py", "tpu/adapters/paxos.py",
                  "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
-                 "tpu/swarm.py", "search/search.py"):
+                 "tpu/swarm.py", "search/search.py", "search/trace.py",
+                 "harness/__init__.py", "harness/annotations.py",
+                 "harness/junit.py", "harness/runner.py", "harness/tee.py",
+                 "runner/network.py", "runner/run_settings.py",
+                 "runner/run_state.py", "viz/__init__.py", "viz/config.py",
+                 "viz/server.py", "viz/debugger.py", "run_tests.py",
+                 "_labtests/__init__.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):
