@@ -130,6 +130,27 @@ table) once.  Each phase prints one JSON line:
            each search's record (as the harness and swarm phases print
            them); the kernels' launches over the phase (both > 0); and no
            module of jax or of the JAX package loaded in the process;
+  scenarios symmetry reduction and the fault plane: the partitioned
+           flagship (the flagship's spec under the reference's one-era
+           partition, make_paxos_partition_spec, goals stripped) at full
+           width on the device loop, strict and packed, to depth 8 or
+           SCENARIO_SECS: lanes, packed words, outcome, unique
+           states/min, peak device memory, partition events (> 0, equal
+           to the fault events) and each kernel's launches (> 0); the
+           device loop against run_host at depths 1-5 (unique, explored,
+           partition events); the zero-budget model (max_eras=0) equal
+           to the plain flagship at depth 6; the symmetric
+           paxos_spec(5) (120 permutations, DECIDED pruned) raw and
+           reduced on both loops (12024 / 170400 and 306 / 4237 at depth
+           18), with the canonicalize pass's CUDA-event ms per call and
+           share of the run and one call under torch.profiler; the
+           reference's pins on both loops (202 -> 50; the partition
+           scenario 3416 / 564 / 13 / 320; the lab 3 partition and lab 4
+           crash twins at depths 2 and 3) and its witnesses decoded with
+           their fault labels (broken quorum, NO_HEAL, NO_CRASH, and a
+           swarm on NO_HEAL minimized to CUT, HEAL); and both kernels
+           bit-exact against their plain versions on a full chunk of the
+           partitioned flagship's successor rows and on canonical rows;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -137,7 +158,8 @@ table) once.  Each phase prints one JSON line:
            each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-launches those of the search, swarm and labtests phases' runs), the
+launches those of the search, swarm, labtests and scenarios phases'
+runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -1307,7 +1329,7 @@ def reachable_rows(torch, ts, depth, gen, keep=32):
     expanded by every grid event through ``_step_batch`` and subsampled
     to ``keep`` rows by ``gen``."""
     p = ts.p
-    grid = p.net_cap + p.n_nodes * p.timer_cap
+    grid = p.net_cap + p.n_nodes * p.timer_cap + ts._ev_flt
     from dslabs_tpu_torch.tpu.engine import flatten_state
 
     rows = flatten_state(ts.initial_state())
@@ -1776,6 +1798,331 @@ def phase_labtests(torch, mods, labs="01234"):
     return total
 
 
+# ------------------------------------------------------------- scenarios
+
+# The partitioned flagship's budget on the device loop, and its depth.
+SCENARIO_SECS = 60.0
+SCENARIO_DEPTH = 8
+# The symmetric search at width: paxos_spec(SYM_N), DECIDED pruned, raw and
+# canonical (unique, explored, depth) and its permutations (the JAX
+# package's counts on the CPU).
+SYM_N = 5
+SYM_PIN = dict(raw=(12024, 170400, 18), canonical=(306, 4237, 18),
+               perms=120)
+
+
+def flagship_partition():
+    """The main path's twin under the reference's one-era partition (the
+    last server cut off from the other two until HEAL), goals stripped."""
+    from dslabs_tpu_torch.tpu.specs_lab3 import make_paxos_partition_spec
+
+    return dataclasses.replace(
+        make_paxos_partition_spec(**FLAGSHIP_KW).compile(), goals={})
+
+
+def kernel_counts(mods) -> dict:
+    return {"fingerprint_rows": mods["kernels"].LAUNCHES["fingerprint_rows"],
+            "insert": mods["visited"].LAUNCHES["insert"]}
+
+
+def last_frontier(ts, n: int):
+    """Run ``ts`` on the device loop and return the first ``n`` rows of
+    its last frontier, unpacked (repeated up to ``n`` if it holds
+    fewer)."""
+    ts.run()
+    c = ts._last_dev_carry
+    rows = c["cur"][:int(c["cur_n"])]
+    rows = rows if ts._pk is None else ts._pk.unpack(rows)
+    del ts._last_dev_carry
+    return rows.repeat(-(-n // len(rows)), 1)[:n].contiguous()
+
+
+def timed_canon(torch, ts) -> list:
+    """Wrap ``ts``'s canonicalize pass with a CUDA event pair per call;
+    returns the list the pairs go to."""
+    events = []
+    canon = ts._canon
+
+    def wrapped(rows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = canon(rows)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ts._canon = wrapped
+    return events
+
+
+def scenario_kernels(torch, mods, rows_by_case):
+    """Both kernels bit-exact against their plain versions on the given
+    rows: the fingerprint of each case's rows, and the insert of those
+    keys (20% invalid) into an empty table and into one that already
+    holds half of them."""
+    kernels, visited, engine = mods["kernels"], mods["visited"], \
+        mods["engine"]
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for name, rows in rows_by_case.items():
+        k = kernels.fingerprint_rows(rows)
+        p = engine.row_fingerprints(rows)
+        check(torch.equal(k, p), f"scenarios: fingerprint_rows on {name} "
+              f"rows {list(rows.shape)} disagrees with its plain version")
+        valid = (torch.rand((len(k),), generator=gen) < 0.8).to("cuda")
+        cap = 1 << max(10, int(len(k) * 4).bit_length())
+        half, _, unres = visited.build_table(cap, k[::2].contiguous(),
+                                             "cuda")
+        check(unres == 0, f"scenarios: {name} table prefill unresolved")
+        inserted = {}
+        for tname, table in (("empty", visited.empty_table(cap, "cuda")),
+                             ("half_full", half)):
+            ta, ia, ua = visited.insert(table.clone(), k, valid)
+            tb, ib, ub = visited.insert_plain(table.clone(), k, valid)
+            check(torch.equal(ta[:-1], tb[:-1]) and torch.equal(ia, ib)
+                  and torch.equal(ua, ub),
+                  f"scenarios: insert of {name} keys into a {tname} table "
+                  "disagrees with insert_plain")
+            inserted[tname] = int(ia.sum())
+        out[name] = dict(rows=list(rows.shape), inserted=inserted,
+                         max_abs_err=0)
+    return out
+
+
+def phase_scenarios(torch, mods):
+    """Symmetry reduction and the fault plane on the card: the partitioned
+    flagship at full width on the device loop (with its parity oracles),
+    the symmetric paxos_spec(5) on both loops, the reference's scenario
+    pins and witnesses, and both kernels on fault and canonical rows.
+    Returns the kernels' launches over the phase's searches."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu import specs, specs_lab3, specs_lab4
+    from dslabs_tpu_torch.tpu.faults import FaultModel, Partition
+    from dslabs_tpu_torch.tpu.swarm import SwarmSearch
+    from dslabs_tpu_torch.tpu.trace import decode_trace
+
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        before = kernel_counts(mods)
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in kernel_counts(mods).items():
+            total[k] += v - before[k]
+        return out
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    def pruned(p):
+        return dataclasses.replace(p, goals={}, prunes=dict(p.goals),
+                                   invariants=dict(p.invariants))
+
+    # ---- the partitioned flagship at full width (device loop).
+    fp = flagship_partition()
+    ts = engine.TensorSearch(fp, visited_cap=1 << 24, frontier_cap=1 << 20,
+                             chunk=4096, max_depth=SCENARIO_DEPTH,
+                             max_secs=SCENARIO_SECS, strict=True)
+    o, rec = timed_search(torch, mods, ts)
+    for k in total:
+        total[k] += rec["launches"][k]
+    flagship = dict(lanes=ts.lanes, plane=ts.plane,
+                    fault_events=o.fault_events,
+                    partition_events=o.partition_events, **rec)
+    plain_lanes = engine.TensorSearch(flagship_protocol(), chunk=8).lanes
+    check(ts.lanes == plain_lanes + 2 + fp.timer_cap * fp.timer_width
+          and ts.plane < ts.lanes and fp.fault.n_events == 2,
+          f"partitioned flagship shape: {flagship}")
+    check(o.end_condition in ("DEPTH_EXHAUSTED", "TIME_EXHAUSTED")
+          and o.depth >= 6 and o.visited_overflow == 0
+          and o.fault_events == o.partition_events > 0
+          and all(v > 0 for v in rec["launches"].values()),
+          f"partitioned flagship: {flagship}")
+    emit({"phase": "scenarios", "part": "flagship", **flagship})
+
+    # ---- device loop against run_host at depths 1-5, and the zero-budget
+    # model against the plain flagship at depth 6.
+    loops = {}
+    for d in range(1, 6):
+        got = []
+        for host in (False, True):
+            s = engine.TensorSearch(fp, visited_cap=1 << 20, chunk=4096,
+                                    max_depth=d, use_host_visited=host)
+            x = counted(s.run)
+            got.append(key(x) + [x.partition_events])
+        check(got[0] == got[1], f"partitioned flagship depth {d}: device "
+              f"loop {got[0]} vs run_host {got[1]}")
+        loops[d] = got[0]
+    n = FLAGSHIP_KW["n"]
+    zero = FaultModel(partition=Partition(blocks=(
+        tuple(("server", i) for i in range(n - 1)), (("server", n - 1),)),
+        max_eras=0))
+    zp = dataclasses.replace(specs_lab3.make_paxos_spec(
+        **FLAGSHIP_KW, fault=zero).compile(), goals={})
+    outs = [counted(engine.TensorSearch(
+        p, visited_cap=1 << 22, frontier_cap=1 << 20, chunk=4096,
+        max_depth=6).run) for p in (zp, flagship_protocol())]
+    check(key(outs[0]) == key(outs[1]) and outs[0].fault_events == 0
+          and outs[0].depth == 6,
+          f"zero-budget flagship {key(outs[0])} vs plain {key(outs[1])}")
+    emit({"phase": "scenarios", "part": "flagship_parity",
+          "device_vs_host": loops,
+          "fields": ["end", "unique", "explored", "depth",
+                     "partition_events"],
+          "zero_budget_d6": key(outs[0]), "plain_d6": key(outs[1])})
+
+    # ---- symmetry at width: paxos_spec(5), 120 permutations.
+    p5 = pruned(specs.paxos_spec(SYM_N).compile())
+    sym = {}
+    canon_rows = None
+    for sym_on in (False, True):
+        for host in (False, True):
+            s = engine.TensorSearch(p5, chunk=256, visited_cap=1 << 18,
+                                    symmetry=sym_on, use_host_visited=host)
+            events = timed_canon(torch, s) if sym_on else []
+            t0 = time.time()
+            x = counted(s.run)
+            wall_ms = (time.time() - t0) * 1e3
+            r = dict(key=key(x), perms=x.symmetry_perms, wall_ms=wall_ms)
+            if sym_on:
+                c_ms = sum(a.elapsed_time(b) for a, b in events)
+                r.update(canon_calls=len(events), canon_ms=c_ms,
+                         canon_ms_per_call=c_ms / max(len(events), 1),
+                         canon_share=c_ms / wall_ms)
+                if not host:
+                    r["chunk_steps"] = s.chunk_steps
+            sym[("sym" if sym_on else "raw")
+                + ("_host" if host else "_device")] = r
+            want = SYM_PIN["canonical" if sym_on else "raw"]
+            check(r["key"] == ["SPACE_EXHAUSTED", want[0], want[1], want[2]]
+                  and r["perms"] == (SYM_PIN["perms"] if sym_on else 0),
+                  f"paxos_spec({SYM_N}) symmetry={sym_on} host={host}: {r}")
+    # One canonicalize call under the profiler, on the successors of a
+    # chunk of the raw search's depth-9 frontier.
+    front = last_frontier(engine.TensorSearch(p5, chunk=256, max_depth=9),
+                          256)
+    s = engine.TensorSearch(p5, chunk=256, symmetry=True)
+    succ = s._expand_chunk(front, torch.ones(len(front), dtype=torch.bool,
+                                             device="cuda"))[0]
+    prof_ms, prof_launches = profiled_call(torch, lambda: s._canon(succ))
+    canon_rows = s._canon(succ)
+    sym["profiled_call"] = dict(rows=list(succ.shape), device_ms=prof_ms,
+                                device_launches=prof_launches)
+    emit({"phase": "scenarios", "part": f"symmetry_paxos{SYM_N}", **sym})
+
+    # ---- the reference's pins.
+    pins = {}
+
+    def both(name, p, want, family, **kw):
+        for host in (False, True):
+            x = counted(engine.TensorSearch(p, use_host_visited=host,
+                                            **kw).run)
+            got = key(x) + [getattr(x, family), x.fault_events]
+            pins[name + ("_host" if host else "_device")] = got
+            check(got[:len(want)] == list(want),
+                  f"scenario pin {name} host={host}: {got} vs {want}")
+
+    kw = dict(chunk=256, frontier_cap=1 << 13, visited_cap=1 << 16)
+    both("paxos3_symmetric", pruned(specs.paxos_spec(3).compile()),
+         ["SPACE_EXHAUSTED", 50, 375, 11], "partition_events",
+         symmetry=True, **kw)
+    both("paxos_partition", pruned(specs.paxos_partition_spec(3).compile()),
+         ["SPACE_EXHAUSTED", 564, 3416, 13, 320, 320], "partition_events",
+         **kw)
+    for d, pin in ((2, (32, 64, 7)), (3, (133, 328, 31))):
+        both(f"lab3_partition_d{d}",
+             pruned(specs_lab3.make_paxos_partition_spec(3).compile()),
+             ["DEPTH_EXHAUSTED", pin[0], pin[1], d, pin[2], pin[2]],
+             "partition_events", chunk=256, max_depth=d)
+    for d, pin in ((2, (30, 43, 7)), (3, (103, 200, 29))):
+        both(f"lab4_crash_d{d}",
+             pruned(specs_lab4.make_shardstore_crash_spec([1, 1]).compile()),
+             ["DEPTH_EXHAUSTED", pin[0], pin[1], d, pin[2], pin[2]],
+             "crash_events", chunk=256, max_depth=d)
+
+    # ---- witnesses, decoded with their fault labels.
+    wit = {}
+    spec = specs.paxos_partition_spec(3, broken=True)
+    names = {v: k for k, v in spec._mtag.items()}
+    s = engine.TensorSearch(spec.compile(), record_trace=True, **kw)
+    x = counted(s.run)
+    recs = decode_trace(s, x)
+    wit["broken_quorum"] = [a[0] if k == "fault" else names[int(a[0][0])]
+                            for k, a in recs]
+    check((x.end_condition, x.predicate_name, x.depth) == (
+        "INVARIANT_VIOLATED", "DECIDE_HAS_QUORUM", 5)
+        and wit["broken_quorum"] == ["HEAL", "PREPARE", "PROMISE", "ACCEPT",
+                                     "ACCEPTED"],
+        f"broken-quorum witness: {key(x)} {wit}")
+
+    def no_heal():
+        sp = specs_lab3.make_paxos_partition_spec(3)
+        sp.invariants["NO_HEAL"] = lambda v: ~(
+            (v.get("$fault", 0, "pcut") == 0)
+            & (v.get("$fault", 0, "eras") == 1))
+        return dataclasses.replace(sp.compile(), goals={})
+
+    def no_crash():
+        sp = specs_lab4.make_shardstore_crash_spec([1, 1])
+        sp.invariants["NO_CRASH"] = \
+            lambda v: v.get("$fault", 0, "crashes") == 0
+        return dataclasses.replace(sp.compile(), goals={})
+
+    for name, make, depth, labels in (
+            ("no_heal", no_heal, 2, ["CUT", "HEAL"]),
+            ("no_crash", no_crash, 1, ["CRASH(server[0])"])):
+        s = engine.TensorSearch(make(), chunk=256, record_trace=True,
+                                max_depth=depth + 2)
+        x = counted(s.run)
+        wit[name] = [a[0] for _, a in decode_trace(s, x)]
+        check(x.end_condition == "INVARIANT_VIOLATED" and x.depth == depth
+              and wit[name] == labels, f"{name} witness: {key(x)} {wit}")
+    # A swarm on NO_HEAL finds the violation and minimizes it to CUT, HEAL.
+    p = no_heal()
+    sw = SwarmSearch(p, walkers_per_device=128, max_steps=32, seed=0,
+                     max_secs=60.0, device="cuda")
+    t0 = time.time()
+    x = counted(sw.run)
+    base = p.net_cap + p.n_nodes * p.timer_cap
+    w = x.witness
+    wit["swarm_no_heal"] = dict(
+        end=x.end_condition, secs=time.time() - t0,
+        raw=None if w is None else len(w.raw_trace),
+        trace=None if w is None else [int(e) for e in w.trace],
+        labels=None if w is None else [a[0] for _, a in
+                                       decode_trace(sw, x)])
+    check(x.end_condition == "INVARIANT_VIOLATED" and w.replay_verified
+          and list(w.trace) == [base, base + 1]
+          and wit["swarm_no_heal"]["labels"] == ["CUT", "HEAL"],
+          f"swarm NO_HEAL witness: {wit['swarm_no_heal']}")
+    emit({"phase": "scenarios", "part": "pins", "pins": pins,
+          "fields": ["end", "unique", "explored", "depth", "family_events",
+                     "fault_events"], "witnesses": wit})
+
+    # ---- both kernels on fault rows and on canonical rows.  These
+    # comparisons' launches are not the phase's.
+    # The fault rows: every successor row of a full chunk of the
+    # partitioned flagship's depth-5 frontier, at the main path's shape.
+    saved = kernel_counts(mods)
+    ts = engine.TensorSearch(fp, chunk=4096, max_depth=5)
+    front = last_frontier(ts, ts.chunk)
+    fault_rows = ts._expand_chunk(front, torch.ones(
+        len(front), dtype=torch.bool, device="cuda"))[0]
+    kern = scenario_kernels(torch, mods, {"fault_flagship": fault_rows,
+                                          "canonical_paxos5": canon_rows})
+    mods["kernels"].LAUNCHES["fingerprint_rows"] = saved["fingerprint_rows"]
+    mods["visited"].LAUNCHES["insert"] = saved["insert"]
+    check(all(v > 0 for v in total.values()),
+          f"scenarios phase skipped a kernel: {total}")
+    emit({"phase": "scenarios", "part": "kernels", **kern})
+    emit({"phase": "scenarios", "secs": time.time() - t_phase,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -1849,6 +2196,7 @@ def main() -> int:
     run(phase_lab4)
     swarm_launches = run(phase_swarm)
     lab_launches = run(phase_labtests)
+    scen_launches = run(phase_scenarios)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -1860,10 +2208,12 @@ def main() -> int:
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
-         "launches": launches[k] + swarm_launches[k] + lab_launches[k],
+         "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
+                      + scen_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
-                              "labtests": lab_launches[k]},
+                              "labtests": lab_launches[k],
+                              "scenarios": scen_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

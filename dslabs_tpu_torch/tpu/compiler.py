@@ -32,10 +32,11 @@ under its guard, as eager PyTorch ops, so the Ctx ops are kept lean:
 int32 values stay int32 without conversions, a ``when`` of Python
 ``True`` adds no op, and constants are cached per device.
 
-Deliberate differences from the reference: a spec with a ``fault`` model
-builds, but ``compile()`` raises ``NotImplementedError`` (the symmetry
-and faults slice of the port lowers fault events); symmetry tables are
-compiled and carried as data.
+A spec with a ``fault`` model (``tpu/faults.py``) compiles with its
+hidden controller kind and carries the compiled
+:class:`~dslabs_tpu_torch.tpu.faults.FaultLanes` as
+``TensorProtocol.fault``; a spec with symmetry groups carries its
+permutation tables as ``TensorProtocol.symmetry`` (``tpu/symmetry.py``).
 """
 
 from __future__ import annotations
@@ -462,8 +463,8 @@ class ProtocolSpec:
         self._quorums_resolved: Optional[Dict[str, object]] = None
         self.fragments: List[Tuple[str, str]] = []
         self.max_live_sends = max_live_sends
-        # A fault model appends the hidden controller kind last, as in
-        # the reference; compile() refuses it until faults are ported.
+        # A fault model appends the hidden controller kind last, so the
+        # user kinds keep their node indices.
         self.fault = fault
         if fault is not None:
             from dslabs_tpu_torch.tpu.faults import controller_kind
@@ -640,7 +641,7 @@ class ProtocolSpec:
         timers must name declared types, quorums must resolve, and field
         domains, index groups and init values must be consistent.  Raises
         :class:`SpecError` with the reference's text."""
-        from dslabs_tpu_torch.tpu.faults import FAULT_KIND
+        from dslabs_tpu_torch.tpu.faults import FAULT_KIND, validate_fault
         n_ctrl = sum(1 for k in self.nodes if k.name == FAULT_KIND)
         if n_ctrl != (1 if self.fault is not None else 0):
             raise SpecError(
@@ -648,6 +649,16 @@ class ProtocolSpec:
                 "fault controller (declare faults via fault=FaultModel"
                 "(...), not as a node kind)",
                 spec=self.name, kind=FAULT_KIND, code="C6")
+        if self.fault is not None:
+            for (kind, _msg) in list(self.handlers) + \
+                    list(self.timer_handlers):
+                if kind == FAULT_KIND:
+                    raise SpecError(
+                        "handlers may not be registered on the fault "
+                        "controller kind — protocols observe faults "
+                        "only through message loss and timer silence",
+                        spec=self.name, kind=FAULT_KIND, code="C6")
+            validate_fault(self)
         self._quorums_resolved = None
         self.resolved_quorums()
         kinds = {k.name for k in self.nodes}
@@ -864,11 +875,6 @@ class ProtocolSpec:
         (``tpu/engine.py``)."""
         from dslabs_tpu_torch.tpu.engine import SENTINEL, TensorProtocol
 
-        if self.fault is not None:
-            raise NotImplementedError(
-                f"{self.name}: compiling a spec with a fault model is not "
-                "ported yet; it comes with the symmetry + faults slice of "
-                "the PyTorch port (see ROADMAP.md)")
         self.validate()
         table, nw = self._layout()
         n_nodes = sum(k.count for k in self.nodes)
@@ -1003,12 +1009,19 @@ class ProtocolSpec:
                 return out.to(torch.bool).expand(nodes.shape[0])
             return wrapped
 
+        fault_lanes = None
+        if self.fault is not None:
+            from dslabs_tpu_torch.tpu.faults import compile_fault_lanes
+            fault_lanes = compile_fault_lanes(self, table, nw,
+                                              init_nodes())
+
         return TensorProtocol(
             name=self.name,
             n_nodes=n_nodes,
             node_width=nw,
             lane_domains=self._lane_domains(),
             symmetry=self._symmetry_spec(table),
+            fault=fault_lanes,
             msg_width=self._mw,
             timer_width=self._tw,
             net_cap=self.net_cap,

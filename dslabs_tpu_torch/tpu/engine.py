@@ -116,10 +116,12 @@ class TensorProtocol:
     ``lane_domains`` (per-lane value domains, emitted by
     ``ProtocolSpec.compile()``) drive the bit-packed frontier rows
     (``tpu/packing.py``); None (hand twins) packs to the identity.
-    ``symmetry`` (the compiled permutation tables) is carried as data,
-    and a ``fault`` model makes :class:`TensorSearch` raise, until the
-    symmetry and faults slice.  ``decode_message`` / ``decode_timer``
-    are the optional object-twin decoders of trace reconstruction."""
+    ``symmetry`` (a ``tpu/symmetry.py`` SymmetrySpec) is the permutation
+    table set that ``TensorSearch(symmetry=True)`` canonicalizes with;
+    ``fault`` (a ``tpu/faults.py`` FaultLanes) adds the fault event
+    segment and deliverability masks.  ``decode_message`` /
+    ``decode_timer`` are the optional object-twin decoders of trace
+    reconstruction."""
 
     name: str
     n_nodes: int
@@ -197,6 +199,17 @@ class SearchOutcome:
     swarm_overflow: int = 0
     swarm: Optional[dict] = None
     witness: Optional[object] = None
+    # The symmetry pass's permutation count (0 = reduction off; with it
+    # on, unique_states counts canonical orbits, at most the raw count).
+    symmetry_perms: int = 0
+    # Valid fault events explored (counted over successor states, like
+    # states_explored), by family and in total; all zero when the
+    # protocol declares no fault model (tpu/faults.py).
+    fault_events: int = 0
+    partition_events: int = 0
+    crash_events: int = 0
+    drop_events: int = 0
+    dup_events: int = 0
 
 
 # ----------------------------------------------------------------- hashing
@@ -276,24 +289,44 @@ def _lex_order(cols) -> torch.Tensor:
     return order
 
 
-def canonicalize_net(net: torch.Tensor) -> torch.Tensor:
-    """Sort one message set [CAP, MW] into canonical (raw-lane
-    lexicographic) order and collapse duplicates; empty rows are
-    all-SENTINEL and sort last.  Cold path: initial states only."""
-    cap, mw = net.shape
-    empty = net[:, 0] == SENTINEL
-    order = _lex_order([empty.to(torch.int32)]
-                       + [net[:, lane] for lane in range(mw)])
-    net_s = net[order]
-    empty_s = empty[order]
-    dup = torch.zeros(cap, dtype=torch.bool, device=net.device)
-    dup[1:] = torch.all(net_s[1:] == net_s[:-1], dim=1) & ~empty_s[1:]
+def _lex_order_batched(cols) -> torch.Tensor:
+    """Per-row stable lexicographic order of the [N, R] keys ``cols``
+    (primary key first) along dim 1: :func:`_lex_order` for a batch."""
+    order = torch.arange(cols[0].shape[1], device=cols[0].device).expand(
+        cols[0].shape).contiguous()
+    for key in reversed(cols):
+        idx = torch.sort(key.gather(1, order), dim=1, stable=True).indices
+        order = order.gather(1, idx)
+    return order
+
+
+def canonicalize_net_batched(net: torch.Tensor) -> torch.Tensor:
+    """Sort each message set of ``net`` [N, CAP, MW] into canonical
+    (raw-lane lexicographic) order and collapse duplicates; empty rows are
+    all-SENTINEL and sort last.  ``jax.vmap`` of the reference's
+    ``canonicalize_net``: the symmetry pass re-sorts relabelled networks
+    with it."""
+    n, cap, mw = net.shape
+    empty = net[:, :, 0] == SENTINEL
+    order = _lex_order_batched([empty.to(torch.int32)]
+                               + [net[:, :, lane] for lane in range(mw)])
+    net_s = net.gather(1, order[:, :, None].expand(n, cap, mw))
+    empty_s = empty.gather(1, order)
+    dup = torch.zeros((n, cap), dtype=torch.bool, device=net.device)
+    dup[:, 1:] = (torch.all(net_s[:, 1:] == net_s[:, :-1], dim=2)
+                  & ~empty_s[:, 1:])
     keep = ~dup & ~empty_s
-    pos = torch.cumsum(keep.to(torch.int64), 0) - 1
-    out = torch.full((cap + 1, mw), SENTINEL, dtype=net.dtype,
+    pos = torch.cumsum(keep.to(torch.int64), 1) - 1
+    out = torch.full((n, cap + 1, mw), SENTINEL, dtype=net.dtype,
                      device=net.device)
-    out[torch.where(keep, pos, cap)] = net_s
-    return out[:cap]
+    out.scatter_(1, torch.where(keep, pos, cap)[:, :, None].expand(
+        n, cap, mw), net_s)
+    return out[:, :cap]
+
+
+def canonicalize_net(net: torch.Tensor) -> torch.Tensor:
+    """One message set [CAP, MW]: see :func:`canonicalize_net_batched`."""
+    return canonicalize_net_batched(net[None])[0]
 
 
 def compact_rows_batched(rows: torch.Tensor, budget: int
@@ -468,6 +501,19 @@ def _normalize_step(out, p: int, device) -> tuple:
     return nodes2, sends, new_t, exc.to(torch.int32)
 
 
+def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[..., idx]`` where ``0 <= idx < NN`` and 0 elsewhere: the
+    reference's one-hot select ``sum((idx == arange(NN)) * table)``.
+    ``table`` is [NN] (shared) or [C, NN] (per row of ``idx`` [C, ...])."""
+    nn = table.shape[-1]
+    ic = idx.clamp(0, nn - 1).to(torch.int64)
+    if table.dim() == 1:
+        got = table[ic]
+    else:
+        got = table.gather(1, ic.reshape(ic.shape[0], -1)).reshape(ic.shape)
+    return torch.where((idx >= 0) & (idx < nn), got, 0)
+
+
 # ------------------------------------------------------------------- engine
 
 # Load factor (of the strict 75% limit) past which the visited-table
@@ -492,9 +538,18 @@ class TensorSearch:
     engine that the port does not have yet raise ``NotImplementedError``
     naming the slice that brings them: ``checkpoint_path`` /
     ``checkpoint_every`` / ``spill`` / ``run(resume=True)`` (spill and
-    checkpoint), ``telemetry`` (supervisor and telemetry),
-    ``symmetry=True`` or a protocol with a ``fault`` model (symmetry and
-    faults).
+    checkpoint) and ``telemetry`` (supervisor and telemetry).
+
+    ``symmetry=True`` (default off) hashes each state's canonical orbit
+    representative under the protocol's symmetry groups
+    (``tpu/symmetry.py``) at every fingerprint site, so ``unique_states``
+    counts orbits; stored rows stay the real states.  A protocol with a
+    ``fault`` model (``tpu/faults.py``) gets a third, never-windowed event
+    segment after the message and timer ones, its deliverability masks,
+    and per-family fault-event counts on the outcome.  Deliberate
+    differences: the reference's ``DSLABS_SYMMETRY`` environment default
+    is not ported (only the argument decides), and the fault steps run
+    batched over pairs where the reference vmaps a one-row step.
 
     ``packed`` (default on) stores the device loop's frontier buffers at
     ``plane`` words per row, derived from the protocol's
@@ -533,10 +588,6 @@ class TensorSearch:
             raise _later("spill", "spill + checkpoint")
         if telemetry is not None:
             raise _later("telemetry", "supervisor + telemetry")
-        if symmetry:
-            raise _later("symmetry=True", "symmetry + faults")
-        if protocol.fault is not None:
-            raise _later("fault models", "symmetry + faults")
         self.p = protocol
         self.device = resolve_device(device)
         self.frontier_cap = frontier_cap
@@ -574,13 +625,34 @@ class TensorSearch:
             bm, bt = ev_budget, tgrid
         self._ev_msg = min(bm, protocol.net_cap)
         self._ev_tmr = min(bt, tgrid)
-        self._ev_slots = self._ev_msg + self._ev_tmr
+        # The fault segment is always the full fault grid, never windowed:
+        # a window pass past the first sees an empty fault table
+        # (_compact_ids with an offset).
+        self._ev_flt = (protocol.fault.n_events
+                        if protocol.fault is not None else 0)
+        self._ev_slots = self._ev_msg + self._ev_tmr + self._ev_flt
         p = protocol
         self._off = (p.node_width,
                      p.node_width + p.net_cap * p.msg_width,
                      p.node_width + p.net_cap * p.msg_width
                      + p.n_nodes * p.timer_cap * p.timer_width)
         self.lanes = self._off[2] + 1
+        if symmetry:
+            if protocol.symmetry is None:
+                raise ValueError(
+                    f"{protocol.name}: symmetry=True but the protocol "
+                    "declares no symmetry groups (ProtocolSpec("
+                    "symmetry=...))")
+            from dslabs_tpu_torch.tpu.symmetry import build_canonicalizer
+
+            self._canon = build_canonicalizer(protocol, self._off)
+        else:
+            self._canon = None
+        # Valid fault events of the current run by family: partition,
+        # crash + restart, drop, dup (zeros without a fault model).
+        self._fault_counts = np.zeros((4,), np.int64)
+        # Device tensors of the fault tables, built on first use.
+        self._flt_t = None
         # Bit-packed frontier rows: identity (no packing) for a protocol
         # without declared lane domains.
         pk = (packing_mod.derive_packing(protocol, self.lanes)
@@ -665,6 +737,8 @@ class TensorSearch:
         ok = msg[:, 0] != SENTINEL
         if p.deliver_message is not None:
             ok = ok & p.deliver_message(msg)
+        if p.fault is not None:
+            ok = ok & self._fault_msg_ok(nodes, msg)
         nodes2, sends, new_t, exc = _normalize_step(
             p.step_message(nodes, msg), par.shape[0], par.device)
         timers2, t_over = append_timers(chunk["timers"][par], new_t)
@@ -687,6 +761,11 @@ class TensorSearch:
         ok = timer_deliverable_mask(queue)[ar, t_slot]
         if p.deliver_timer is not None:
             ok = ok & p.deliver_timer(t_node)
+        if p.fault is not None and p.fault.n_crashable:
+            # A down node's timers are masked, not cleared: they fire
+            # only after its restart.
+            down = self._fault_down(chunk["nodes"][par])[ar, t_row]
+            ok = ok & (torch.where(inside[:, 0, 0], down, 0) == 0)
         timer = queue[ar, t_slot]
         nodes2, sends, new_t, exc = _normalize_step(
             p.step_timer(chunk["nodes"][par], t_node.to(torch.int32), timer),
@@ -719,17 +798,22 @@ class TensorSearch:
 
     def _step_one(self, row: torch.Tensor, event_idx):
         """Expand ONE state row [lanes] by ONE grid event id (message slot
-        ``< net_cap``, else ``net_cap`` + timer grid index) -> (successor
-        row [lanes], valid, over): the batched handler halves and merge
-        tail at P = 1.  Trace replay (tpu/trace.py) steps with it."""
+        ``< net_cap``, then ``net_cap`` + timer grid index, then the fault
+        segment) -> (successor row [lanes], valid, over): the batched
+        halves at P = 1.  Trace replay (tpu/trace.py) steps with it."""
         p = self.p
         ev = int(event_idx)
         tgrid = p.n_nodes * p.timer_cap
-        if not 0 <= ev < p.net_cap + tgrid:
+        grid = p.net_cap + tgrid + self._ev_flt
+        if not 0 <= ev < grid:
             raise ValueError(f"{p.name}: event id {ev} outside the "
-                             f"message + timer grid ({p.net_cap + tgrid})")
-        cs = self.unflatten_rows(row[None])
+                             f"event grid ({grid})")
         par = torch.zeros((1,), dtype=torch.int64, device=row.device)
+        if ev >= p.net_cap + tgrid:
+            rows, ok, over = self._flt_step(row[None],
+                                            par + (ev - p.net_cap - tgrid))
+            return rows[0], ok[0], over[0]
+        cs = self.unflatten_rows(row[None])
         if ev < p.net_cap:
             raw = self._msg_step_raw(cs, par, par + ev)
         else:
@@ -742,11 +826,14 @@ class TensorSearch:
         ``ev`` [K] -> (successor rows [K, lanes], valid [K], over [K]), on
         the rows' device with no host sync: ``jax.vmap`` of the
         reference's ``_step_one``.  Both handler halves run over every row
-        and the selected half goes through one merge tail.  Ids outside
-        the grid read as the reference reads them, never raise: a negative
-        id is message slot 0, and an id past the timer grid selects
-        nothing (an all-zero queue whose slot 0 the partial order
-        admits)."""
+        and the selected half goes through one merge tail; with a fault
+        model a third, fault half (no handlers, no merge tail) replaces
+        the rows whose id lies past the timer grid.  Ids outside the grid
+        read as the reference reads them, never raise: a negative id is
+        message slot 0, and an id past the timer grid (past the fault
+        segment, with a fault model) selects nothing (an all-zero queue
+        whose slot 0 the partial order admits, or an out-of-range fault
+        index)."""
         p = self.p
         n = rows.shape[0]
         cs = self.unflatten_rows(rows)
@@ -758,7 +845,16 @@ class TensorSearch:
         raw = [torch.where(is_msg.reshape((n,) + (1,) * (a.dim() - 1)),
                            a, b) for a, b in zip(m, t)]
         succ, over = self._batched_tail(cs, par, *raw)
-        return succ, raw[4], over
+        ok = raw[4]
+        if self._ev_flt:
+            base = p.net_cap + p.n_nodes * p.timer_cap
+            is_flt = ev >= base
+            f_rows, f_ok, f_over = self._flt_step(
+                rows, (ev - base).clamp(min=0))
+            succ = torch.where(is_flt[:, None], f_rows, succ)
+            ok = torch.where(is_flt, f_ok, ok)
+            over = torch.where(is_flt, f_over, over)
+        return succ, ok, over
 
     @staticmethod
     def _compact_ids(valid_ev: torch.Tensor, budget: int, offset: int = 0):
@@ -785,11 +881,15 @@ class TensorSearch:
                       chunk_valid: torch.Tensor, ev_pass: int = 0,
                       masks=None):
         """[C, lanes] chunk -> (msg_ids [C, Bm] net-slot indices, tmr_ids
-        [C, Bt] timer grid indices, ev_remaining): each state's valid
+        [C, Bt] timer grid indices, flt_ids [C, Bf] fault-segment indices
+        or None without a fault model, ev_remaining): each state's valid
         events (occupied network rows + deliverable timers, masked by the
-        protocol's deliver_* settings and, when ``masks`` = (marr, tarr)
-        is given, its deliver_*_rt masks) packed into per-kind pair
-        slots."""
+        protocol's deliver_* settings, when ``masks`` = (marr, tarr) is
+        given its deliver_*_rt masks, and the fault deliverability mask;
+        plus the enabled fault events) packed into per-kind pair slots.
+        ``ev_remaining`` counts the message and timer events past the
+        window; the fault segment is never windowed, so only pass 0 has
+        fault slots."""
         p = self.p
         c = chunk_valid.shape[0]
         cs = self.unflatten_rows(chunk_rows)
@@ -810,13 +910,34 @@ class TensorSearch:
             dt = p.deliver_timer_rt(torch.arange(
                 p.n_nodes, device=chunk_rows.device), masks[1])
             tmask = tmask & dt[None, :, None]
+        flt_ids = None
+        if p.fault is not None:
+            fl = p.fault
+            nodes = cs["nodes"]
+            net = cs["net"]
+            if fl.has_partition:
+                # Messages between blocks are blocked while the cut is up
+                # (block -1 = unpartitioned node, never blocked).
+                blk = self._fault_tables(nodes.device)["block"]
+                bf = _pick(blk, net[:, :, 1])
+                bt = _pick(blk, net[:, :, 2])
+                cross = (bf >= 0) & (bt >= 0) & (bf != bt)
+                pcut = nodes[:, fl.pcut_off] > 0
+                msg_ok = msg_ok & ~(pcut[:, None] & cross)
+            if fl.n_crashable:
+                down = self._fault_down(nodes)                  # [C, NN]
+                msg_ok = msg_ok & (_pick(down, net[:, :, 2]) == 0)
+                tmask = tmask & (down == 0)[:, :, None]
+            flt_ids, _f_rem = self._compact_ids(
+                self._fault_event_grid(nodes, net) & chunk_valid[:, None],
+                self._ev_flt, ev_pass * self._ev_flt)
         msg_ids, m_rem = self._compact_ids(
             msg_ok & chunk_valid[:, None], self._ev_msg,
             ev_pass * self._ev_msg)
         tmr_ids, t_rem = self._compact_ids(
             tmask.reshape(c, -1) & chunk_valid[:, None], self._ev_tmr,
             ev_pass * self._ev_tmr)
-        return msg_ids, tmr_ids, m_rem + t_rem
+        return msg_ids, tmr_ids, flt_ids, m_rem + t_rem
 
     def _expand_kind(self, cs: dict, ids: torch.Tensor, raw):
         """Run one event kind's handlers + merge tail over the chunk's
@@ -841,8 +962,11 @@ class TensorSearch:
         """[C, lanes] chunk rows -> (rows [C*B, lanes], valids [C*B],
         fp [C*B, 4] int32 keys, unique [C*B], overflow scalar,
         ev_remaining scalar, event_ids [C, B], flags dict), all on the
-        chunk's device with no host sync.  B = Bm + Bt, message slots
-        first per state (successor row = chunk_row * B + slot).
+        chunk's device with no host sync.  B = Bm + Bt (+ Bf with a fault
+        model): message slots, then timer slots, then fault slots per
+        state (successor row = chunk_row * B + slot).  Fingerprints hash
+        the canonical rows under ``symmetry=True``; the rows stay the real
+        states.
 
         ``masks`` are the runtime delivery masks (see
         :meth:`set_runtime_masks`).  ``dedup`` (default: the
@@ -851,30 +975,41 @@ class TensorSearch:
         row is."""
         p = self.p
         c = chunk_valid.shape[0]
-        bm, bt = self._ev_msg, self._ev_tmr
-        msg_ids, tmr_ids, ev_rem = self._event_tables(
+        msg_ids, tmr_ids, flt_ids, ev_rem = self._event_tables(
             chunk_rows, chunk_valid, ev_pass, masks)
         cs = self.unflatten_rows(chunk_rows)
-        rows_m, val_m, over_m = self._expand_kind(cs, msg_ids,
-                                                  self._msg_step_raw)
-        rows_t, val_t, over_t = self._expand_kind(cs, tmr_ids,
-                                                  self._tmr_step_raw)
+        parts = [self._expand_kind(cs, msg_ids, self._msg_step_raw),
+                 self._expand_kind(cs, tmr_ids, self._tmr_step_raw)]
+        widths = [self._ev_msg, self._ev_tmr]
+        # Grid event ids: timer entries are net_cap + t_idx, fault
+        # entries net_cap + NN*T_CAP + f_idx.
+        ev_segs = [msg_ids,
+                   torch.where(tmr_ids >= 0, p.net_cap + tmr_ids, -1)]
+        if self._ev_flt:
+            # Fault steps run no handlers and send nothing: the pairs
+            # skip the merge tail.
+            par = torch.arange(c, device=chunk_rows.device
+                               ).repeat_interleave(self._ev_flt)
+            rows_f, ok_f, over_f = self._flt_step(
+                chunk_rows[par], flt_ids.clamp(min=0).reshape(-1))
+            parts.append((rows_f, ok_f & (flt_ids >= 0).reshape(-1),
+                          over_f))
+            widths.append(self._ev_flt)
+            base = p.net_cap + p.n_nodes * p.timer_cap
+            ev_segs.append(torch.where(flt_ids >= 0, base + flt_ids, -1))
 
-        def inter(a, b):
-            return torch.cat([a.reshape((c, bm) + a.shape[1:]),
-                              b.reshape((c, bt) + b.shape[1:])],
-                             dim=1).reshape((c * (bm + bt),) + a.shape[1:])
+        def inter(i):
+            xs = [part[i] for part in parts]
+            return torch.cat([x.reshape((c, w) + x.shape[1:])
+                              for x, w in zip(xs, widths)], dim=1
+                             ).reshape((c * sum(widths),) + xs[0].shape[1:])
 
-        rows = inter(rows_m, rows_t)
-        valids = inter(val_m, val_t)
-        overs = inter(over_m, over_t)
-        # Grid event ids: timer entries are net_cap + t_idx.
-        event_ids = torch.cat(
-            [msg_ids, torch.where(tmr_ids >= 0, p.net_cap + tmr_ids, -1)],
-            dim=1)
+        rows, valids, overs = inter(0), inter(1), inter(2)
+        event_ids = torch.cat(ev_segs, dim=1)
         overflow = (overs * valids.to(torch.int32)).sum()
-        # Kernel 1 on CUDA rows, its plain version on CPU rows.
-        fp = kernels.fingerprint_rows(rows)
+        # Kernel 1 on CUDA rows, its plain version on CPU rows; under
+        # symmetry it hashes the canonical rows.
+        fp = kernels.fingerprint_rows(self._canon_rows(rows))
         if self._in_chunk_dedup if dedup is None else dedup:
             unique = _first_of_each_key(fp, valids)
         else:
@@ -932,7 +1067,8 @@ class TensorSearch:
             out = self.run_host(check_initial, initial)
         else:
             out = self._run_device(check_initial, initial)
-        return self._stamp_capacity(out)
+        self._stamp_capacity(out)
+        return self._stamp_faults(out)
 
     def random_rollouts(self, n_walkers: int = 256, n_steps: int = 64,
                         seed: int = 0, initial: Optional[dict] = None,
@@ -960,14 +1096,206 @@ class TensorSearch:
         return out
 
     def _stamp_capacity(self, out: SearchOutcome) -> SearchOutcome:
-        """Attach the frontier bytes per state that every verdict
-        carries."""
+        """Attach the frontier bytes per state and the symmetry pass's
+        permutation count that every verdict carries."""
         out.bytes_per_state = (self._pk.bytes_per_state
                                if self._pk is not None else self.lanes * 4)
         out.bytes_per_state_unpacked = self.lanes * 4
         out.pack_ratio = round(
             out.bytes_per_state_unpacked / max(out.bytes_per_state, 1), 3)
+        out.symmetry_perms = (self.p.symmetry.n_perms
+                              if self._canon is not None else 0)
         return out
+
+    def _stamp_faults(self, out: SearchOutcome) -> SearchOutcome:
+        """Attach the run's fault-event counts by family (zeros without a
+        fault model)."""
+        fc = self._fault_counts
+        out.partition_events = int(fc[0])
+        out.crash_events = int(fc[1])
+        out.drop_events = int(fc[2])
+        out.dup_events = int(fc[3])
+        out.fault_events = int(fc.sum())
+        return out
+
+    # ------------------------------------------------------------ symmetry
+
+    def _canon_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """The canonical orbit representative of each row under
+        ``symmetry=True``, the rows themselves otherwise.  Only
+        fingerprints see it: stored rows stay the real states."""
+        return rows if self._canon is None else self._canon(rows)
+
+    def _canonical_root_fp(self, state: dict) -> torch.Tensor:
+        """[1, 4] key of a batch-1 state through the same
+        canonicalize-then-hash step as the expand."""
+        return kernels.fingerprint_rows(self._canon_rows(
+            flatten_state(state)))
+
+    # --------------------------------------------------------- fault plane
+    #
+    # Reached only when ``p.fault`` is set.  Each method is batched over
+    # pairs [P] or chunk states [C], where the reference vmaps a one-row
+    # function; the one-hot selects become gathers with the same
+    # out-of-range reads (``_pick``).
+
+    def _fault_tables(self, dev) -> dict:
+        """The fault descriptor's arrays as tensors on ``dev``."""
+        t = self._flt_t
+        if t is None or t["dev"] != dev:
+            fl = self.p.fault
+            t = self._flt_t = {
+                "dev": dev,
+                "block": torch.as_tensor(fl.block_id, device=dev),
+                "wipe": torch.as_tensor(fl.wipe, device=dev),
+                "init": torch.as_tensor(fl.init_vec, device=dev)}
+        return t
+
+    def _fault_down(self, nodes: torch.Tensor) -> torch.Tensor:
+        """[P, NW] node lanes -> [P, NN] down flags (0 for nodes that
+        cannot crash), read from the controller's ``down_*`` lanes."""
+        z = torch.zeros_like(nodes[:, 0])
+        return torch.stack([nodes[:, int(off)] if int(off) >= 0 else z
+                            for off in self.p.fault.down_off], dim=1)
+
+    def _fault_msg_ok(self, nodes: torch.Tensor,
+                      msg: torch.Tensor) -> torch.Tensor:
+        """Deliverability of each message row [P, MW] under its state's
+        fault lanes [P, NW] -> [P] bool: blocked while a cut separates the
+        blocks of ``frm`` and ``to``, or while the destination is down.
+        A blocked message stays in the network, deliverable again after
+        HEAL or RESTART."""
+        fl = self.p.fault
+        ok = torch.ones(msg.shape[:1], dtype=torch.bool, device=msg.device)
+        if fl.has_partition:
+            blk = self._fault_tables(msg.device)["block"]
+            bf, bt = _pick(blk, msg[:, 1]), _pick(blk, msg[:, 2])
+            cross = (bf >= 0) & (bt >= 0) & (bf != bt)
+            ok = ok & ~((nodes[:, fl.pcut_off] > 0) & cross)
+        if fl.n_crashable:
+            ok = ok & (_pick(self._fault_down(nodes), msg[:, 2]) == 0)
+        return ok
+
+    def _flt_step(self, rows: torch.Tensor, f_idx: torch.Tensor):
+        """Expand each state row [P, lanes] by its fault event ``f_idx``
+        [P] (an index into the fault segment) -> (successor rows, valid
+        [P], over [P]).  Fault steps run no handlers and send nothing:
+        they flip controller lanes, wipe volatile fields (CRASH) or
+        remove one network row (DROP); ``over`` is always 0."""
+        p = self.p
+        fl = p.fault
+        n = rows.shape[0]
+        dev = rows.device
+        s = self.unflatten_rows(rows)
+        nodes, net = s["nodes"], s["net"]
+        ar = torch.arange(n, device=dev)
+        ok = torch.zeros((n,), dtype=torch.bool, device=dev)
+        nodes2 = nodes.clone()
+        net2 = net
+        if fl.has_partition:
+            is_cut = f_idx == fl.seg_cut
+            is_heal = f_idx == fl.seg_heal
+            pcut, eras = nodes[:, fl.pcut_off], nodes[:, fl.eras_off]
+            ok = ok | (is_cut & (pcut == 0)
+                       & (eras < fl.model.partition.max_eras)) \
+                | (is_heal & (pcut > 0))
+            nodes2[:, fl.pcut_off] = torch.where(
+                is_cut, 1, torch.where(is_heal, 0, nodes2[:, fl.pcut_off]))
+            nodes2[:, fl.eras_off] += is_cut.to(torch.int32)
+        if fl.n_crashable:
+            tabs = self._fault_tables(dev)
+        for k in range(fl.n_crashable):
+            off = int(fl.down_off[int(fl.crash_nodes[k])])
+            is_c = f_idx == fl.seg_crash + k
+            is_r = f_idx == fl.seg_restart + k
+            down_n = nodes[:, off]
+            ok = ok | (is_c & (down_n == 0)
+                       & (nodes[:, fl.crashes_off]
+                          < fl.model.crash.max_crashes)) \
+                | (is_r & (down_n > 0))
+            # Volatile lanes back to their declared inits; durable lanes
+            # and every other node's lanes keep their values.
+            nodes2 = torch.where(is_c[:, None] & tabs["wipe"][k][None, :],
+                                 tabs["init"][None, :], nodes2)
+            nodes2[:, off] = torch.where(
+                is_c, 1, torch.where(is_r, 0, nodes2[:, off]))
+            nodes2[:, fl.crashes_off] += is_c.to(torch.int32)
+        if fl.model.max_drops > 0:
+            in_drop = (f_idx >= fl.seg_drop) \
+                & (f_idx < fl.seg_drop + p.net_cap)
+            slot = (f_idx - fl.seg_drop).clamp(0, p.net_cap - 1)
+            occ = net[ar, slot, 0] != SENTINEL
+            ok = ok | (in_drop & occ
+                       & (nodes[:, fl.drops_off] < fl.model.max_drops))
+            # Shift-left removal keeps the set's canonical sorted prefix.
+            net2 = torch.where(in_drop[:, None, None],
+                               remove_timer(net, slot), net2)
+            nodes2[:, fl.drops_off] += in_drop.to(torch.int32)
+        if fl.model.max_dups > 0:
+            in_dup = f_idx >= fl.seg_dup
+            slot = (f_idx - fl.seg_dup).clamp(0, p.net_cap - 1)
+            occ = net[ar, slot, 0] != SENTINEL
+            # Delivery never consumes, so a duplicate changes nothing but
+            # the budget; the event names the slot in witness traces.
+            ok = ok | (in_dup & occ
+                       & (nodes[:, fl.dups_off] < fl.model.max_dups))
+            nodes2[:, fl.dups_off] += in_dup.to(torch.int32)
+        out = torch.cat([nodes2.to(torch.int32), net2.reshape(n, -1),
+                         s["timers"].reshape(n, -1),
+                         torch.zeros((n, 1), dtype=torch.int32, device=dev)],
+                        dim=1)
+        return out, ok, torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    def _fault_event_grid(self, nodes: torch.Tensor,
+                          net: torch.Tensor) -> torch.Tensor:
+        """[C, n_fault_events] validity of the fault segment over chunk
+        states (node lanes [C, NW], networks [C, CAP, MW]): the same
+        conditions as :meth:`_flt_step`'s ``ok``."""
+        fl = self.p.fault
+        c = nodes.shape[0]
+        cols = []
+        if fl.has_partition:
+            pcut = nodes[:, fl.pcut_off]
+            eras = nodes[:, fl.eras_off]
+            cols.append(((pcut == 0)
+                         & (eras < fl.model.partition.max_eras))[:, None])
+            cols.append((pcut > 0)[:, None])
+        if fl.n_crashable:
+            downs = torch.stack([nodes[:, int(fl.down_off[int(n)])] > 0
+                                 for n in fl.crash_nodes], dim=1)  # [C, nc]
+            budget = (nodes[:, fl.crashes_off]
+                      < fl.model.crash.max_crashes)[:, None]
+            cols.append(~downs & budget)
+            cols.append(downs)
+        occ = net[:, :, 0] != SENTINEL                          # [C, CAP]
+        if fl.model.max_drops > 0:
+            cols.append(occ & (nodes[:, fl.drops_off]
+                               < fl.model.max_drops)[:, None])
+        if fl.model.max_dups > 0:
+            cols.append(occ & (nodes[:, fl.dups_off]
+                               < fl.model.max_dups)[:, None])
+        return (torch.cat(cols, dim=1) if cols
+                else torch.zeros((c, 0), dtype=torch.bool,
+                                 device=nodes.device))
+
+    def _fault_chunk_counts(self, event_ids: torch.Tensor,
+                            valids: torch.Tensor) -> torch.Tensor:
+        """[4] int64 partition / crash + restart / drop / dup valid
+        successor events of one expanded chunk (``event_ids`` [C, B] grid
+        ids, ``valids`` [C*B]), on the device.  Both loops count with it:
+        the device loop into its carry, ``run_host`` into
+        ``_fault_counts`` (the reference keeps a numpy twin for the
+        latter)."""
+        fl = self.p.fault
+        base = self.p.net_cap + self.p.n_nodes * self.p.timer_cap
+        ev = event_ids.reshape(-1)
+        ok = valids & (ev >= base)
+        f = ev - base
+        return torch.stack([
+            (ok & (f < fl.seg_crash)).sum(),
+            (ok & (f >= fl.seg_crash) & (f < fl.seg_drop)).sum(),
+            (ok & (f >= fl.seg_drop) & (f < fl.seg_dup)).sum(),
+            (ok & (f >= fl.seg_dup)).sum()])
 
     def _initial_or(self, initial: Optional[dict]) -> dict:
         """The batch-1 start state on the search's device: ``initial``
@@ -1068,8 +1396,9 @@ class TensorSearch:
         # from here).
         self._trace_root = {k: v.cpu().numpy() for k, v in state.items()}
         self._levels = []
+        self._fault_counts[:] = 0
         frontier = flatten_state(state)                  # [1, lanes] rows
-        visited = host_keys(kernels.fingerprint_rows(frontier).cpu().numpy())
+        visited = host_keys(self._canonical_root_fp(state).cpu().numpy())
         # The exact visited set, sorted by (h1, h2); tests compare it.
         self._host_visited = visited
         explored = 0
@@ -1135,6 +1464,9 @@ class TensorSearch:
                         event_ids.cpu().numpy())
                 np_valids = valids.cpu().numpy()
                 explored += int(np_valids.sum())
+                if self._ev_flt:
+                    self._fault_counts += self._fault_chunk_counts(
+                        event_ids, valids).cpu().numpy()
                 out = self._terminal_outcome(
                     rows, np_valids, rows[:, -1].cpu().numpy(), flags,
                     explored, len(visited[0]), depth, t0,
@@ -1217,7 +1549,7 @@ class TensorSearch:
             if pk is not None:
                 rows_chunk = pk.unpack(rows_chunk)
             valid = (start + torch.arange(C, device=dev)) < carry["cur_n"]
-            (rows, valids, fp, unique, overflow, ev_rem, _event_ids,
+            (rows, valids, fp, unique, overflow, ev_rem, event_ids,
              flags) = self._expand_chunk(rows_chunk, valid, ev_pass,
                                          self._rt_masks, dedup=False)
             # ---- terminal flags, checkState order (exception first);
@@ -1274,14 +1606,20 @@ class TensorSearch:
             carry["vis_over"] += unresolved.sum()
             carry["f_drop"] += f_drop
             carry["flag_cnt"] += cnts
+            if "fault_cnt" in carry:
+                carry["fault_cnt"] += self._fault_chunk_counts(event_ids,
+                                                               valids)
             # The per-wave stats vector, the only recurring device->host
             # transfer: [explored, overflow, vis_over, f_drop, vis_n,
-            # nxt_n, ev_remaining] ++ flag counts.  (The reference keeps
-            # the chunk index j at slot 6; here the host drives j.)
+            # nxt_n, ev_remaining] ++ flag counts ++ (fault model only)
+            # the fault-family counts.  (The reference keeps the chunk
+            # index j at slot 6; here the host drives j.)
             return torch.cat([carry["explored"], carry["overflow"],
                               carry["vis_over"], carry["f_drop"],
                               carry["vis_n"], carry["nxt_n"],
-                              ev_rem.reshape(1), carry["flag_cnt"]])
+                              ev_rem.reshape(1), carry["flag_cnt"]]
+                             + ([carry["fault_cnt"]]
+                                if "fault_cnt" in carry else []))
 
         return step
 
@@ -1311,7 +1649,7 @@ class TensorSearch:
         dev = self.device
 
         def build(row0):
-            fp0 = kernels.fingerprint_rows(row0)              # [1, 4]
+            fp0 = kernels.fingerprint_rows(self._canon_rows(row0))  # [1, 4]
             table = visited_mod.empty_table(V, dev)
             visited_mod.insert(table, fp0,
                                torch.ones((1,), dtype=torch.bool,
@@ -1322,7 +1660,7 @@ class TensorSearch:
             def z():
                 return torch.zeros((1,), dtype=torch.int64, device=dev)
 
-            return {
+            carry = {
                 "cur": cur, "cur_n": z() + 1,
                 "nxt": torch.zeros((cap + 1, plane), dtype=torch.int32,
                                    device=dev),
@@ -1334,6 +1672,10 @@ class TensorSearch:
                 "flag_rows": torch.zeros((nf, lanes), dtype=torch.int32,
                                          device=dev),
             }
+            if self._ev_flt:
+                carry["fault_cnt"] = torch.zeros((4,), dtype=torch.int64,
+                                                 device=dev)
+            return carry
 
         return build
 
@@ -1372,6 +1714,7 @@ class TensorSearch:
         CAPACITY_EXHAUSTED."""
         t0 = time.time()
         state = self._initial_or(initial)
+        self._fault_counts[:] = 0
         if check_initial:
             out = self._check_initial(state, t0)
             if out is not None:
@@ -1428,6 +1771,9 @@ class TensorSearch:
             (explored, overflow, vis_over, f_drop, vis_n,
              nxt_n) = (int(x) for x in s[:6])
             flag_counts = s[7:7 + nf]
+            if self._ev_flt:
+                # Cumulative in the carry: overwrite, never add.
+                self._fault_counts[:] = s[7 + nf:7 + nf + 4]
             if overflow:
                 raise CapacityOverflow(
                     f"{p.name}: net_cap={p.net_cap}, timer_cap="

@@ -10,9 +10,10 @@ port's batched values (a scalar field is ``[P]``, an array field
 twins explore state spaces isomorphic to the hand twins (equal unique
 counts; lane layouts differ).
 
-``paxos_partition_spec`` and ``pb_crash_spec`` build their specs with a
-fault model; compiling them raises ``NotImplementedError`` until the
-symmetry and faults slice of the port."""
+``paxos_partition_spec`` and ``pb_crash_spec`` declare fault models
+(``tpu/faults.py``): they compile with the hidden fault controller and
+search the fault events with the protocol's own.  ``paxos_spec`` declares
+its acceptors a symmetry group for ``TensorSearch(symmetry=True)``."""
 
 from __future__ import annotations
 

@@ -602,8 +602,7 @@ def make_paxos_partition_spec(n: int = 3, n_clients: int = 1,
     scenario: the last server is isolated from the rest until the heal.
     CUT/HEAL interleave with protocol events as ordinary model
     transitions, so leader elections that straddle the cut are explored
-    exhaustively; the clients are never cut off.  The spec builds;
-    compiling it raises until fault models are ported."""
+    exhaustively; the clients are never cut off."""
     from dslabs_tpu_torch.tpu.faults import FaultModel, Partition
 
     fm = FaultModel(partition=Partition(blocks=(

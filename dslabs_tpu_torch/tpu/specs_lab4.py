@@ -570,8 +570,7 @@ def make_shardstore_crash_spec(groups_of=(1, 1), net_cap: int = 48,
     any server group may crash once and restart.  The per-client
     ``samo`` at-most-once table is durable (it survives the crash) while
     the config walk (scnt/sh/sq) is volatile and resets to inits on
-    restart.  The spec builds; compiling it raises until fault models
-    are ported."""
+    restart."""
     from dslabs_tpu_torch.tpu.faults import Crash, FaultModel
 
     fm = FaultModel(crash=Crash(durable={"server": ("samo",)},

@@ -487,12 +487,14 @@ class SwarmSearch(TensorSearch):
         K, S = self.walkers, self.max_steps
         dev = self.device
         rows, depths, hists = c["rows"], c["depths"], c["hists"]
-        msg_ids, tmr_ids, _rem = self._event_tables(
+        msg_ids, tmr_ids, flt_ids, _rem = self._event_tables(
             rows, torch.ones((K,), dtype=torch.bool, device=dev),
             masks=self._rt_masks)
-        ids = torch.cat([msg_ids,
-                         torch.where(tmr_ids >= 0, tmr_ids + p.net_cap, -1)],
-                        dim=1)                                  # [K, B]
+        segs = [msg_ids, torch.where(tmr_ids >= 0, tmr_ids + p.net_cap, -1)]
+        if flt_ids is not None:
+            base = p.net_cap + p.n_nodes * p.timer_cap
+            segs.append(torch.where(flt_ids >= 0, flt_ids + base, -1))
+        ids = torch.cat(segs, dim=1)                            # [K, B]
         ok = ids >= 0
         # Diversified pick: kind-affinity bias over the valid events,
         # scaled by each walker's temperature (cold = committed to its

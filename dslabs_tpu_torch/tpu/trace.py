@@ -73,7 +73,9 @@ def decode_trace(search: TensorSearch,
                  outcome: SearchOutcome) -> List[Tuple[str, tuple]]:
     """Replay ``outcome.trace`` (grid event ids) from the root the search
     recorded it against; return root-first records ``("message",
-    (lanes,))`` / ``("timer", (node, lanes))``, lanes as numpy int32.
+    (lanes,))`` / ``("timer", (node, lanes))``, lanes as numpy int32, and
+    ``("fault", (label,))`` for a fault event, labelled by the protocol's
+    fault descriptor (``CUT``, ``HEAL``, ``CRASH(server[0])``, ...).
 
     Raises ``ValueError`` when the outcome has no trace or a step of the
     replay is not deliverable (the trace does not belong to this
@@ -100,10 +102,8 @@ def decode_trace(search: TensorSearch,
             records.append(("timer",
                             (node, state["timers"][node, slot].copy())))
         else:
-            raise NotImplementedError(
-                f"{p.name}: trace event {ev} is a fault event; fault "
-                "models come with the symmetry + faults slice of the "
-                "PyTorch port (see ROADMAP.md)")
+            records.append(("fault", (p.fault.event_label(
+                ev - p.net_cap - tgrid),)))
         row, valid, _ = search._step_one(row, ev)
         if not bool(valid):
             raise ValueError(
@@ -117,13 +117,22 @@ def replay_on_object(search: TensorSearch, outcome: SearchOutcome,
     """Replay the decoded records on the object twin from
     ``initial_object_state``; return the final object ``SearchState``,
     whose parent chain is the trace.  Raises ``ValueError`` when the
-    protocol has no decoders and ``AssertionError`` when the object twin
-    rejects a decoded event (a tensor/object divergence)."""
+    protocol has no decoders, ``NotImplementedError`` on a fault event
+    (the object twin has no fault controller, so a fault witness is
+    verified by :func:`decode_trace`'s replay in tensor space), and
+    ``AssertionError`` when the object twin rejects a decoded event (a
+    tensor/object divergence)."""
     p = search.p
     if p.decode_message is None or p.decode_timer is None:
         raise ValueError(f"{p.name}: protocol has no object-twin decoders")
     state = initial_object_state
     for kind, payload in decode_trace(search, outcome):
+        if kind == "fault":
+            raise NotImplementedError(
+                f"{p.name}: trace contains fault event "
+                f"{payload[0]!r}; object-twin replay does not model "
+                "fault scenarios — verify the witness with "
+                "decode_trace instead")
         if kind == "message":
             frm, to, msg = p.decode_message(payload[0])
             if isinstance(msg, MessageTemplate):

@@ -380,14 +380,24 @@ def test_compiled_flagship_depth2_pinned():
                                                                    3368)
 
 
-def test_fault_specs_build_and_refuse_to_compile():
-    """The fault-model specs build (with the hidden controller kind, as
-    in the reference) and compile() raises until faults are ported."""
-    for make in (lambda m: m[0].paxos_partition_spec(3),
-                 lambda m: m[0].pb_crash_spec(),
-                 lambda m: m[1].make_paxos_partition_spec()):
-        sj, st = make(JAX_MODS), make(PORT_MODS)
-        assert [k.name for k in st.nodes] == [k.name for k in sj.nodes]
-        assert st._layout() == sj._layout()
-        with pytest.raises(NotImplementedError, match="symmetry \\+ faults"):
-            st.compile()
+@pytest.mark.parametrize("make", [
+    lambda m: m[0].paxos_partition_spec(3),
+    lambda m: m[0].pb_crash_spec(),
+    lambda m: m[1].make_paxos_partition_spec(),
+], ids=["paxos_partition", "pb_crash", "lab3_partition"])
+def test_fault_specs_compile_like_jax(make):
+    """The fault-model specs build with the hidden controller kind last and
+    compile to the JAX package's protocol shape: node count and width,
+    lane domains, and the compiled fault descriptor's tables."""
+    sj, st = make(JAX_MODS), make(PORT_MODS)
+    assert [k.name for k in st.nodes] == [k.name for k in sj.nodes]
+    assert st._layout() == sj._layout()
+    pj, pt = sj.compile(), st.compile()
+    assert (pt.n_nodes, pt.node_width, pt.lane_domains) == (
+        pj.n_nodes, pj.node_width, pj.lane_domains)
+    fj, ft = pj.fault, pt.fault
+    assert ft.signature() == fj.signature()
+    assert (ft.n_events, ft.pcut_off, ft.eras_off, ft.crashes_off) == (
+        fj.n_events, fj.pcut_off, fj.eras_off, fj.crashes_off)
+    for f in ("block_id", "down_off", "crash_nodes", "wipe", "init_vec"):
+        np.testing.assert_array_equal(getattr(ft, f), getattr(fj, f))

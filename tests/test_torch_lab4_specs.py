@@ -212,11 +212,20 @@ def test_multi_pinned_count():
     assert _count(tlab4.make_shardstore_multi_protocol(), 1) == 10
 
 
-def test_crash_spec_builds_and_refuses_to_compile():
+def test_crash_spec_compiles_to_pinned_counts():
+    """The crash spec compiles like the JAX one (fault descriptor equal)
+    and searches to tests/test_spec_parity.py's depth-2 pin: 30 unique,
+    43 explored, 7 crash events (goals moved to prunes)."""
     sj, st = (jlab4.make_shardstore_crash_spec(),
               tlab4.make_shardstore_crash_spec())
     assert st.name == sj.name == "shardstore-g1-c1-w2-crash"
     assert [k.name for k in st.nodes] == [k.name for k in sj.nodes]
     assert st._layout() == sj._layout()
-    with pytest.raises(NotImplementedError, match="symmetry \\+ faults"):
-        st.compile()
+    pj, pt = sj.compile(), st.compile()
+    assert pt.fault.signature() == pj.fault.signature()
+    np.testing.assert_array_equal(pt.fault.wipe, pj.fault.wipe)
+    p = dataclasses.replace(pt, goals={}, prunes=dict(pt.goals))
+    out = teng.TensorSearch(p, chunk=32, max_depth=2, visited_cap=1 << 14,
+                            device="cpu").run()
+    assert (out.unique_states, out.states_explored, out.crash_events) == (
+        30, 43, 7)

@@ -211,18 +211,49 @@ def _compiled_flagship():
     (dict(checkpoint_every=2), None),
     (dict(spill=True), None),
     (dict(telemetry=object()), None),
-    (dict(symmetry=True), _compiled_flagship),
-    (dict(symmetry=True), None),
-    ({}, lambda: t_lab3.make_paxos_partition_spec().compile()),
-    ({}, lambda: dataclasses.replace(t_pp(2), fault=object())),
 ])
 def test_unported_options_raise(kw, proto):
-    """Options and protocols of later slices raise, naming the slice: a
-    spec with a fault model already in compile(), so the protocol is
-    built inside the check."""
+    """Options of later slices raise, naming the slice."""
     with pytest.raises(NotImplementedError, match="slice"):
         p = t_pp(2) if proto is None else proto()
         teng.TensorSearch(p, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("proto", [_compiled_flagship, lambda: t_pp(2)],
+                         ids=["compiled_flagship", "pingpong_hand_twin"])
+def test_symmetry_without_groups_is_a_value_error(proto):
+    """``symmetry=True`` runs the reduction; on a protocol that declares
+    no symmetry groups it is the reference's ``ValueError``."""
+    with pytest.raises(ValueError, match="declares no symmetry groups"):
+        teng.TensorSearch(proto(), device="cpu", symmetry=True)
+
+
+def test_fault_protocol_searches_on_the_port():
+    """A protocol with a fault model gets the fault segment after the
+    message and timer segments, and runs: the partitioned flagship's
+    depth-1 successors include the CUT."""
+    p = dataclasses.replace(
+        t_lab3.make_paxos_partition_spec(**FLAGSHIP_KW).compile(), goals={})
+    ts = teng.TensorSearch(p, device="cpu", chunk=8, max_depth=1)
+    tgrid = p.n_nodes * p.timer_cap
+    assert ts._ev_slots == p.net_cap + tgrid + p.fault.n_events == \
+        p.net_cap + tgrid + 2
+    out = ts.run()
+    assert out.end_condition == "DEPTH_EXHAUSTED"
+    assert out.partition_events == out.fault_events == 1
+    assert out.crash_events == out.drop_events == out.dup_events == 0
+
+
+def test_symmetric_search_runs_on_the_port():
+    """``symmetry=True`` on a protocol with groups stamps the permutation
+    count and never counts more states than the raw search."""
+    from dslabs_tpu_torch.tpu.specs import paxos_spec
+
+    p = dataclasses.replace(paxos_spec(3).compile(), goals={})
+    raw, sym = (teng.TensorSearch(p, device="cpu", chunk=64, max_depth=3,
+                                  symmetry=s).run() for s in (False, True))
+    assert (raw.symmetry_perms, sym.symmetry_perms) == (0, 6)
+    assert sym.unique_states < raw.unique_states
 
 
 def test_unported_run_options_raise():
