@@ -151,6 +151,28 @@ table) once.  Each phase prints one JSON line:
            swarm on NO_HEAL minimized to CUT, HEAL); and both kernels
            bit-exact against their plain versions on a full chunk of the
            partitioned flagship's successor rows and on canonical rows;
+  spill    the host-RAM spill tier, checkpoints and swarm seeding:
+           flagship_spill, the compiled flagship in spill mode
+           (frontier_cap 2^18, visited_cap 2^20, high water 0.60) to
+           depth 9, past the frontier cap where the search phase ends
+           CAPACITY_EXHAUSTED, equal in unique, explored and depth to a
+           non-spill oracle (frontier_cap 2^22, visited_cap 2^24) with
+           spilled keys and respilled rows > 0 and nothing dropped;
+           kill_resume, the same flagship in spill mode at visited_cap
+           2^18 in a subprocess with a dump per level, SIGKILLed once its
+           dump reaches depth 6, resumed in spill mode and by a non-spill
+           search (kernel 2 rebuilding the dump's key set), both equal to
+           a straight run to depth 8 (316,096 unique); swarm_seed, a BFS
+           dump of the swarm phase's Paxos twin seeding a SwarmSearch
+           (the pre-seeded table holds the dump's keys) and a seeded lock
+           swarm cut after round 1 and resumed, equal to the uncut run
+           (verdict, witness, counters); and both kernels bit-exact
+           against their plain versions at the path's new shapes
+           (kernel 2 on the dump's keys into 2^24 slots, kernel 1 on a
+           full drain's [2^18, 842] rows) with CUDA-event times.  Per
+           run: seconds, unique states/min, peak device memory, the spill
+           counters and drain ms, evictions and spooled segments, the
+           dumps' sizes and write seconds, and each kernel's launches;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -158,8 +180,8 @@ table) once.  Each phase prints one JSON line:
            each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-launches those of the search, swarm, labtests and scenarios phases'
-runs), the
+launches those of the search, swarm, labtests, scenarios and spill
+phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -2123,6 +2145,379 @@ def phase_scenarios(torch, mods):
     return total
 
 
+# The spill phase: the flagship past its frontier cap in spill mode
+# against a non-spill oracle, a SIGKILLed spill run resumed two ways, and
+# swarm frontier seeding and round checkpoints.
+SPILL_DEPTH = 9
+SPILL_FRONTIER_CAP = 1 << 18
+SPILL_VISITED_CAP = 1 << 20
+# The oracle holds depth 9's next frontier (about 1.09M rows) in one
+# buffer: frontier_cap 2^22 (the buffer grows x8 from 4096 and stops at
+# 2^21, 868 B per row).
+ORACLE_FRONTIER_CAP = 1 << 22
+KILL_DEPTH = 8
+KILL_AT = 6
+KILL_VISITED_CAP = 1 << 18
+KILL_SECS = 300.0
+# Rounds cap of the lock swarm's cut-and-resume (4 steps each).
+SWARM_MAX_ROUNDS = 500
+# The flagship's pinned depth-8 count (the compiled phase).
+FLAGSHIP_D8_UNIQUE = 316096
+
+# The killed child: the flagship in spill mode to KILL_DEPTH with a dump
+# per level; each dump's depth, size and write seconds go to stdout.
+SPILL_CHILD = """
+import dataclasses, json, os, sys, time
+sys.path.insert(0, {root!r})
+from dslabs_tpu_torch.tpu import _build, checkpoint, spill
+from dslabs_tpu_torch.tpu.engine import TensorSearch
+from dslabs_tpu_torch.tpu.specs_lab3 import make_paxos_protocol
+
+save = checkpoint.save
+
+
+def timed_save(path, ck):
+    t = time.time()
+    save(path, ck)
+    print(json.dumps({{"depth": ck.depth, "secs": time.time() - t,
+                      "bytes": os.path.getsize(path),
+                      "frontier_rows": len(ck.frontier),
+                      "keys": len(ck.visited_keys)}}), flush=True)
+
+
+checkpoint.save = timed_save
+_build.lib()
+p = dataclasses.replace(make_paxos_protocol(**{kw!r}), goals={{}})
+TensorSearch(p, chunk=4096, strict=True, max_depth={depth},
+             visited_cap={vcap}, frontier_cap={fcap},
+             spill=spill.SpillConfig(high_water=0.60),
+             checkpoint_path={path!r}, checkpoint_every=1,
+             device="cuda").run()
+print("done", flush=True)
+"""
+
+
+class SpoolCount:
+    """Counts the segments the spill managers spool (the spill stats
+    count the evictions and the segments injected again, not these)."""
+
+    def __init__(self):
+        from dslabs_tpu_torch.tpu import spill
+
+        self.mgr = spill.SpillManager
+        self.segments = 0
+
+    def __enter__(self):
+        spool = self._spool = self.mgr.spool
+
+        def counted(sp, rows):
+            if len(rows):
+                self.segments += 1
+            return spool(sp, rows)
+
+        self.mgr.spool = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mgr.spool = self._spool
+
+
+def spill_record(o, ts, rec):
+    """A timed_search record with the outcome's spill and resume fields
+    and, in spill mode, the evictions and re-injected segments."""
+    st = ts._spill.stats if ts._spill is not None else None
+    rec = dict(rec, end=o.end_condition,
+               resumed_from_depth=o.resumed_from_depth,
+               spilled_keys=o.spilled_keys, host_tier_hits=o.host_tier_hits,
+               respilled_frontier=o.respilled_frontier,
+               dropped_states=o.dropped_states,
+               spill_drain_ms=o.spill_drain_ms, spill_wait_ms=o.spill_wait_ms)
+    if st is not None:
+        rec.update(evictions=st.evictions, reinjections=st.reinjections)
+    return rec
+
+
+def spill_kernels(torch, mods, keys, rows_u):
+    """Both kernels bit-exact against their plain versions at the spill
+    path's new shapes, then timed by CUDA events: kernel 2 rebuilding a
+    resumed dump's key set into 2^24 slots (``visited.build_table``),
+    kernel 1 on a drained batch's power-of-two row bucket."""
+    kernels, visited, engine = mods["kernels"], mods["visited"], \
+        mods["engine"]
+    out = {}
+    V = 1 << 24
+    valid = torch.ones((len(keys),), dtype=torch.bool, device="cuda")
+    ta, ia, ua = visited.insert(visited.empty_table(V, "cuda"), keys, valid)
+    tb, ib, ub = visited.insert_plain(visited.empty_table(V, "cuda"), keys,
+                                      valid)
+    check(torch.equal(ta[:-1], tb[:-1]) and torch.equal(ia, ib)
+          and torch.equal(ua, ub) and not bool(ua.any()),
+          "spill: build_table of the resumed keys disagrees with "
+          "insert_plain")
+    n_ins = int(ia.sum())
+    del ta, tb
+    ms = cuda_ms(torch, lambda t: visited.insert(t, keys, valid),
+                 setup=lambda: visited.empty_table(V, "cuda"), reps=10)
+    plain = cuda_ms(torch, lambda t: visited.insert_plain(t, keys, valid),
+                    setup=lambda: visited.empty_table(V, "cuda"), reps=5,
+                    warmup=1)
+    n = len(keys)
+    b_ms, b_by = bound_ms(n * 17 + n * 128 + n_ins * 16 + n * 2, 0)
+    out["insert"] = dict(shape=dict(V=V, N=n), inserted=n_ins,
+                         max_abs_err=0, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by)
+    m, L = rows_u.shape
+    k = kernels.fingerprint_rows(rows_u)
+    p = engine.row_fingerprints(rows_u)
+    check(torch.equal(k, p), f"spill: fingerprint_rows on the drained "
+          f"bucket [{m}, {L}] disagrees with its plain version")
+    ms = cuda_ms(torch, lambda _: kernels.fingerprint_rows(rows_u), reps=10)
+    plain = cuda_ms(torch, lambda _: engine.row_fingerprints(rows_u),
+                    reps=5, warmup=1)
+    b_ms, b_by = bound_ms(m * L * 4 + m * 16, m * L * FP_OPS_PER_LANE)
+    out["fingerprint_rows"] = dict(shape=[m, L], max_abs_err=0, ms=ms,
+                                   plain_ms=plain, bound_ms=b_ms,
+                                   bound_by=b_by)
+    return out
+
+
+def kill_child(torch, path: str, log: str):
+    """Run SPILL_CHILD to KILL_DEPTH and SIGKILL it once its dump reaches
+    KILL_AT -> (dump depth, the child's dump log records)."""
+    import signal
+
+    torch.cuda.empty_cache()
+    src = SPILL_CHILD.format(root=ROOT, kw=FLAGSHIP_KW, depth=KILL_DEPTH,
+                             vcap=KILL_VISITED_CAP, fcap=SPILL_FRONTIER_CAP,
+                             path=path)
+    ckpt = _spill_mods()["checkpoint"]
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", src], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=ROOT)
+    try:
+        deadline = time.time() + KILL_SECS
+        while time.time() < deadline and proc.poll() is None:
+            d = ckpt.peek_depth(path)
+            if d is not None and d >= KILL_AT:
+                break
+            time.sleep(0.05)
+        alive = proc.poll() is None
+        if alive:
+            proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    with open(log) as f:
+        text = f.read()
+    check(alive and proc.returncode == -signal.SIGKILL,
+          f"spill kill_resume: the child was not killed mid-run "
+          f"(rc {proc.returncode}): {text[-2000:]}")
+    dumps = [json.loads(ln) for ln in text.splitlines()
+             if ln.startswith("{")]
+    return ckpt.peek_depth(path), dumps
+
+
+def _spill_mods():
+    from dslabs_tpu_torch.tpu import checkpoint, spill, swarm
+
+    return {"checkpoint": checkpoint, "spill": spill, "swarm": swarm}
+
+
+def phase_spill(torch, mods):
+    """The host-RAM spill tier, checkpoints and swarm seeding on the card
+    (module docstring).  Returns the kernels' launches over the phase's
+    searches."""
+    engine = mods["engine"]
+    sm = _spill_mods()
+    ckpt, spill = sm["checkpoint"], sm["spill"]
+    SwarmSearch = sm["swarm"].SwarmSearch
+    from dslabs_tpu_torch.tpu import specs_lab3
+    from tests import torch_harness_cases as H
+
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def flagship(**kw):
+        return engine.TensorSearch(flagship_protocol(), chunk=4096,
+                                   strict=True, **kw)
+
+    # ---- flagship_spill: past the frontier cap in spill mode, against
+    # the non-spill oracle.
+    oracle = flagship(max_depth=SPILL_DEPTH, visited_cap=1 << 24,
+                      frontier_cap=ORACLE_FRONTIER_CAP)
+    o_or, r_or = timed_search(torch, mods, oracle)
+    add(r_or["launches"])
+    check(o_or.end_condition == "DEPTH_EXHAUSTED"
+          and o_or.depth == SPILL_DEPTH and o_or.visited_overflow == 0,
+          f"spill oracle: {r_or}")
+    del oracle
+    torch.cuda.empty_cache()
+    ts = flagship(max_depth=SPILL_DEPTH, visited_cap=SPILL_VISITED_CAP,
+                  frontier_cap=SPILL_FRONTIER_CAP,
+                  spill=spill.SpillConfig(high_water=0.60))
+    with SpoolCount() as sc:
+        o_sp, r_sp = timed_search(torch, mods, ts)
+    add(r_sp["launches"])
+    r_sp = spill_record(o_sp, ts, r_sp)
+    r_sp["spooled_segments"] = sc.segments
+    check(o_sp.end_condition == "DEPTH_EXHAUSTED"
+          and r_sp["key"] == r_or["key"]
+          and o_sp.spilled_keys > 0 and o_sp.respilled_frontier > 0
+          and o_sp.dropped_states == 0
+          and all(v > 0 for v in r_sp["launches"].values()),
+          f"spill flagship_spill: {r_sp} against the oracle {r_or}")
+    emit({"phase": "spill", "part": "flagship_spill",
+          "config": dict(depth=SPILL_DEPTH, visited_cap=SPILL_VISITED_CAP,
+                         frontier_cap=SPILL_FRONTIER_CAP, high_water=0.60,
+                         oracle_frontier_cap=ORACLE_FRONTIER_CAP),
+          "spill": r_sp, "oracle": r_or})
+    del ts
+    torch.cuda.empty_cache()
+
+    # ---- kill_resume: a SIGKILLed spill run resumed in spill mode and
+    # by a non-spill search, against a straight run.
+    straight = flagship(max_depth=KILL_DEPTH, visited_cap=1 << 24,
+                        frontier_cap=1 << 20)
+    o_st, r_st = timed_search(torch, mods, straight)
+    add(r_st["launches"])
+    check(o_st.unique_states == FLAGSHIP_D8_UNIQUE, f"spill straight: {r_st}")
+    del straight
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "flagship.npz")
+        t0 = time.time()
+        depth, dumps = kill_child(torch, path, os.path.join(tmp, "child.log"))
+        kill_secs = time.time() - t0
+        dump_bytes = os.path.getsize(path)
+        resumed = {}
+        for how, kw in (
+                ("spill", dict(visited_cap=KILL_VISITED_CAP,
+                               frontier_cap=SPILL_FRONTIER_CAP,
+                               spill=spill.SpillConfig(high_water=0.60))),
+                ("non_spill", dict(visited_cap=1 << 24,
+                                   frontier_cap=1 << 20))):
+            ts = flagship(max_depth=KILL_DEPTH, checkpoint_path=path, **kw)
+            run = ts.run
+            ts.run = lambda: run(resume=True)
+            o, r = timed_search(torch, mods, ts)
+            add(r["launches"])
+            r = spill_record(o, ts, r)
+            check(o.end_condition == "DEPTH_EXHAUSTED"
+                  and r["key"] == r_st["key"]
+                  and o.unique_states == FLAGSHIP_D8_UNIQUE
+                  and o.resumed_from_depth >= KILL_AT,
+                  f"spill kill_resume {how}: {r} against {r_st}")
+            resumed[how] = r
+            del ts
+            torch.cuda.empty_cache()
+        # The resumed key set and its frontier rows (decoded) for the
+        # kernel checks.
+        ck = flagship(checkpoint_path=path)._load_ckpt()
+        keys = torch.from_numpy(ck.visited_keys.view("int32")).to("cuda")
+        rows = torch.from_numpy(ck.frontier).to("cuda")
+    emit({"phase": "spill", "part": "kill_resume", "killed_at_depth": depth,
+          "child_secs": kill_secs, "dump_bytes": dump_bytes,
+          "dump_keys": len(ck.visited_keys),
+          "dump_frontier_rows": len(ck.frontier), "child_dumps": dumps,
+          "straight": r_st, **resumed})
+
+    # ---- swarm_seed: frontier seeding from a BFS dump of the swarm
+    # phase's Paxos twin, and a seeded lock swarm cut after round 1 and
+    # resumed.
+    swarm_recs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        proto = H.violating(specs_lab3.make_paxos_protocol(
+            n=3, n_clients=1, w=2, max_slots=3))
+        bfs = os.path.join(tmp, "paxos_bfs.npz")
+        o = engine.TensorSearch(proto, chunk=4096, max_depth=4,
+                                checkpoint_path=bfs,
+                                checkpoint_every=1).run()
+        check(o.end_condition == "DEPTH_EXHAUSTED",
+              f"spill swarm paxos BFS: {o.end_condition}")
+        ck_p = ckpt.load(bfs, ckpt.config_fingerprint(proto, True))
+        torch.cuda.synchronize()
+        kernels0 = kernel_counts(mods)
+        sw = SwarmSearch(proto, walkers_per_device=128, max_steps=192,
+                         steps_per_round=8, max_rounds=1, seed=0,
+                         visited_cap=1 << 16, frontier_seed=bfs,
+                         device="cuda")
+        t0 = time.time()
+        out = sw.run()
+        swarm_recs["paxos_seed"] = dict(
+            bfs=[o.end_condition, o.unique_states, o.depth],
+            dump_keys=len(ck_p.visited_keys),
+            dump_frontier=len(ck_p.frontier),
+            preseeded_keys=sw.preseeded_keys, end=out.end_condition,
+            secs=time.time() - t0, stats=out.swarm)
+        check(sw.preseeded_keys == len(ck_p.visited_keys) == o.unique_states
+              and out.swarm["vis_over"] == 0,
+              f"spill swarm paxos_seed: {swarm_recs['paxos_seed']}")
+        lock = H.make_lock_protocol(m=8, k=12, noise_bits=22)
+        lbfs = os.path.join(tmp, "lock_bfs.npz")
+        engine.TensorSearch(lock, chunk=4096, max_depth=2,
+                            checkpoint_path=lbfs, checkpoint_every=1).run()
+        sw_ck = os.path.join(tmp, "swarm.npz")
+        # Four steps per round: round 1 cannot reach progress 12 from a
+        # depth-2 seed.  The table stays far from full (membership, and
+        # so every counter, then does not depend on the table's layout,
+        # which a resume rebuilds).
+        kw = dict(walkers_per_device=128, max_steps=240, steps_per_round=4,
+                  max_rounds=SWARM_MAX_ROUNDS, seed=0, visited_cap=1 << 20,
+                  frontier_seed=lbfs, device="cuda")
+        runs = {}
+        for name, extra, resume in (
+                ("uncut", {}, False),
+                ("cut", dict(max_rounds=1, checkpoint_path=sw_ck,
+                             checkpoint_every=1), False),
+                ("resumed", dict(checkpoint_path=sw_ck), True)):
+            sw = SwarmSearch(lock, **{**kw, **extra})
+            t0 = time.time()
+            out = sw.run(resume=resume)
+            w = out.witness
+            runs[name] = dict(
+                end=out.end_condition, secs=time.time() - t0,
+                rounds=out.swarm["rounds"],
+                resumed_from_depth=out.resumed_from_depth,
+                raw=None if w is None else w.raw_trace,
+                trace=None if w is None else w.trace,
+                counters={k: v for k, v in out.swarm.items()
+                          if not k.endswith(("_per_sec", "_per_min"))})
+        u, c, r = runs["uncut"], runs["cut"], runs["resumed"]
+        check(u["end"] == "INVARIANT_VIOLATED" and u["rounds"] > 1
+              and c["end"] == "TIME_EXHAUSTED" and c["rounds"] == 1
+              and (r["end"], r["raw"], r["trace"], r["counters"])
+              == (u["end"], u["raw"], u["trace"], u["counters"])
+              and r["resumed_from_depth"] == 1,
+              f"spill swarm cut_resume: {runs}")
+        swarm_recs["cut_resume"] = runs
+        torch.cuda.synchronize()
+        launches = {k: v - kernels0[k] for k, v in kernel_counts(mods).items()}
+        add(launches)
+        swarm_recs["launches"] = launches
+    emit({"phase": "spill", "part": "swarm_seed", **swarm_recs})
+
+    # ---- kernels at the spill path's shapes: the dump's keys, and a
+    # full drain's rows (a frontier-full abort drains 2^18 rows) made of
+    # the dump's frontier rows.
+    rows_u = rows.repeat(-(-SPILL_FRONTIER_CAP // len(rows)), 1)[
+        :SPILL_FRONTIER_CAP].contiguous()
+    kern = spill_kernels(torch, mods, keys, rows_u)
+    del keys, rows, rows_u
+    torch.cuda.empty_cache()
+    emit({"phase": "spill", "part": "kernels", **kern})
+    check(all(v > 0 for v in total.values()),
+          f"spill phase skipped a kernel: {total}")
+    emit({"phase": "spill", "secs": time.time() - t_phase,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -2197,6 +2592,7 @@ def main() -> int:
     swarm_launches = run(phase_swarm)
     lab_launches = run(phase_labtests)
     scen_launches = run(phase_scenarios)
+    spill_launches = run(phase_spill)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -2209,11 +2605,12 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
          "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
-                      + scen_launches[k]),
+                      + scen_launches[k] + spill_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
-                              "scenarios": scen_launches[k]},
+                              "scenarios": scen_launches[k],
+                              "spill": spill_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

@@ -48,7 +48,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
 from dslabs_tpu_torch.tpu import kernels, packing as packing_mod
+from dslabs_tpu_torch.tpu import spill as spill_mod
 from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu._build import resolve_device
 # The plain fingerprint lives beside its kernel; re-exported here where the
@@ -58,7 +60,7 @@ from dslabs_tpu_torch.tpu.kernels import row_fingerprints
 __all__ = ["TensorProtocol", "TensorState", "TensorSearch", "SearchOutcome",
            "CapacityOverflow", "SENTINEL", "row_fingerprints",
            "flatten_state", "host_keys", "resolve_device",
-           "drop_pending_messages", "sorted_member"]
+           "drop_pending_messages", "sorted_member", "host_copy"]
 
 # Empty slots in the network / timer arrays hold SENTINEL in every lane, so
 # they sort after every real record and hash consistently.
@@ -210,6 +212,26 @@ class SearchOutcome:
     crash_events: int = 0
     drop_events: int = 0
     dup_events: int = 0
+    # Beam-truncation drops (strict=False); the port's engines are exact
+    # and leave it 0, the spill tier included.
+    dropped: int = 0
+    # The checkpoint depth (swarm: round) a run resumed from, 0 = root.
+    resumed_from_depth: int = 0
+    # Host-RAM spill tier (tpu/spill.py): keys evicted from the device
+    # table to the host tier, re-discoveries the refilter removed, rows
+    # that took the host spool, and the drain's host ms (inside drain
+    # jobs / blocked waiting for them).  All zero when the tier never
+    # engaged.
+    spilled_keys: int = 0
+    host_tier_hits: int = 0
+    respilled_frontier: int = 0
+    spill_drain_ms: int = 0
+    spill_wait_ms: int = 0
+
+    @property
+    def dropped_states(self) -> int:
+        """``dropped`` under its roadmap name."""
+        return self.dropped
 
 
 # ----------------------------------------------------------------- hashing
@@ -501,6 +523,13 @@ def _normalize_step(out, p: int, device) -> tuple:
     return nodes2, sends, new_t, exc.to(torch.int32)
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that shares no memory with it (``.cpu()`` of
+    a CPU tensor is the tensor itself): what a background writer or the
+    spill drain worker reads while the carry changes under it."""
+    return t.to("cpu", copy=True).numpy()
+
+
 def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[..., idx]`` where ``0 <= idx < NN`` and 0 elsewhere: the
     reference's one-hot select ``sum((idx == arange(NN)) * table)``.
@@ -534,11 +563,29 @@ class TensorSearch:
     Ports both loops of the reference: the device-resident wave loop
     (``_run_device``) and the trace-recording host-dedup loop
     (``run_host``, taken when ``record_trace`` or ``use_host_visited`` is
-    set), with runtime delivery masks in both.  Options of the reference
-    engine that the port does not have yet raise ``NotImplementedError``
-    naming the slice that brings them: ``checkpoint_path`` /
-    ``checkpoint_every`` / ``spill`` / ``run(resume=True)`` (spill and
-    checkpoint) and ``telemetry`` (supervisor and telemetry).
+    set), with runtime delivery masks in both.  ``telemetry``, an option
+    of the reference engine that the port does not have yet, raises
+    ``NotImplementedError`` naming the slice that brings it (supervisor
+    and telemetry).
+
+    Checkpoints (``tpu/checkpoint.py``): with ``checkpoint_path`` and
+    ``checkpoint_every`` = k, every k-th level boundary writes the
+    unified dump (the device loop through a skip-if-busy background
+    writer, ``run_host`` synchronously), and ``run(resume=True)``
+    continues from it with the straight run's counts; without a dump it
+    starts from the root.  Dumps are shared with the reference: the same
+    fingerprint string, the same arrays, packed frontier rows under the
+    same ``frontier_encoding`` marker.
+
+    ``spill`` (True or a ``tpu/spill.py`` SpillConfig; default off)
+    turns a full visited table or frontier buffer into host-RAM spill:
+    the device loop runs :meth:`_device_attempt_spill`, which evicts the
+    table to an exact host tier at the high-water mark and drains
+    overflowing frontier rows to a host spool, with the reference's
+    abort points, so every count, ``spilled_keys``, ``host_tier_hits``
+    and ``respilled_frontier`` included, equals the reference's.  The
+    port's spill deliberately has no environment default
+    (``DSLABS_SPILL``), no ``_dispatch`` seam and no telemetry events.
 
     ``symmetry=True`` (default off) hashes each state's canonical orbit
     representative under the protocol's symmetry groups
@@ -581,13 +628,21 @@ class TensorSearch:
                  packed: Optional[bool] = None,
                  symmetry: Optional[bool] = None,
                  device=None):
-        if checkpoint_path is not None or checkpoint_every:
-            raise _later("checkpoint_path / checkpoint_every",
-                         "spill + checkpoint")
-        if spill:
-            raise _later("spill", "spill + checkpoint")
         if telemetry is not None:
             raise _later("telemetry", "supervisor + telemetry")
+        if isinstance(spill, spill_mod.SpillConfig):
+            self._spill = spill_mod.SpillManager(spill)
+        elif spill:
+            self._spill = spill_mod.SpillManager()
+        else:
+            self._spill = None
+        if self._spill is not None and record_trace:
+            raise ValueError(
+                "spill + record_trace is unsupported (trace spills are "
+                "host-side already; run the trace pass uncapped)")
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self._resumed_from_depth = 0
         self.p = protocol
         self.device = resolve_device(device)
         self.frontier_cap = frontier_cap
@@ -1060,13 +1115,15 @@ class TensorSearch:
 
         Dispatch: the device-resident wave loop (:meth:`_run_device`)
         unless ``record_trace`` or ``use_host_visited`` ask for the host
-        loop (:meth:`run_host`)."""
-        if resume:
-            raise _later("resume (checkpoints)", "spill + checkpoint")
+        loop (:meth:`run_host`).  ``resume=True`` continues from
+        ``checkpoint_path`` when a dump of this configuration exists
+        there (``CheckpointMismatch`` when the dump is another's)."""
+        self._resumed_from_depth = 0
         if self.record_trace or self.use_host_visited:
-            out = self.run_host(check_initial, initial)
+            out = self.run_host(check_initial, initial, resume=resume)
         else:
-            out = self._run_device(check_initial, initial)
+            out = self._run_device(check_initial, initial, resume=resume)
+        out.resumed_from_depth = self._resumed_from_depth
         self._stamp_capacity(out)
         return self._stamp_faults(out)
 
@@ -1117,6 +1174,129 @@ class TensorSearch:
         out.dup_events = int(fc[3])
         out.fault_events = int(fc.sum())
         return out
+
+    # --------------------------------------------------------- checkpoints
+
+    def _ckpt_fingerprint(self) -> str:
+        """The config identity a dump must share to resume here; the
+        symmetry pass's permutation count takes part (a reduced dump
+        counts orbits)."""
+        return ckpt_mod.config_fingerprint(
+            self.p, self.strict, self.record_trace,
+            symmetry=(self.p.symmetry.n_perms
+                      if self._canon is not None else 0))
+
+    def has_resumable_checkpoint(self) -> bool:
+        """A dump of this configuration exists (no arrays loaded)."""
+        if not self.checkpoint_path:
+            return False
+        fp = ckpt_mod.peek_fingerprint(self.checkpoint_path)
+        return fp is not None and fp == self._ckpt_fingerprint()
+
+    def _load_ckpt(self):
+        """Load and verify the dump: None without a file,
+        ``CheckpointMismatch`` for another configuration's.  The
+        frontier comes back as raw (unpacked) rows."""
+        if not self.checkpoint_path:
+            return None
+        ck = ckpt_mod.load(self.checkpoint_path, self._ckpt_fingerprint())
+        if ck is not None:
+            self._resumed_from_depth = ck.depth
+            self._normalize_ckpt_frontier(ck)
+        return ck
+
+    def _normalize_ckpt_frontier(self, ck) -> None:
+        """Decode a dump's frontier rows to raw int32 lanes by its
+        ``frontier_encoding`` marker.  A packed dump on an unpacked
+        engine converts with a warning; an encoding this protocol's
+        derived descriptor does not reproduce is refused.  A marker
+        written by the JAX package decodes through the port's own
+        descriptor: equal signatures mean byte-identical packed rows."""
+        enc = "raw"
+        if ck.extra and "frontier_encoding" in ck.extra:
+            enc = np.asarray(ck.extra["frontier_encoding"]).item()
+            if isinstance(enc, bytes):
+                enc = enc.decode()
+            ck.extra = {k: v for k, v in ck.extra.items()
+                        if k != "frontier_encoding"} or None
+        if enc == "raw":
+            if len(ck.frontier) and ck.frontier.shape[1] != self.lanes:
+                raise ckpt_mod.CheckpointMismatch(
+                    f"checkpoint frontier rows are "
+                    f"{ck.frontier.shape[1]} lanes wide, this "
+                    f"protocol's are {self.lanes}: foreign dump")
+            return
+        pk = self._pk or packing_mod.derive_packing(self.p, self.lanes)
+        if pk.identity or pk.signature() != enc:
+            raise ckpt_mod.CheckpointMismatch(
+                f"refusing to resume packed checkpoint: frontier "
+                f"encoding {enc!r} does not match this protocol's "
+                f"derived descriptor "
+                f"{pk.signature() if not pk.identity else 'raw'!r} "
+                "(domain declarations changed, or the dump belongs to "
+                "a different spec)")
+        if self._pk is None:
+            warnings.warn(
+                f"{self.p.name}: resuming a PACKED checkpoint ({enc}) on "
+                "an unpacked engine: converting the frontier rows",
+                RuntimeWarning, stacklevel=3)
+        base = None
+        if ck.extra and "pack_base" in ck.extra:
+            base = np.asarray(ck.extra["pack_base"], np.int32).reshape(-1)
+            ck.extra = {k: v for k, v in ck.extra.items()
+                        if k != "pack_base"} or None
+        if pk.has_delta and base is None:
+            raise ckpt_mod.CheckpointMismatch(
+                f"packed checkpoint {enc!r} uses delta lanes but carries "
+                "no pack_base vector: corrupt or foreign dump")
+        ck.frontier = (pk.unpack_np(ck.frontier, base) if len(ck.frontier)
+                       else np.zeros((0, self.lanes), np.int32))
+
+    @property
+    def _ckpt_writer(self):
+        w = getattr(self, "_ckpt_writer_obj", None)
+        if w is None:
+            w = self._ckpt_writer_obj = ckpt_mod.AsyncCheckpointWriter()
+        return w
+
+    def _join_ckpt_writer(self) -> None:
+        """A dump still being written lands before an outcome returns."""
+        w = getattr(self, "_ckpt_writer_obj", None)
+        if w is not None:
+            w.join()
+
+    def _frontier_encoding(self) -> str:
+        """The marker written with every dump's frontier rows."""
+        return "raw" if self._pk is None else self._pk.signature()
+
+    def _ckpt_due(self, depth: int) -> bool:
+        return bool(self.checkpoint_path and self.checkpoint_every
+                    and depth % self.checkpoint_every == 0)
+
+    def _make_ckpt(self, frontier: np.ndarray, visited_keys: np.ndarray,
+                   depth: int, explored: int, elapsed: float,
+                   vis_over: int = 0, extra: Optional[dict] = None):
+        """A SearchCheckpoint of host arrays; ``frontier`` in the
+        engine's native encoding, marked when packed."""
+        extra = dict(extra or {})
+        if self._pk is not None:
+            extra["frontier_encoding"] = np.bytes_(
+                self._frontier_encoding().encode())
+        return ckpt_mod.SearchCheckpoint(
+            fingerprint=self._ckpt_fingerprint(), depth=depth,
+            explored=explored, elapsed=elapsed, frontier=frontier,
+            visited_keys=visited_keys, vis_over=vis_over,
+            extra=extra or None)
+
+    def _kick_ckpt(self, frontier: np.ndarray, visited_keys: np.ndarray,
+                   depth: int, explored: int, elapsed: float,
+                   vis_over: int = 0) -> None:
+        """Queue one background atomic dump of host copies (skipped if
+        the previous one is still being written)."""
+        ck = self._make_ckpt(frontier, visited_keys, depth, explored,
+                             elapsed, vis_over)
+        self._ckpt_writer.kick(
+            lambda: ckpt_mod.save(self.checkpoint_path, ck))
 
     # ------------------------------------------------------------ symmetry
 
@@ -1376,7 +1556,8 @@ class TensorSearch:
                 for i in sorted({0, n // 2, n - 1})]
 
     def run_host(self, check_initial: bool = True,
-                 initial: Optional[dict] = None) -> SearchOutcome:
+                 initial: Optional[dict] = None,
+                 resume: bool = False) -> SearchOutcome:
         """The host-dedup BFS: device expand with the in-chunk sort-unique
         prefilter, then one level-wide dedup against a sorted host visited
         set (``sorted_member``).  The trace-recording path: per-level
@@ -1395,23 +1576,50 @@ class TensorSearch:
         # search starts from an arbitrary state; tpu/trace.py replays
         # from here).
         self._trace_root = {k: v.cpu().numpy() for k, v in state.items()}
+        ck = self._load_ckpt() if resume else None
+        if ck is not None and self.record_trace:
+            raise ValueError(
+                "resume + record_trace is unsupported on the host loop "
+                "(per-level trace spills cannot be rebuilt from a "
+                "checkpoint); rerun without record_trace")
         self._levels = []
         self._fault_counts[:] = 0
-        frontier = flatten_state(state)                  # [1, lanes] rows
-        visited = host_keys(self._canonical_root_fp(state).cpu().numpy())
-        # The exact visited set, sorted by (h1, h2); tests compare it.
-        self._host_visited = visited
-        explored = 0
-        depth = 0
-        if check_initial:
-            out = self._check_initial(state, t0)
-            if out is not None:
-                return out
-        # parent_rows[i] = the successor row (in the previous level's
-        # enumeration) that produced frontier state i; -1 at the root.
-        parent_rows = np.array([-1], dtype=np.int64)
-        frontier_n = 1
         samples = None
+        if ck is not None:
+            # Resume at the dumped level boundary: the visited set from
+            # the dumped keys, the frontier from the dumped rows, the
+            # clock from the dump's elapsed seconds.
+            t0 = time.time() - ck.elapsed
+            h1, h2 = host_keys(ck.visited_keys)
+            order = np.lexsort((h2, h1))
+            visited = (h1[order], h2[order])
+            self._host_visited = visited
+            explored = ck.explored
+            depth = ck.depth
+            frontier_n = len(ck.frontier)
+            if not frontier_n:
+                # A dump written after the final level: the search ended.
+                return SearchOutcome("SPACE_EXHAUSTED", explored,
+                                     len(visited[0]), depth,
+                                     time.time() - t0)
+            frontier = torch.as_tensor(ck.frontier, device=dev)
+            parent_rows = np.full(frontier_n, -1, dtype=np.int64)
+        else:
+            frontier = flatten_state(state)              # [1, lanes] rows
+            visited = host_keys(
+                self._canonical_root_fp(state).cpu().numpy())
+            # The exact visited set, sorted by (h1, h2); tests compare it.
+            self._host_visited = visited
+            explored = 0
+            depth = 0
+            if check_initial:
+                out = self._check_initial(state, t0)
+                if out is not None:
+                    return out
+            # parent_rows[i] = the successor row (in the previous level's
+            # enumeration) that produced frontier state i; -1 at the root.
+            parent_rows = np.array([-1], dtype=np.int64)
+            frontier_n = 1
 
         def exhausted(end):
             return SearchOutcome(end, explored, len(visited[0]), depth,
@@ -1523,9 +1731,18 @@ class TensorSearch:
             # (keep_idx is ascending over the chunks' concatenation).
             ends = np.cumsum([len(s) for s in lvl_states])
             parts = np.split(keep_idx, np.searchsorted(keep_idx, ends[:-1]))
-            frontier = torch.cat([
-                torch.from_numpy(s[k - (e - len(s))]).to(dev)
-                for s, k, e in zip(lvl_states, parts, ends) if len(k)])
+            nf = [s[k - (e - len(s))]
+                  for s, k, e in zip(lvl_states, parts, ends) if len(k)]
+            frontier = torch.cat([torch.from_numpy(s).to(dev) for s in nf])
+            if self._ckpt_due(depth) and not self.record_trace:
+                # Everything is on the host already: a synchronous
+                # atomic dump of raw rows (the host loop stores none
+                # packed).
+                ckpt_mod.save(self.checkpoint_path, ckpt_mod.SearchCheckpoint(
+                    fingerprint=self._ckpt_fingerprint(), depth=depth,
+                    explored=explored, elapsed=time.time() - t0,
+                    frontier=np.concatenate(nf),
+                    visited_keys=_keys_to_rows(visited)))
 
     def _build_dev_step(self, cap: int):
         """One wave step over frontier chunk ``j``: expand -> visited-table
@@ -1536,11 +1753,35 @@ class TensorSearch:
         frontier buffers hold packed rows (``plane`` words): the chunk is
         unpacked here and the selected successors are packed before the
         append, which takes the step's one host sync (their count);
-        unpacked, the step has none."""
+        unpacked, the step has none.
+
+        Spill mode: a step that would overflow the frontier buffer or
+        leave table keys unresolved aborts and changes nothing, with an
+        abort code in the stats' ``f_drop`` slot (bit 0 frontier full,
+        bit 1 table full).  Where the reference reverts its functional
+        carry with ``where(abort, old, new)``, the port snapshots the
+        table into ``vis_snap`` before kernel 2 writes it, reads the code
+        (one host sync) and, on an abort, swaps the snapshot back in
+        before anything else of the carry is written.  Fresh pruned rows
+        are appended too, so that they reach the drain's refilter."""
         p = self.p
         C = self.chunk
         dev = self.device
         pk = self._pk
+        spill_on = self._spill is not None
+
+        def stats(carry, ev_rem):
+            # The per-wave stats vector, the only recurring device->host
+            # transfer: [explored, overflow, vis_over, f_drop, vis_n,
+            # nxt_n, ev_remaining] ++ flag counts ++ (fault model only)
+            # the fault-family counts.  (The reference keeps the chunk
+            # index j at slot 6; here the host drives j.)
+            return torch.cat([carry["explored"], carry["overflow"],
+                              carry["vis_over"], carry["f_drop"],
+                              carry["vis_n"], carry["nxt_n"],
+                              ev_rem.reshape(1), carry["flag_cnt"]]
+                             + ([carry["fault_cnt"]]
+                                if "fault_cnt" in carry else []))
 
         def step(carry, j: int, ev_pass: int):
             self.chunk_steps += 1
@@ -1563,8 +1804,6 @@ class TensorSearch:
             cnts = hits.sum(1)
             idxs = torch.argmax(hits.to(torch.int32), dim=1)  # first hit
             fresh_flag = (carry["flag_cnt"] == 0) & (cnts > 0)
-            carry["flag_rows"].copy_(torch.where(
-                fresh_flag[:, None], rows[idxs], carry["flag_rows"]))
 
             pruned = rows[:, -1] != 0        # exception states terminal
             for n in p.prunes:
@@ -1572,14 +1811,28 @@ class TensorSearch:
 
             # ---- device-table dedup (the authority); unresolved keys are
             # treated as fresh and counted into vis_over.
+            if spill_on:
+                carry["vis_snap"].copy_(carry["visited"])
             _, inserted, unresolved = visited_mod.insert(
                 carry["visited"], fp, unique)
             fresh = inserted | unresolved
 
-            # ---- frontier-compact append of fresh, un-pruned successors
-            sel = fresh & ~pruned
-            spos = torch.cumsum(sel.to(torch.int64), 0) - 1
+            # ---- frontier-compact append of fresh (un-pruned, outside
+            # spill mode) successors
+            sel = fresh if spill_on else fresh & ~pruned
+            n_sel = sel.sum()
             nxt_n = carry["nxt_n"]
+            if spill_on:
+                code = int(((nxt_n + n_sel) > cap).to(torch.int64)
+                           + 2 * unresolved.any().to(torch.int64))
+                if code:
+                    carry["visited"], carry["vis_snap"] = (
+                        carry["vis_snap"], carry["visited"])
+                    carry["f_drop"].fill_(code)
+                    return stats(carry, ev_rem)
+            carry["flag_rows"].copy_(torch.where(
+                fresh_flag[:, None], rows[idxs], carry["flag_rows"]))
+            spos = torch.cumsum(sel.to(torch.int64), 0) - 1
             dst = nxt_n + spos
             sdst = torch.where(sel & (dst < cap), dst, cap)  # cap = dump row
             if pk is None:
@@ -1597,7 +1850,6 @@ class TensorSearch:
                 overflow = overflow + pack_bad.sum()
                 carry["nxt"].index_copy_(0, sdst.index_select(0, idx),
                                          packed)
-            n_sel = sel.sum()
             f_drop = torch.clamp(nxt_n + n_sel - cap, min=0)
             carry["nxt_n"] += n_sel - f_drop
             carry["vis_n"] += inserted.sum()
@@ -1609,17 +1861,7 @@ class TensorSearch:
             if "fault_cnt" in carry:
                 carry["fault_cnt"] += self._fault_chunk_counts(event_ids,
                                                                valids)
-            # The per-wave stats vector, the only recurring device->host
-            # transfer: [explored, overflow, vis_over, f_drop, vis_n,
-            # nxt_n, ev_remaining] ++ flag counts ++ (fault model only)
-            # the fault-family counts.  (The reference keeps the chunk
-            # index j at slot 6; here the host drives j.)
-            return torch.cat([carry["explored"], carry["overflow"],
-                              carry["vis_over"], carry["f_drop"],
-                              carry["vis_n"], carry["nxt_n"],
-                              ev_rem.reshape(1), carry["flag_cnt"]]
-                             + ([carry["fault_cnt"]]
-                                if "fault_cnt" in carry else []))
+            return stats(carry, ev_rem)
 
         return step
 
@@ -1638,14 +1880,44 @@ class TensorSearch:
 
         return promote
 
+    def _empty_carry(self, cap: int, table: torch.Tensor, vis_n: int = 0,
+                     explored: int = 0, vis_over: int = 0) -> dict:
+        """A carry with empty frontier buffers of ``cap`` (+1 dump) rows
+        around ``table``, the counters at the given values, the flag and
+        fault accumulators zero (a resumed run counts fault events from
+        its resume point, as the reference's does), and in spill mode the
+        table's snapshot buffer."""
+        dev = self.device
+        nf = len(self._flag_names)
+
+        def z(v=0):
+            return torch.full((1,), v, dtype=torch.int64, device=dev)
+
+        carry = {
+            "cur": torch.zeros((cap + 1, self.plane), dtype=torch.int32,
+                               device=dev),
+            "cur_n": z(),
+            "nxt": torch.zeros((cap + 1, self.plane), dtype=torch.int32,
+                               device=dev),
+            "nxt_n": z(), "visited": table, "vis_n": z(vis_n),
+            "explored": z(explored), "overflow": z(),
+            "vis_over": z(vis_over), "f_drop": z(),
+            "flag_cnt": torch.zeros((nf,), dtype=torch.int64, device=dev),
+            "flag_rows": torch.zeros((nf, self.lanes), dtype=torch.int32,
+                                     device=dev),
+        }
+        if self._ev_flt:
+            carry["fault_cnt"] = torch.zeros((4,), dtype=torch.int64,
+                                             device=dev)
+        if self._spill is not None:
+            carry["vis_snap"] = torch.empty_like(table)
+        return carry
+
     def _build_dev_init(self, cap: int):
         """The carry, built on the device: only the root row crosses from
         the host (unpacked; it is packed here for storage); the root key
         goes through the same table insert as the waves."""
-        lanes = self.lanes
-        plane = self.plane
         V = self.visited_cap
-        nf = len(self._flag_names)
         dev = self.device
 
         def build(row0):
@@ -1654,30 +1926,49 @@ class TensorSearch:
             visited_mod.insert(table, fp0,
                                torch.ones((1,), dtype=torch.bool,
                                           device=dev))
-            cur = torch.zeros((cap + 1, plane), dtype=torch.int32, device=dev)
-            cur[0] = (row0 if self._pk is None else self._pk.pack(row0))[0]
-
-            def z():
-                return torch.zeros((1,), dtype=torch.int64, device=dev)
-
-            carry = {
-                "cur": cur, "cur_n": z() + 1,
-                "nxt": torch.zeros((cap + 1, plane), dtype=torch.int32,
-                                   device=dev),
-                "nxt_n": z(), "visited": table, "vis_n": z() + 1,
-                "explored": z(), "overflow": z(), "vis_over": z(),
-                "f_drop": z(),
-                "flag_cnt": torch.zeros((nf,), dtype=torch.int64,
-                                        device=dev),
-                "flag_rows": torch.zeros((nf, lanes), dtype=torch.int32,
-                                         device=dev),
-            }
-            if self._ev_flt:
-                carry["fault_cnt"] = torch.zeros((4,), dtype=torch.int64,
-                                                 device=dev)
+            carry = self._empty_carry(cap, table, vis_n=1)
+            carry["cur"][0] = (row0 if self._pk is None
+                               else self._pk.pack(row0))[0]
+            carry["cur_n"].fill_(1)
             return carry
 
         return build
+
+    def _carry_from_ckpt(self, ck, cap: int) -> dict:
+        """The carry of a dump: its frontier rows (re-encoded to the
+        engine's storage) in ``cur``, and the table rebuilt by inserting
+        the dumped keys with kernel 2 (``visited.build_table``): the key
+        set is the dump's content, the layout is the engine's own."""
+        V = self.visited_cap
+        n = len(ck.frontier)
+        table, n_ins, n_unres = visited_mod.build_table(
+            V, torch.from_numpy(
+                np.ascontiguousarray(ck.visited_keys).view(np.int32)),
+            self.device)
+        if n_unres:
+            raise CapacityOverflow(
+                f"{self.p.name}: visited_cap={V} too small to rebuild "
+                f"the checkpoint's visited set ({n_unres} of "
+                f"{len(ck.visited_keys)} keys unresolved); raise "
+                "visited_cap")
+        carry = self._empty_carry(cap, table, vis_n=n_ins,
+                                  explored=ck.explored,
+                                  vis_over=ck.vis_over)
+        if n:
+            rows = (self._pk.pack_np(ck.frontier) if self._pk is not None
+                    else ck.frontier)
+            carry["cur"][:n] = torch.from_numpy(rows).to(self.device)
+        carry["cur_n"].fill_(n)
+        return carry
+
+    def _write_dev_ckpt(self, carry, depth: int, explored: int,
+                        vis_over: int, nxt_n: int, elapsed: float) -> None:
+        """Dump the wave-boundary carry (after the promote, ``cur`` holds
+        the next level): its occupied frontier prefix and occupied table
+        lines, copied to the host here, written in the background."""
+        self._kick_ckpt(host_copy(carry["cur"][:nxt_n]),
+                        visited_mod.host_occupied(carry["visited"]),
+                        depth, explored, elapsed, vis_over)
 
     def _dev_terminal(self, carry, flag_counts, explored, vis_n, depth,
                       t0, vis_over) -> SearchOutcome:
@@ -1707,46 +1998,72 @@ class TensorSearch:
         raise AssertionError("flag counts fired without a flag name")
 
     def _run_device(self, check_initial: bool = True,
-                    initial: Optional[dict] = None) -> SearchOutcome:
+                    initial: Optional[dict] = None,
+                    resume: bool = False) -> SearchOutcome:
         """The device-resident BFS.  The frontier buffer starts small and
-        grows x8 on overflow (a deterministic restart: same verdict) up
-        to ``frontier_cap``; overflowing at the cap is
-        CAPACITY_EXHAUSTED."""
+        grows x8 on overflow (a deterministic restart: same verdict, from
+        the dump when one was loaded) up to ``frontier_cap``; overflowing
+        at the cap is CAPACITY_EXHAUSTED.  A resumed frontier sets the
+        buffer's floor.  Spill mode skips the growth and runs
+        :meth:`_device_attempt_spill` at the full capacity."""
         t0 = time.time()
         state = self._initial_or(initial)
         self._fault_counts[:] = 0
-        if check_initial:
+        ck = self._load_ckpt() if resume else None
+        if ck is not None:
+            t0 = time.time() - ck.elapsed
+        elif check_initial:
             out = self._check_initial(state, t0)
             if out is not None:
                 return out
         C = self.chunk
         user_cap = -(-self.frontier_cap // C) * C
-        cap = min(user_cap, -(-max(C, 1 << 11) // C) * C)
-        while True:
-            out = self._device_attempt(state, cap, user_cap, t0)
-            if out is not None:
-                return out
-            cap = min(cap * 8, user_cap)
+        try:
+            if self._spill is not None:
+                return self._device_attempt_spill(state, user_cap, t0, ck)
+            cap = min(user_cap, -(-max(C, 1 << 11) // C) * C)
+            if ck is not None:
+                cap = min(user_cap,
+                          max(cap, -(-max(len(ck.frontier), 1) // C) * C))
+            while True:
+                out = self._device_attempt(state, cap, user_cap, t0, ck)
+                if out is not None:
+                    return out
+                cap = min(cap * 8, user_cap)
+        finally:
+            self._join_ckpt_writer()
 
     def _device_attempt(self, state, cap: int, user_cap: int,
-                        t0) -> Optional[SearchOutcome]:
+                        t0, ck=None) -> Optional[SearchOutcome]:
         """One run at a fixed frontier-buffer capacity; None = the
         frontier overflowed below the user cap (the caller grows it and
-        restarts)."""
+        restarts).  ``ck`` (a loaded dump) seeds the carry instead of the
+        root."""
         p = self.p
         C = self.chunk
         step = self._build_dev_step(cap)
         promote = self._build_dev_promote(cap)
-        carry = self._build_dev_init(cap)(flatten_state(state))
+        if ck is not None:
+            if not len(ck.frontier):
+                # A dump written after the final wave: the search ended.
+                return SearchOutcome(
+                    "SPACE_EXHAUSTED", ck.explored, len(ck.visited_keys),
+                    ck.depth, time.time() - t0, visited_overflow=ck.vis_over)
+            carry = self._carry_from_ckpt(ck, cap)
+            depth = ck.depth
+            n_chunks = -(-len(ck.frontier) // C)
+            last = (ck.explored, len(ck.visited_keys), ck.vis_over)
+        else:
+            carry = self._build_dev_init(cap)(flatten_state(state))
+            depth = 0
+            n_chunks = 1
+            last = (0, 1, 0)   # (explored, unique, vis_over) at the last sync
         # A finite ev_budget can need extra window passes over a chunk;
         # the host then reads each step's stats to decide (the reference
         # syncs the same way in that mode).
         windowed = (self._ev_msg < p.net_cap
                     or self._ev_tmr < p.n_nodes * p.timer_cap)
         nf = len(self._flag_names)
-        depth = 0
-        n_chunks = 1
-        last = (0, 1, 0)   # (explored, unique, vis_over) at the last sync
         while True:
             if self.max_secs is not None and time.time() - t0 > self.max_secs:
                 return SearchOutcome(
@@ -1774,12 +2091,7 @@ class TensorSearch:
             if self._ev_flt:
                 # Cumulative in the carry: overwrite, never add.
                 self._fault_counts[:] = s[7 + nf:7 + nf + 4]
-            if overflow:
-                raise CapacityOverflow(
-                    f"{p.name}: net_cap={p.net_cap}, timer_cap="
-                    f"{p.timer_cap}, or max_live_sends={p.max_live_sends} "
-                    f"overflowed at depth {depth} ({overflow} drops); "
-                    "raise the caps")
+            self._check_overflow(overflow, depth)
             limit = (3 * self.visited_cap // 4 if self.strict
                      else self.visited_cap)
             if (not getattr(self, "_warned_visited", False)
@@ -1788,7 +2100,8 @@ class TensorSearch:
                 warnings.warn(
                     f"{p.name}: visited table at {vis_n}/"
                     f"{self.visited_cap} at depth {depth}: capacity "
-                    "pressure; raise visited_cap",
+                    "pressure; raise visited_cap or enable the spill "
+                    "tier (spill=True)",
                     RuntimeWarning, stacklevel=2)
             if vis_over and self.strict:
                 raise CapacityOverflow(
@@ -1812,8 +2125,280 @@ class TensorSearch:
                 return SearchOutcome(
                     "CAPACITY_EXHAUSTED", explored, vis_n, depth,
                     time.time() - t0, visited_overflow=vis_over)
+            if self._ckpt_due(depth):
+                self._write_dev_ckpt(carry, depth, explored, vis_over,
+                                     nxt_n, time.time() - t0)
             if nxt_n == 0:
                 return SearchOutcome(
                     "SPACE_EXHAUSTED", explored, vis_n, depth,
                     time.time() - t0, visited_overflow=vis_over)
             n_chunks = -(-nxt_n // C)
+
+    def _check_overflow(self, overflow: int, depth: int) -> None:
+        p = self.p
+        if overflow:
+            raise CapacityOverflow(
+                f"{p.name}: net_cap={p.net_cap}, timer_cap="
+                f"{p.timer_cap}, or max_live_sends={p.max_live_sends} "
+                f"overflowed at depth {depth} ({overflow} drops); "
+                "raise the caps")
+
+    # ----------------------------------------- host-RAM spill tier mode
+    #
+    # The spill variant of the device loop (tpu/spill.py).  The same wave
+    # cycle with three changes: a chunk step aborts (changes nothing and
+    # returns a code) instead of dropping frontier rows or leaving table
+    # keys unresolved; the host answers an abort by draining nxt to the
+    # frontier spool and, for a full table, evicting the table to the
+    # host tier; and once the tier is live, each level boundary
+    # refilters the would-be frontier against it.  The wave syncs once
+    # per chunk step (no speculation).  Deliberate difference: the
+    # reference routes each host round trip through its ``_dispatch``
+    # seam and fault plan; the port calls them directly.
+
+    @staticmethod
+    def _pow2_bucket(n: int, cap: int) -> int:
+        m = 1
+        while m < max(n, 1):
+            m <<= 1
+        return min(m, cap)
+
+    def _spill_keys_of(self, rows: torch.Tensor, cap: int) -> torch.Tensor:
+        """Keys of unpacked device rows [n, lanes] through the same
+        canonicalize-then-hash step as the expand (kernel 1 on the card),
+        over a zero-padded power-of-two row bucket as the reference's
+        per-bucket programs hash, so tier keys equal expand keys bit for
+        bit."""
+        n = rows.shape[0]
+        m = self._pow2_bucket(n, max(cap, n))
+        pad = torch.zeros((m, rows.shape[1]), dtype=torch.int32,
+                          device=rows.device)
+        pad[:n] = rows
+        return kernels.fingerprint_rows(self._canon_rows(pad))[:n]
+
+    def _spill_keep_mask(self, rows: torch.Tensor) -> torch.Tensor:
+        """Drained rows that may be expanded: no exception and no prune
+        predicate (spill mode appends fresh pruned rows so that they
+        reach the refilter; they are never expanded)."""
+        keep = rows[:, -1] == 0
+        if self.p.prunes and rows.shape[0]:
+            st = self.unflatten_rows(rows)
+            for fn in self.p.prunes.values():
+                keep = keep & ~fn(st)
+        return keep
+
+    def _spill_drain(self, carry, nxt_n: int, cap: int) -> None:
+        """Drain nxt's occupied prefix: its keys (kernel 1) and keep mask
+        are computed on the device and copied to the host with the
+        packed rows (a synchronising ``.cpu()``) before the host half is
+        queued, so the refilter sees numpy only, and ordered before any
+        later eviction; then nxt is reset on the device."""
+        sp = self._spill
+        if nxt_n:
+            rows_d = carry["nxt"][:nxt_n]
+            rows_u = self._pk.unpack(rows_d) if self._pk is not None \
+                else rows_d
+            keys = self._spill_keys_of(rows_u, cap).cpu().numpy()
+            keep = self._spill_keep_mask(rows_u).cpu().numpy()
+            rows = host_copy(rows_d)
+
+            def host_half():
+                idx = sp.refilter(
+                    np.arange(len(rows), dtype=np.int32)[:, None],
+                    keys)[:, 0]
+                sp.spool(rows[idx[keep[idx]]])
+
+            sp.submit_drain(host_half)
+        carry["nxt_n"].zero_()
+        carry["f_drop"].zero_()
+
+    def _spill_evict_dev(self, carry) -> None:
+        """Bulk eviction: the occupied table lines go to the host tier on
+        the same ordered drain queue as the refilters, and the table and
+        ``vis_n`` restart empty (a fresh epoch)."""
+        sp = self._spill
+        occ = visited_mod.host_occupied(carry["visited"])
+        sp.submit_drain(lambda: sp.evict(occ))
+        carry["visited"].fill_(visited_mod.EMPTY)
+        carry["vis_n"].zero_()
+        carry["f_drop"].zero_()
+
+    def _spill_inject(self, carry, rows: np.ndarray) -> int:
+        """A host segment of native (packed) rows becomes the live cur:
+        a further wave at the same BFS depth."""
+        n = len(rows)
+        carry["cur"][:n] = torch.from_numpy(rows).to(self.device)
+        carry["cur_n"].fill_(n)
+        return n
+
+    def _spill_wave(self, carry, step, cap: int, n_cur: int) -> np.ndarray:
+        """Expand the injected frontier completely, one sync per chunk
+        step, answering abort codes (bit 0 frontier full -> drain; bit 1
+        table full -> drain, then evict) by re-running the same chunk on
+        the recovered capacity.  Returns the last step's stats."""
+        p = self.p
+        C = self.chunk
+        sp = self._spill
+        n_chunks = max(1, -(-n_cur // C))
+        windowed = (self._ev_msg < p.net_cap
+                    or self._ev_tmr < p.n_nodes * p.timer_cap)
+        j = ev_pass = 0
+        while True:
+            s = step(carry, j, ev_pass).cpu().numpy()
+            code = int(s[3])
+            vis_n, nxt_n = int(s[4]), int(s[5])
+            if code:
+                if (code & 1) and nxt_n == 0:
+                    raise CapacityOverflow(
+                        f"{p.name}: one chunk's fresh successors exceed "
+                        f"frontier_cap={cap} even with spill; lower chunk "
+                        f"({C}) or raise frontier_cap")
+                if (code & 2) and vis_n == 0:
+                    raise CapacityOverflow(
+                        f"{p.name}: one chunk's unique successors exceed "
+                        f"visited_cap={self.visited_cap} even from an "
+                        f"empty table; lower chunk ({C}) or raise "
+                        "visited_cap")
+                self._spill_drain(carry, nxt_n, cap)
+                if code & 2:
+                    self._spill_evict_dev(carry)
+                continue
+            if windowed and int(s[6]) > 0:
+                ev_pass += 1
+            else:
+                j += 1
+                ev_pass = 0
+            if j >= n_chunks:
+                # The wave's last stats stay exact (the caller derives
+                # unique from their vis_n): evicting at the end of a
+                # wave is the level boundary's job.
+                return s
+            # Proactive high-water eviction keeps aborts rare: drain what
+            # nxt holds (refiltered before the eviction), then evict.
+            if sp.should_evict(vis_n, self.visited_cap):
+                self._spill_drain(carry, nxt_n, cap)
+                self._spill_evict_dev(carry)
+
+    def _spill_ckpt(self, carry, depth: int, explored: int,
+                    elapsed: float) -> None:
+        """Synchronous dump at a spill-mode level boundary:
+        ``visited_keys`` = device table union host tier, ``frontier`` =
+        every spooled segment of the level about to run, the spill
+        counters in ``extra__spill_stats``."""
+        sp = self._spill
+        occ = visited_mod.host_occupied(carry["visited"])
+        ckpt_mod.save(self.checkpoint_path, self._make_ckpt(
+            sp.spool_cur.concat(self.plane), sp.checkpoint_keys(occ),
+            depth, explored, elapsed, extra=sp.checkpoint_extra()))
+
+    def _spill_carry_from_ckpt(self, ck, cap: int):
+        """Spill-mode resume: every dumped key goes into the host tier,
+        the device table starts empty (a fresh epoch, made exact by the
+        refilter), the dumped frontier spools in ``cap``-row segments and
+        the first is injected.  Returns (carry, rows injected)."""
+        sp = self._spill
+        sp.restore(ck.visited_keys, ck.extra)
+        rows = (self._pk.pack_np(ck.frontier) if self._pk is not None
+                else np.asarray(ck.frontier, np.int32))
+        for i in range(0, len(rows), cap):
+            sp.spool_cur.push(rows[i:i + cap])
+        carry = self._empty_carry(
+            cap, visited_mod.empty_table(self.visited_cap, self.device),
+            explored=ck.explored)
+        return carry, self._spill_inject(carry, sp.spool_cur.pop())
+
+    def _device_attempt_spill(self, state, cap: int, t0,
+                              ck=None) -> SearchOutcome:
+        """The spill-mode device BFS (the section comment above)."""
+        p = self.p
+        sp = self._spill
+        V = self.visited_cap
+        step = self._build_dev_step(cap)
+        promote = self._build_dev_promote(cap)
+        nf = len(self._flag_names)
+
+        def done(end, explored, unique, depth):
+            out = SearchOutcome(end, explored, unique, depth,
+                                time.time() - t0)
+            sp.attach(out)
+            return out
+
+        if ck is not None:
+            if not len(ck.frontier):
+                return done("SPACE_EXHAUSTED", ck.explored,
+                            len(ck.visited_keys), ck.depth)
+            carry, n_cur = self._spill_carry_from_ckpt(ck, cap)
+            depth = ck.depth
+            explored = ck.explored
+            unique = sp.unique(0)
+        else:
+            # A fresh run must not see an earlier run's tier or spool.
+            sp.reset_run()
+            carry = self._build_dev_init(cap)(flatten_state(state))
+            depth = 0
+            n_cur = 1
+            explored, unique = 0, 1
+        while True:
+            if self.max_secs is not None and time.time() - t0 > self.max_secs:
+                return done("TIME_EXHAUSTED", explored, unique, depth)
+            if self.max_depth is not None and depth >= self.max_depth:
+                return done("DEPTH_EXHAUSTED", explored, unique, depth)
+            depth += 1
+            # ---- expand the level: cur, then every spooled segment of
+            # the same level as a further wave.
+            while True:
+                s = self._spill_wave(carry, step, cap, n_cur)
+                explored = int(s[0])
+                vis_over, vis_n, nxt_n = int(s[2]), int(s[4]), int(s[5])
+                flag_counts = s[7:7 + nf]
+                if self._ev_flt:
+                    self._fault_counts[:] = s[7 + nf:7 + nf + 4]
+                self._check_overflow(int(s[1]), depth)
+                if vis_over:
+                    raise AssertionError(
+                        "spill mode committed unresolved keys (abort "
+                        "contract violated)")
+                unique = sp.unique(vis_n)
+                if flag_counts.any():
+                    out = self._dev_terminal(carry, flag_counts, explored,
+                                             unique, depth, t0, 0)
+                    sp.attach(out)
+                    return out
+                if vis_n >= VISITED_WARN * V and not getattr(
+                        self, "_warned_visited", False):
+                    self._warned_visited = True
+                    warnings.warn(
+                        f"{p.name}: visited table at "
+                        f"{vis_n / V:.0%} of visited_cap={V} at depth "
+                        f"{depth}: capacity pressure; the spill tier "
+                        f"evicts at {sp.config.high_water:.0%}",
+                        RuntimeWarning, stacklevel=2)
+                seg = sp.pop_current()
+                if seg is None:
+                    break
+                n_cur = self._spill_inject(carry, seg)
+            # ---- level boundary: the plain promote until the tier or
+            # the spool is live.
+            if not (sp.active or sp.should_evict(vis_n, V)):
+                if nxt_n == 0:
+                    return done("SPACE_EXHAUSTED", explored, unique, depth)
+                promote(carry)
+                n_cur = nxt_n
+                if self._ckpt_due(depth):
+                    self._write_dev_ckpt(carry, depth, explored, 0, nxt_n,
+                                         time.time() - t0)
+                continue
+            # The exact path: drain nxt through the refilter, evict at
+            # high water (after the drain: the refilter runs against the
+            # pre-eviction tier), swap the spools, inject.
+            self._spill_drain(carry, nxt_n, cap)
+            if sp.should_evict(vis_n, V):
+                self._spill_evict_dev(carry)
+                vis_n = 0
+            unique = sp.unique(vis_n)
+            sp.advance_level()
+            if not sp.spool_cur.segments:
+                return done("SPACE_EXHAUSTED", explored, unique, depth)
+            if self._ckpt_due(depth):
+                self._spill_ckpt(carry, depth, explored, time.time() - t0)
+            n_cur = self._spill_inject(carry, sp.spool_cur.pop())

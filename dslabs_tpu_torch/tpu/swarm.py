@@ -40,15 +40,29 @@ a BFS cannot reach inside a budget.  This module is the second half.
   predicate result.  A verdict ships only with a verified
   :class:`Witness` (``SearchOutcome.witness``).
 
+* **Frontier seeding.**  ``frontier_seed`` names a BFS checkpoint
+  (``tpu/checkpoint.py``): the walkers restart from its frontier rows
+  (a random pool row per restart) instead of the root, and its visited
+  keys pre-seed the table through kernel 2, so the fleet probes past the
+  region the BFS covered.  A witness replays from its walker's seed row.
+
+* **Round checkpoints.**  With ``checkpoint_path`` and
+  ``checkpoint_every`` = k, every k-th round dumps the fleet (walker
+  rows, depths, histories, seed pool, the generator's state, the
+  table's keys, the counters) in the unified format, and
+  ``run(resume=True)`` continues it identically to the uncut run.
+
 Deliberate differences from the reference: the walks draw from torch's
 generator, not ``jax.random``, so they differ from the JAX walks (the
-same seed on the same device gives the same walks); the clock is checked
+same seed on the same device gives the same walks), and a swarm dump
+stores the generator's state and carries a ``:torch`` fingerprint
+marker, so that neither package resumes the other's swarm dump (BFS
+dumps, frontier seeds included, are shared); the clock is checked
 between walk steps as well as between rounds; the warm-up builds the
 kernels and runs a zero-step round before the clock starts; sizes come
 from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
-fleet runs on one device.  ``frontier_seed``, ``checkpoint_path`` /
-``checkpoint_every`` and ``run(resume=True)`` come with the spill and
-checkpoint slice, a mesh of more than one device with the multi-device
+fleet runs on one device, so a dump resumes only at its own walker
+count.  A mesh of more than one device comes with the multi-device
 swarm, and ``telemetry`` with the supervisor and telemetry slice; each
 raises ``NotImplementedError`` until then.
 
@@ -71,11 +85,12 @@ import numpy as np
 import torch
 
 from dslabs_tpu_torch.tpu import _build, kernels
+from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
 from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          SearchOutcome, TensorProtocol,
                                          TensorSearch, _later,
-                                         flatten_state)
+                                         flatten_state, host_copy)
 
 __all__ = ["SwarmSearch", "Witness", "minimize_event_trace",
            "replay_events", "build_witness"]
@@ -385,8 +400,6 @@ class SwarmSearch(TensorSearch):
         if _mesh_size(mesh) > 1:
             raise _later("a mesh of more than one device",
                          "multi-device swarm")
-        if frontier_seed:
-            raise _later("frontier_seed", "spill + checkpoint")
         self.n_devices = 1
         self.walkers = int(walkers_per_device or 128)
         self.max_steps = int(max_steps or 96)
@@ -435,48 +448,105 @@ class SwarmSearch(TensorSearch):
         affin = (affin * self.kind_affinity).astype(np.float32)
         return bounds, temps, affin
 
-    def _seed_pool(self, state) -> torch.Tensor:
-        """-> [1, lanes] restart rows: in root mode the pool is the one
-        root row (frontier seeding comes with the spill + checkpoint
-        slice)."""
-        return flatten_state(state)
+    def _seed_pool(self, state) -> Tuple[torch.Tensor, np.ndarray]:
+        """-> (seeds [P, lanes] restart rows, preseed keys [M, 4] uint32).
+
+        Root mode: the pool is the one root row and no key is
+        pre-seeded.  Frontier mode (``frontier_seed`` = a BFS
+        checkpoint): the dumped frontier rows (decoded when packed) are
+        the pool, and the dump's visited keys pre-seed the table, so the
+        walkers probe past the region the BFS covered."""
+        root = flatten_state(state)
+        if not self.frontier_seed:
+            return root, np.zeros((0, 4), np.uint32)
+        ck = self._load_bfs_seed(self.frontier_seed)
+        rows = (torch.as_tensor(ck.frontier, device=self.device)
+                if len(ck.frontier) else root)
+        return rows, np.asarray(ck.visited_keys, np.uint32)
+
+    def _load_bfs_seed(self, path: str):
+        """A BFS dump for frontier seeding: any strict or beam,
+        trace-recording or plain search of this protocol is a sound seed
+        (only its frontier rows and visited keys are read)."""
+        last = None
+        for strict in (True, False):
+            for rt in (False, True):
+                fp = ckpt_mod.config_fingerprint(self.p, strict, rt)
+                try:
+                    ck = ckpt_mod.load(path, fp)
+                except ckpt_mod.CheckpointMismatch as e:
+                    last = e
+                    continue
+                if ck is not None:
+                    self._normalize_ckpt_frontier(ck)
+                    return ck
+        if last is not None:
+            raise last
+        raise FileNotFoundError(
+            f"frontier_seed: no BFS checkpoint at {path}")
 
     # ------------------------------------------------------------- carry
 
-    def _init_carry(self, state) -> dict:
-        """The fleet carry on the device: every walker at the root, empty
-        histories, an empty visited table (no pre-seeded keys in root
-        mode) and zero counters."""
-        K, S, V = self.walkers, self.max_steps, self.visited_cap
+    _COUNTERS = ("explored", "fresh", "revisit", "restarts", "over",
+                 "vis_over", "deepest")
+
+    def _fleet_carry(self, rows, depths, hists, streak, seed_idx, seeds,
+                     keys: np.ndarray, counters) -> dict:
+        """The fleet carry on the device around the given walker arrays,
+        with the table built from ``keys`` [M, 4] by kernel 2 (the
+        pre-seeded BFS keys, or a swarm dump's table) and the hit
+        captures empty."""
+        S, V = self.max_steps, self.visited_cap
         dev = self.device
         nf = len(self._flag_names)
-        seeds = self._seed_pool(state)
         bounds, temps, affin = self._schedules()
-
-        def z():
-            return torch.zeros((), dtype=torch.int64, device=dev)
-
-        self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(self.seed)
-        return {
-            "rows": seeds[0].expand(K, -1).clone(),
-            "depths": torch.zeros((K,), dtype=torch.int64, device=dev),
-            "hists": torch.full((K, S), -1, dtype=torch.int32, device=dev),
-            "streak": torch.zeros((K,), dtype=torch.int64, device=dev),
+        table, n_ins, n_unres = visited_mod.build_table(
+            V, torch.from_numpy(np.ascontiguousarray(keys).view(np.int32)),
+            dev)
+        if n_unres:
+            raise CapacityOverflow(
+                f"{self.p.name}: visited_cap={V} too small to seed the "
+                f"swarm table with {len(keys)} keys ({n_unres} "
+                "unresolved); raise visited_cap")
+        # Keys the table held before the first walk step.
+        self.preseeded_keys = n_ins
+        carry = {
+            "rows": rows, "depths": depths, "hists": hists,
+            "streak": streak, "seed_idx": seed_idx, "seeds": seeds,
             "bounds": torch.as_tensor(bounds, device=dev).to(torch.int64),
             "temps": torch.as_tensor(temps, device=dev),
             "affin": torch.as_tensor(affin, device=dev),
-            "seeds": seeds,
-            "visited": visited_mod.empty_table(V, dev),
-            "explored": z(), "fresh": z(), "revisit": z(), "restarts": z(),
-            "over": z(), "vis_over": z(), "deepest": z(),
+            "visited": table,
             "hit_cnt": torch.zeros((nf,), dtype=torch.int64, device=dev),
             "hit_rows": torch.zeros((nf, self.lanes), dtype=torch.int32,
                                     device=dev),
             "hit_hist": torch.full((nf, S), -1, dtype=torch.int32,
                                    device=dev),
             "hit_depth": torch.zeros((nf,), dtype=torch.int64, device=dev),
+            "hit_seed": torch.zeros((nf,), dtype=torch.int64, device=dev),
         }
+        for name, v in zip(self._COUNTERS, counters):
+            carry[name] = torch.tensor(int(v), dtype=torch.int64,
+                                       device=dev)
+        return carry
+
+    def _init_carry(self, state) -> dict:
+        """The fleet carry on the device: the walkers placed round-robin
+        over the seed pool, empty histories, the table pre-seeded with
+        the BFS keys in frontier mode (empty in root mode), and zero
+        counters."""
+        K, S = self.walkers, self.max_steps
+        dev = self.device
+        seeds, keys = self._seed_pool(state)
+        idx0 = torch.arange(K, device=dev) % seeds.shape[0]
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(self.seed)
+        return self._fleet_carry(
+            seeds[idx0].clone(),
+            torch.zeros((K,), dtype=torch.int64, device=dev),
+            torch.full((K, S), -1, dtype=torch.int32, device=dev),
+            torch.zeros((K,), dtype=torch.int64, device=dev),
+            idx0, seeds, keys, [0] * len(self._COUNTERS))
 
     # --------------------------------------------------------- walk step
 
@@ -556,11 +626,21 @@ class SwarmSearch(TensorSearch):
         c["hit_hist"] = torch.where(freshf[:, None], hists2[idxs],
                                     c["hit_hist"])
         c["hit_depth"] = torch.where(freshf, depths2[idxs], c["hit_depth"])
+        c["hit_seed"] = torch.where(freshf, c["seed_idx"][idxs],
+                                    c["hit_seed"])
 
         # Restarts: dead end / truncated step / prune / depth bound /
-        # revisit patience -> back to the seed row.
+        # revisit patience -> a seed row from the pool (drawn at random
+        # in frontier mode; root mode's one-row pool draws nothing, so
+        # its walks do not change with the pool).
         restart = ~advance | pruned | (depths2 >= c["bounds"]) | rv_restart
-        c["rows"] = torch.where(restart[:, None], c["seeds"][0], succ)
+        n_seeds = c["seeds"].shape[0]
+        if n_seeds > 1:
+            ridx = torch.randint(0, n_seeds, (K,), generator=self._gen,
+                                 device=dev)
+            c["seed_idx"] = torch.where(restart, ridx, c["seed_idx"])
+        c["rows"] = torch.where(restart[:, None], c["seeds"][c["seed_idx"]],
+                                succ)
         c["depths"] = torch.where(restart, 0, depths2)
         c["hists"] = torch.where(restart[:, None], -1, hists2)
         c["streak"] = torch.where(restart, 0, streak2)
@@ -606,8 +686,7 @@ class SwarmSearch(TensorSearch):
         roots the walk at an arbitrary state (the staged-search contract).
         Warm-up (the kernels' build and a zero-step round) is kept out of
         the wall budget and reported on ``outcome.compile_secs``."""
-        if resume:
-            raise _later("resume (swarm checkpoints)", "spill + checkpoint")
+        self._resumed_from_depth = 0
         state = self._initial_or(initial)
         self._trace_root = {k: v.cpu().numpy() for k, v in state.items()}
         t0 = time.time()
@@ -615,19 +694,26 @@ class SwarmSearch(TensorSearch):
             out = self._check_initial(state, t0)
             if out is not None:
                 return out
-        return self._run_rounds(state)
+        try:
+            return self._run_rounds(state, resume)
+        finally:
+            self._join_ckpt_writer()
 
-    def _run_rounds(self, state) -> SearchOutcome:
+    def _run_rounds(self, state, resume: bool = False) -> SearchOutcome:
         t_c = time.time()
         if self.device.type == "cuda":
             _build.lib()
-        carry = self._init_carry(state)
+        resumed = self._load_swarm_ckpt() if resume else None
+        if resumed is not None:
+            carry, rounds, prev_elapsed = resumed
+        else:
+            carry = self._init_carry(state)
+            rounds, prev_elapsed = 0, 0.0
         self._round(carry, 0)
         self.compile_secs += time.time() - t_c
-        t0 = time.time()
+        t0 = time.time() - prev_elapsed
         deadline = None if self.max_secs is None else t0 + self.max_secs
         stats = None
-        rounds = 0
         nf = len(self._flag_names)
         while True:
             timed_out = deadline is not None and time.time() > deadline
@@ -662,6 +748,81 @@ class SwarmSearch(TensorSearch):
                 raise CapacityOverflow(
                     f"{self.p.name}: {over} walker steps truncated by "
                     "net/timer caps (strict swarm); raise the caps")
+            if self._ckpt_due(rounds):
+                self._save_swarm_ckpt(carry, rounds, time.time() - t0)
+
+    # ------------------------------------------------------- checkpoints
+
+    def _ckpt_fingerprint(self) -> str:
+        """Swarm dumps are their own config family, which a BFS search
+        refuses (and the reverse): the BFS fingerprint plus the history
+        length and the seed, and a ``:torch`` marker, since the dump
+        holds a ``torch.Generator`` state where the reference's holds
+        ``jax.random`` keys; a JAX swarm dump is refused, never
+        half-resumed.  The walker count is excluded, as in the
+        reference."""
+        base = ckpt_mod.config_fingerprint(self.p, self.strict, False)
+        return f"swarm:{base}:S{self.max_steps}:seed{self.seed}:torch"
+
+    def _save_swarm_ckpt(self, carry, rounds: int, elapsed: float) -> None:
+        """Host copies of the fleet at a round boundary (walker rows,
+        depths, histories, streaks, seed indices, the seed pool, the
+        generator state, the table's occupied lines and the counters),
+        written in the background."""
+        keys = visited_mod.host_occupied(carry["visited"])
+        extra = {k: host_copy(carry[k]) for k in (
+            "depths", "hists", "streak", "seed_idx", "seeds")}
+        extra.update({
+            "seeds_n": np.asarray([carry["seeds"].shape[0]], np.int64),
+            "gen_state": self._gen.get_state().numpy(),
+            "vdev": np.asarray([len(keys)], np.int64),
+            "counters": np.asarray([int(carry[k]) for k in
+                                    self._COUNTERS], np.int64)[:, None],
+        })
+        ck = ckpt_mod.SearchCheckpoint(
+            fingerprint=self._ckpt_fingerprint(), depth=rounds,
+            explored=int(carry["explored"]), elapsed=elapsed,
+            frontier=host_copy(carry["rows"]), visited_keys=keys,
+            vis_over=int(carry["vis_over"]), extra=extra)
+        self._ckpt_writer.kick(
+            lambda: ckpt_mod.save(self.checkpoint_path, ck))
+
+    def _load_swarm_ckpt(self):
+        """-> (carry, rounds, elapsed), or None without a dump: the whole
+        fleet carry rebuilt from the dump, the table re-inserted from its
+        keys by kernel 2 and the generator restored, so the continuation
+        is identical to the uncut run's.  One device, one walker count:
+        a dump of another fleet width is refused."""
+        ck = self._load_ckpt()
+        if ck is None:
+            return None
+        x = ck.extra
+        if x is None or "gen_state" not in x:
+            raise ckpt_mod.CheckpointCorrupt(
+                f"{self.checkpoint_path}: swarm checkpoint has no "
+                "extra__ walker arrays")
+        if len(ck.frontier) != self.walkers:
+            raise ckpt_mod.CheckpointMismatch(
+                f"{self.checkpoint_path}: swarm checkpoint of "
+                f"{len(ck.frontier)} walkers, this fleet has "
+                f"{self.walkers}; redistributing walkers comes with the "
+                "multi-device swarm slice")
+        dev = self.device
+
+        def t(name, dtype):
+            return torch.as_tensor(np.asarray(x[name]), device=dev
+                                   ).to(dtype)
+
+        self._gen = torch.Generator(device=dev)
+        self._gen.set_state(torch.as_tensor(
+            np.asarray(x["gen_state"], np.uint8)))
+        carry = self._fleet_carry(
+            torch.as_tensor(ck.frontier, device=dev),
+            t("depths", torch.int64), t("hists", torch.int32),
+            t("streak", torch.int64), t("seed_idx", torch.int64),
+            t("seeds", torch.int32), ck.visited_keys,
+            np.asarray(x["counters"], np.int64).reshape(-1))
+        return carry, ck.depth, ck.elapsed
 
     def _stats_dict(self, stats, rounds: int, elapsed: float) -> dict:
         (explored, fresh, revisit, restarts, over, vis_over,
@@ -683,6 +844,7 @@ class SwarmSearch(TensorSearch):
         out.swarm_overflow = sd["overflow_restarts"]
         out.visited_overflow = sd["vis_over"]
         out.compile_secs = round(self.compile_secs, 3)
+        out.resumed_from_depth = self._resumed_from_depth
         if out.swarm_overflow > OVERFLOW_WARN:
             warnings.warn(
                 f"{self.p.name}: {out.swarm_overflow} walker steps were "
@@ -714,7 +876,8 @@ class SwarmSearch(TensorSearch):
         rows = carry["hit_rows"].cpu().numpy()
         hist = carry["hit_hist"].cpu().numpy()
         depth = carry["hit_depth"].cpu().numpy()
-        seed_row = carry["seeds"][0].cpu().numpy()
+        seed_i = carry["hit_seed"].cpu().numpy()
+        pool = carry["seeds"].cpu().numpy()
         elapsed = time.time() - t0
         sd = self._stats_dict(stats, rounds, elapsed)
         for fi, fname in enumerate(self._flag_names):
@@ -722,7 +885,8 @@ class SwarmSearch(TensorSearch):
                 continue
             raw = [int(e) for e in hist[fi][:int(depth[fi])]]
             # The root the witness replays from (tpu/trace.py contract):
-            # the walker's seed state.
+            # the walker's seed state, a frontier row under seeding.
+            seed_row = pool[int(seed_i[fi])]
             self._trace_root = self._host_state(seed_row[None])
             st = self._host_state(rows[fi][None])
             if fname == "exc":

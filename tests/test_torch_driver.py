@@ -22,6 +22,10 @@ import run_tests as ref_driver
 from dslabs_tpu_torch import run_tests as port_driver
 from tests import torch_harness_cases as H
 
+# One intra-op thread, here and in every child (OMP_NUM_THREADS): the
+# suite runs several workers on a few cores.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PY = sys.executable
 
@@ -76,6 +80,7 @@ except junit.TestFailure as e:
 def _env(**kw):
     env = dict(os.environ)
     env.pop("DSLABS_SEARCH_BACKEND", None)
+    env["OMP_NUM_THREADS"] = "1"
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
     env.update(kw)

@@ -212,11 +212,21 @@ def _compiled_flagship():
     (dict(spill=True), None),
     (dict(telemetry=object()), None),
 ])
-def test_unported_options_raise(kw, proto):
-    """Options of later slices raise, naming the slice."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        p = t_pp(2) if proto is None else proto()
-        teng.TensorSearch(p, device="cpu", **kw)
+def test_unported_options_raise(kw, proto, tmp_path):
+    """Options of later slices raise, naming the slice (``telemetry``);
+    the options the spill + checkpoint slice ported (``checkpoint_path``,
+    ``checkpoint_every``, ``spill``) build and run to the plain search's
+    verdict and counts, ``run(resume=True)`` with no dump from the root."""
+    p = t_pp(2) if proto is None else proto()
+    if "telemetry" in kw:
+        with pytest.raises(NotImplementedError, match="slice"):
+            teng.TensorSearch(p, device="cpu", **kw)
+        return
+    if "checkpoint_path" in kw:
+        kw = {**kw, "checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
+    out = _port(p, **kw).run(resume=True)
+    assert _key(out) == _key(_port(p).run())
+    assert out.resumed_from_depth == 0
 
 
 @pytest.mark.parametrize("proto", [_compiled_flagship, lambda: t_pp(2)],
@@ -256,10 +266,17 @@ def test_symmetric_search_runs_on_the_port():
     assert sym.unique_states < raw.unique_states
 
 
-def test_unported_run_options_raise():
-    ts = _port(t_pp(2))
-    with pytest.raises(NotImplementedError):
-        ts.run(resume=True)
+def test_unported_run_options_raise(tmp_path):
+    """``run(resume=True)`` is ported: without a dump at
+    ``checkpoint_path`` both loops start from the root."""
+    for host in (False, True):
+        ts = _port(t_pp(2), use_host_visited=host,
+                   checkpoint_path=str(tmp_path / "none.npz"))
+        assert not ts.has_resumable_checkpoint()
+        out = ts.run(resume=True)
+        assert out.resumed_from_depth == 0
+        assert _key(out) == _key(_port(t_pp(2),
+                                       use_host_visited=host).run())
 
 
 def _import_roots(path):
@@ -282,7 +299,8 @@ def test_port_imports_no_jax():
                  "tpu/compiler.py", "tpu/specs_lab3.py", "tpu/packing.py",
                  "tpu/backend.py", "tpu/adapters/paxos.py",
                  "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
-                 "tpu/swarm.py", "search/search.py", "search/trace.py",
+                 "tpu/swarm.py", "tpu/checkpoint.py", "tpu/spill.py",
+                 "search/search.py", "search/trace.py",
                  "harness/__init__.py", "harness/annotations.py",
                  "harness/junit.py", "harness/runner.py", "harness/tee.py",
                  "runner/network.py", "runner/run_settings.py",

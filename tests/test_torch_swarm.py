@@ -38,10 +38,12 @@ from dslabs_tpu.tpu.protocols.pingpong import \
 from dslabs_tpu.tpu.protocols.primarybackup import \
     make_pb_protocol as j_pb  # noqa: E402
 from dslabs_tpu.tpu.sharded import make_mesh  # noqa: E402
+from dslabs_tpu_torch.tpu import checkpoint as tck  # noqa: E402
 from dslabs_tpu_torch.tpu import engine as teng  # noqa: E402
 from dslabs_tpu_torch.tpu import specs_lab3 as tlab3  # noqa: E402
 from dslabs_tpu_torch.tpu import specs_lab4 as tlab4  # noqa: E402
 from dslabs_tpu_torch.tpu import swarm as tsw  # noqa: E402
+from dslabs_tpu_torch.tpu import visited as visited_mod  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.clientserver import \
     make_clientserver_protocol as t_cs  # noqa: E402
 from dslabs_tpu_torch.tpu.protocols.pingpong import \
@@ -308,19 +310,156 @@ def test_walker_overflow_counted_and_warned():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(frontier_seed="bfs.npz"), "spill \\+ checkpoint"),
-    (dict(checkpoint_path="swarm.npz", checkpoint_every=1),
-     "spill \\+ checkpoint"),
+    (dict(frontier_seed="bfs.npz"), None),
+    (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
     (dict(mesh=2), "multi-device swarm"),
     (dict(mesh=["cuda:0", "cuda:1"]), "multi-device swarm"),
     (dict(telemetry=object()), "supervisor \\+ telemetry"),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
-def test_unported_options_raise_naming_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        tsw.SwarmSearch(t_pp(2), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="spill \\+ checkpoint"):
-        tsw.SwarmSearch(t_pp(2), device="cpu").run(resume=True)
+def test_unported_options_raise_naming_their_slice(kw, slice_name,
+                                                   tmp_path):
+    """Options of later slices raise, naming the slice; the options the
+    spill + checkpoint slice ported (``frontier_seed``, round
+    checkpoints) build and run."""
+    if slice_name is not None:
+        with pytest.raises(NotImplementedError, match=slice_name):
+            tsw.SwarmSearch(t_pp(2), device="cpu", **kw)
+        return
+    proto = _goal_pruned(t_pp(2))
+    if "frontier_seed" in kw:
+        kw = {"frontier_seed": _bfs_dump(proto, tmp_path)}
+    else:
+        kw = {**kw, "checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
+    out = _swarm(proto, max_rounds=1, **kw).run()
+    assert out.end_condition == "TIME_EXHAUSTED"
+    assert out.swarm["rounds"] == 1 and out.resumed_from_depth == 0
+    if "checkpoint_path" in kw:
+        assert tck.peek_depth(kw["checkpoint_path"]) == 1
+
+
+def _goal_pruned(p):
+    """No reachable violation (the goal pruned away), so rounds run to
+    their cap and checkpoints land (tests/test_swarm.py:246)."""
+    return dataclasses.replace(
+        p, goals={}, prunes={"CLIENTS_DONE": p.goals["CLIENTS_DONE"]})
+
+
+def _bfs_dump(proto, tmp_path, depth=2, name="bfs.npz"):
+    pth = str(tmp_path / name)
+    teng.TensorSearch(proto, chunk=64, max_depth=depth, checkpoint_path=pth,
+                      checkpoint_every=1, device="cpu").run()
+    assert tck.peek_depth(pth) == depth
+    return pth
+
+
+# ------------------------------------------ frontier seeding, checkpoints
+
+def _seed_check(pth, proto, seeded):
+    """The seeded fleet's pool is the dump's frontier and its table holds
+    exactly the dump's keys before the first step."""
+    ck = tck.load(pth, tck.config_fingerprint(proto, True))
+    sw = _swarm(proto, frontier_seed=pth, max_rounds=0)
+    state = sw._initial_or(None)
+    carry = sw._init_carry(state)
+    assert sw.preseeded_keys == len(ck.visited_keys) > 1
+    np.testing.assert_array_equal(carry["seeds"].numpy(), ck.frontier)
+    np.testing.assert_array_equal(
+        np.sort(visited_mod.host_occupied(carry["visited"]), axis=0),
+        np.sort(ck.visited_keys, axis=0))
+    assert seeded.end_condition == "TIME_EXHAUSTED"
+    assert seeded.swarm["vis_over"] == 0 and seeded.unique_states > 0
+
+
+def test_frontier_seeding_from_a_port_bfs_dump(tmp_path):
+    """tests/test_swarm.py:181 on the port: a fleet seeded from a mid-BFS
+    dump re-treads covered states at a lower rate than a root-started
+    one (the lock protocol's funnel)."""
+    proto = make_lock_protocol(m=6, k=10 ** 6, noise_bits=16)
+    pth = _bfs_dump(proto, tmp_path, depth=4)
+    kw = dict(walkers_per_device=16, max_steps=40, steps_per_round=40,
+              max_rounds=1, seed=5)
+    rooted = _swarm(proto, **kw).run()
+    seeded = _swarm(proto, frontier_seed=pth, **kw).run()
+    _seed_check(pth, proto, seeded)
+
+    def rate(o):
+        return o.swarm["revisits"] / max(o.swarm["explored"], 1)
+
+    assert rate(seeded) < rate(rooted)
+
+
+def test_frontier_seeding_from_a_jax_bfs_dump(tmp_path):
+    """A BFS dump of the JAX package seeds the port's swarm: the same
+    pool and pre-seeded key set as the port's own dump of that level."""
+    pth = str(tmp_path / "jax_bfs.npz")
+    jeng.TensorSearch(_goal_pruned(j_pp(3)), chunk=64, max_depth=3,
+                      checkpoint_path=pth, checkpoint_every=1).run()
+    proto = _goal_pruned(t_pp(3))
+    own = _bfs_dump(proto, tmp_path, depth=3, name="port_bfs.npz")
+    fp = tck.config_fingerprint(proto, True)
+    a, b = tck.load(pth, fp), tck.load(own, fp)
+    np.testing.assert_array_equal(np.sort(a.visited_keys, axis=0),
+                                  np.sort(b.visited_keys, axis=0))
+    seeded = _swarm(proto, frontier_seed=pth, max_rounds=1).run()
+    _seed_check(pth, proto, seeded)
+    again = _swarm(proto, frontier_seed=own, max_rounds=1).run()
+    assert again.swarm == {**seeded.swarm,
+                           "walkers_per_sec": again.swarm["walkers_per_sec"],
+                           "unique_per_min": again.swarm["unique_per_min"]}
+
+
+def test_cut_and_resume_is_an_identical_continuation(tmp_path):
+    """A frontier-seeded swarm cut after round 1 (which does not hit)
+    and resumed from its round checkpoint equals the uncut run: verdict,
+    raw and minimized witness, counters."""
+    proto = violating(t_pp(3))
+    kw = dict(walkers_per_device=8, max_steps=24, steps_per_round=2,
+              seed=3, frontier_seed=_bfs_dump(proto, tmp_path))
+    full = _swarm(proto, **kw).run()
+    assert full.end_condition == "INVARIANT_VIOLATED"
+    assert full.swarm["rounds"] > 1
+    sw_ck = str(tmp_path / "swarm.npz")
+    cut = _swarm(proto, max_rounds=1, checkpoint_path=sw_ck,
+                 checkpoint_every=1, **kw).run()
+    assert cut.end_condition == "TIME_EXHAUSTED"
+    assert tck.peek_depth(sw_ck) == 1
+    out = _swarm(proto, checkpoint_path=sw_ck, **kw).run(resume=True)
+    assert out.end_condition == full.end_condition
+    assert out.witness.raw_trace == full.witness.raw_trace
+    assert out.witness.trace == full.witness.trace
+    for k in ("explored", "unique", "revisits", "restarts", "deepest",
+              "rounds"):
+        assert out.swarm[k] == full.swarm[k], k
+    assert out.resumed_from_depth == 1
+
+
+def test_swarm_checkpoint_not_resumable_by_bfs(tmp_path):
+    """tests/test_swarm.py:246 on the port."""
+    proto = _goal_pruned(t_pp(2))
+    sw_ck = str(tmp_path / "swarm.npz")
+    _swarm(proto, max_rounds=1, checkpoint_path=sw_ck,
+           checkpoint_every=1).run()
+    bfs = teng.TensorSearch(proto, chunk=64, checkpoint_path=sw_ck,
+                            device="cpu")
+    assert not bfs.has_resumable_checkpoint()
+    with pytest.raises(tck.CheckpointMismatch):
+        bfs.run(resume=True)
+
+
+def test_jax_swarm_checkpoint_refused_by_the_port(tmp_path):
+    """A JAX swarm dump holds ``jax.random`` keys: the port's swarm
+    refuses it (fingerprint marker) instead of half-resuming it."""
+    sw_ck = str(tmp_path / "jax_swarm.npz")
+    jsw.SwarmSearch(_goal_pruned(j_pp(2)), mesh=make_mesh(1),
+                    walkers_per_device=16, max_steps=32, steps_per_round=32,
+                    seed=7, visited_cap=1 << 12, max_rounds=1,
+                    checkpoint_path=sw_ck, checkpoint_every=1).run()
+    assert tck.peek_depth(sw_ck) == 1
+    port = _swarm(_goal_pruned(t_pp(2)), checkpoint_path=sw_ck)
+    assert not port.has_resumable_checkpoint()
+    with pytest.raises(tck.CheckpointMismatch):
+        port.run(resume=True)
 
 
 def test_swarm_without_card_raises(monkeypatch):
