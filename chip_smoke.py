@@ -173,6 +173,30 @@ table) once.  Each phase prints one JSON line:
            run: seconds, unique states/min, peak device memory, the spill
            counters and drain ms, evictions and spooled segments, the
            dumps' sizes and write seconds, and each kernel's launches;
+  supervisor the search supervisor and the warden (tpu/supervisor.py,
+           tpu/warden.py) on the compiled packed flagship (strict, chunk
+           4096, frontier_cap and visited_cap 2^20) to depth 8 (316,096 /
+           1,495,288): probe_device on the card; a bare TensorSearch run
+           and SearchSupervisor(ladder=("device", "host")) fault-free,
+           with the pinned counts, zero recovery counters and equal
+           kernel launches; two injected transients on a depth-5 chunk
+           step (retries 2); an injected torch.cuda.OutOfMemoryError on
+           depth 6's first step, re-levelled in place at chunk 2048 from
+           the depth >= 4 dump, with memory_allocated before and after the
+           failed rung's release; a real 1 TiB allocation caught and
+           classified OOM; a fatal fault after the depth-5 dump failed
+           over to the host rung (run_host on the card), and a hung stats
+           sync abandoned by the 5 s watchdog and failed over, both
+           against a bare run to depth 7; a warden child SIGKILLed after
+           a durable dump and the next child resumed on the card (ladder
+           device, device, host); a warden child hung on a depth-6
+           chunk step on the card and reaped at its announced 5 s grace
+           plus slack, the next child resumed on the card to the pinned
+           counts (the same ladder); and
+           portfolio mode on the swarm phase's lock twin (the swarm lane's
+           replay-verified 12-event witness, the winning lane).  Per run:
+           seconds, peak device memory, the recovery fields and each
+           kernel's launches;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -180,8 +204,8 @@ table) once.  Each phase prints one JSON line:
            each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-launches those of the search, swarm, labtests, scenarios and spill
-phases' runs), the
+launches those of the search, swarm, labtests, scenarios, spill and
+supervisor phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -192,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -2518,6 +2543,290 @@ def phase_spill(torch, mods):
     return total
 
 
+# The supervisor phase: the flagship at full width through SearchSupervisor
+# and the warden, fault-free and under each kind of fault.
+SUP_DEPTH = 8
+SUP_FAILOVER_DEPTH = 7
+SUP_CAPS = dict(chunk=4096, frontier_cap=1 << 20, visited_cap=1 << 20)
+# The flagship's pinned depth-8 explored count (PERF.md §6).
+FLAGSHIP_D8_EXPLORED = 1495288
+SUP_DEADLINE = 5.0
+WARDEN_STEADY_GRACE = 5.0
+WARDEN_SLACK = 2.0
+WARDEN_FLAGSHIP = {
+    "factory": "dslabs_tpu_torch.tpu.specs_lab3:make_paxos_protocol",
+    "factory_kwargs": FLAGSHIP_KW,
+    "transform": "chip_smoke:strip_goals",
+}
+
+
+def strip_goals(proto):
+    """The flagship's goals stripped (the warden children rebuild the
+    main path's twin from its factory through this)."""
+    return dataclasses.replace(proto, goals={})
+
+
+def phase_supervisor(torch, mods):
+    """The search supervisor and the warden on the card (module
+    docstring).  Returns the kernels' launches over the phase's
+    in-process supervised runs."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu import supervisor as S
+    from dslabs_tpu_torch.tpu.warden import Warden
+
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    def recovery(o):
+        return dict(engine=o.engine, retries=o.retries,
+                    failovers=o.failovers, knob_retries=o.knob_retries,
+                    resumed_from_depth=o.resumed_from_depth,
+                    abandoned_threads=o.abandoned_threads,
+                    child_restarts=o.child_restarts,
+                    killed_dispatches=o.killed_dispatches)
+
+    def supervised(sup, resume=False):
+        """``sup.run()`` with the kernel counts read around it; what
+        earlier runs left is collected first, so that the memory read at
+        a release is the failed rung's own."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel_counts(mods)
+        t0 = time.time()
+        o = sup.run(resume=resume)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in kernel_counts(mods).items()}
+        for k in total:
+            total[k] += launches[k]
+        return o, dict(key=key(o), secs=time.time() - t0,
+                       peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                       launches=launches, **recovery(o))
+
+    def sup(depth=SUP_DEPTH, **kw):
+        return S.SearchSupervisor(flagship_protocol(), strict=True,
+                                  max_depth=depth, **SUP_CAPS, **kw)
+
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SUP_DEPTH]
+    clean = dict(engine="device", retries=0, failovers=0, knob_retries=0,
+                 resumed_from_depth=0, abandoned_threads=0,
+                 child_restarts=0, killed_dispatches=0)
+
+    # ---- the probe.
+    probe = S.probe_device()
+    check(probe["platform"] == "cuda", f"supervisor probe: {probe}")
+    emit({"phase": "supervisor", "part": "probe", **probe})
+
+    # ---- fault-free: a bare run, then the supervised one (with the
+    # kernel library loaded ahead of the run) and an observer that
+    # records each dispatch's (tag, index, depth).
+    bare = engine.TensorSearch(flagship_protocol(), strict=True,
+                               max_depth=SUP_DEPTH, **SUP_CAPS)
+    o_bare, r_bare = timed_search(torch, mods, bare)
+    check(r_bare["key"] == pinned, f"supervisor bare run: {r_bare}")
+    del bare
+    torch.cuda.empty_cache()
+    seen = []
+    o, r_free = supervised(sup(ladder=("device", "host"), aot_warmup=True,
+                               dispatch_observer=lambda ph, tag, i, d:
+                               seen.append((tag, i, d)) if ph == "start"
+                               else None))
+    check(r_free["key"] == pinned
+          and {k: r_free[k] for k in clean} == clean
+          and r_free["launches"] == r_bare["launches"]
+          and o.platform == "cuda" and o.compile_secs > 0,
+          f"supervisor fault-free: {r_free} against the bare {r_bare}")
+    emit({"phase": "supervisor", "part": "fault_free", "bare": r_bare,
+          "supervised": r_free, "compile_secs": o.compile_secs,
+          "dispatches": len(seen)})
+    torch.cuda.empty_cache()
+
+    def first_step(depth):
+        return next(i for tag, i, d in seen
+                    if tag == "device.step" and d == depth)
+
+    def first_sync(depth):
+        return next(i for tag, i, d in seen
+                    if tag == "device.sync" and d == depth)
+
+    recs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        # ---- transient: two injected transients on a warm chunk step.
+        at = first_step(5)
+        o, r = supervised(sup(fault_plan=S.FaultPlan().raise_at(at, count=2),
+                              policy=S.RetryPolicy(backoff_base=0.01)))
+        check(r["key"] == pinned and r["retries"] == 2
+              and r["failovers"] == 0 and r["engine"] == "device",
+              f"supervisor transient: {r}")
+        recs["transient"] = dict(at=at, **r)
+
+        # ---- OOM re-level: an injected CUDA OOM on the first step of
+        # depth 6, after the depth-4 and depth-5 dumps.
+        s = sup(fault_plan=S.FaultPlan().raise_at(
+                    first_step(6), error=torch.cuda.OutOfMemoryError,
+                    message="CUDA out of memory. Tried to allocate"),
+                checkpoint_path=os.path.join(tmp, "oom.npz"),
+                checkpoint_every=1)
+        mem = []
+        release = s._release
+
+        def traced(search, exc):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            release(search, exc)
+            torch.cuda.synchronize()
+            mem.append([before, torch.cuda.memory_allocated()])
+
+        s._release = traced
+        o, r = supervised(s)
+        check(r["key"] == pinned and r["knob_retries"] == 1
+              and r["failovers"] == 0 and r["engine"] == "device"
+              and r["resumed_from_depth"] >= 4
+              and s.last_search.chunk == SUP_CAPS["chunk"] // 2
+              and len(mem) == 1 and mem[0][1] < mem[0][0],
+              f"supervisor OOM re-level: {r}, memory {mem}")
+        recs["oom_relevel"] = dict(relevel_chunk=s.last_search.chunk,
+                                   memory_allocated_release=mem[0], **r)
+        del s
+        torch.cuda.empty_cache()
+
+        # ---- a real OOM.
+        try:
+            torch.empty(2 ** 40, dtype=torch.uint8, device="cuda")
+            real = None
+        except torch.cuda.OutOfMemoryError as e:
+            real = dict(type=type(e).__name__, oom=S.classify_oom(e),
+                        failure=S.classify_failure(e),
+                        message=str(e).splitlines()[0][:160])
+        torch.cuda.empty_cache()
+        check(real is not None and real["oom"] and real["failure"] == "fatal",
+              f"supervisor real OOM: {real}")
+        recs["real_oom"] = real
+
+        # ---- fatal, then failover to the host rung (run_host on the
+        # card), resumed from the depth-5 dump, against a bare device run
+        # to the same depth.
+        bare7 = engine.TensorSearch(flagship_protocol(), strict=True,
+                                    max_depth=SUP_FAILOVER_DEPTH, **SUP_CAPS)
+        o7, r7 = timed_search(torch, mods, bare7)
+        del bare7
+        torch.cuda.empty_cache()
+        o, r = supervised(sup(
+            depth=SUP_FAILOVER_DEPTH, ladder=("device", "host"),
+            fault_plan=S.FaultPlan().raise_at(
+                first_step(6), error=RuntimeError,
+                message="injected fatal fault"),
+            checkpoint_path=os.path.join(tmp, "fatal.npz"),
+            checkpoint_every=1))
+        check(r["key"] == r7["key"] and r["failovers"] == 1
+              and r["engine"] == "host" and r["resumed_from_depth"] >= 4,
+              f"supervisor fatal failover: {r} against {r7}")
+        recs["fatal_failover"] = dict(bare=r7, **r)
+        torch.cuda.empty_cache()
+
+        # ---- watchdog: a hang on a warm stats sync, abandoned at the
+        # deadline, failed over to the host rung from the last dump.
+        s = sup(depth=SUP_FAILOVER_DEPTH, ladder=("device", "host"),
+                fault_plan=S.FaultPlan().hang_at(first_sync(6), secs=600.0),
+                policy=S.RetryPolicy(deadline_secs=SUP_DEADLINE),
+                checkpoint_path=os.path.join(tmp, "hang.npz"),
+                checkpoint_every=1)
+        o, r = supervised(s)
+        check(r["key"] == r7["key"] and r["failovers"] == 1
+              and r["engine"] == "host"
+              and [f.kind for f in s.failures] == ["wedged"]
+              and r["abandoned_threads"] == 0,
+              f"supervisor watchdog: {r}")
+        recs["watchdog"] = dict(deadline_secs=SUP_DEADLINE, **r)
+        del s
+        torch.cuda.empty_cache()
+        emit({"phase": "supervisor", "part": "in_process", **recs})
+
+        # ---- the warden: a child SIGKILLed after a durable dump, the
+        # next child resumed on the card, the host rung unused.
+        w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
+                   max_depth=SUP_DEPTH, **SUP_CAPS,
+                   checkpoint_path=os.path.join(tmp, "warden.npz"),
+                   checkpoint_every=1,
+                   fault={"kind": "die", "at": first_step(6),
+                          "after_ckpt": True})
+        t0 = time.time()
+        o = w.run()
+        r_kill = dict(key=key(o), secs=time.time() - t0,
+                      platform=w.last_platform,
+                      deaths=[d.kind for d in w.deaths], **recovery(o))
+        check(r_kill["key"] == pinned and o.child_restarts == 1
+              and o.engine == "device" and w.last_platform == "cuda"
+              and o.platform == "cuda" and r_kill["deaths"] == ["oom"]
+              and o.resumed_from_depth >= 4,
+              f"supervisor warden kill: {r_kill}")
+
+        # ---- the warden: a child hung on a warm chunk step on the card
+        # after a durable dump, SIGKILLed at its announced grace; the
+        # next child resumes on the card, the host rung unused.
+        w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
+                   max_depth=SUP_DEPTH, **SUP_CAPS,
+                   checkpoint_path=os.path.join(tmp, "warden_hang.npz"),
+                   checkpoint_every=1,
+                   steady_grace=WARDEN_STEADY_GRACE,
+                   grace_slack=WARDEN_SLACK,
+                   fault={"kind": "hang", "at": first_step(6),
+                          "spawns": [0], "after_ckpt": True})
+        t0 = time.time()
+        o = w.run()
+        d = w.deaths[0]
+        hung = dict(key=key(o), secs=time.time() - t0, kind=d.kind,
+                    exitcode=d.exitcode, silent_secs=d.silent_secs,
+                    last_tag=d.last_hb and d.last_hb.get("tag"),
+                    last_grace=d.last_hb and d.last_hb.get("grace"),
+                    platform=w.last_platform, **recovery(o))
+        check(hung["key"] == pinned
+              and hung["kind"] == "wedge" and hung["exitcode"] == -9
+              and hung["killed_dispatches"] == 1
+              and hung["child_restarts"] == 1
+              and hung["last_tag"] == "device.step"
+              and hung["last_grace"] == WARDEN_STEADY_GRACE
+              and WARDEN_STEADY_GRACE <= hung["silent_secs"]
+              <= WARDEN_STEADY_GRACE + WARDEN_SLACK + 1.0
+              and hung["platform"] == "cuda" and o.platform == "cuda"
+              and hung["engine"] == "device"
+              and hung["resumed_from_depth"] >= 4,
+              f"supervisor warden hang: {hung}")
+        emit({"phase": "supervisor", "part": "warden", "killed": r_kill,
+              "hung": hung})
+
+    # ---- portfolio on the swarm phase's lock twin.
+    from tests import torch_harness_cases as H
+
+    lock = H.make_lock_protocol(m=8, k=12, noise_bits=22)
+    s = S.SearchSupervisor(
+        lock, ladder=("device",), chunk=4096, frontier_cap=1 << 20,
+        visited_cap=1 << 20, strict=False, max_secs=120.0, portfolio=True,
+        swarm_kwargs=dict(walkers_per_device=128, max_steps=240,
+                          steps_per_round=64, seed=0, visited_cap=1 << 14))
+    o, r = supervised(s)
+    w_ = o.witness
+    lanes = {k: dict(end=v.end_condition, secs=v.elapsed_secs,
+                     cancelled=v.cancelled)
+             for k, v in s.lanes.items() if k in ("bfs", "swarm")}
+    check(o.end_condition == "INVARIANT_VIOLATED" and w_ is not None
+          and w_.replay_verified and len(w_.trace) == 12,
+          f"supervisor portfolio: {r}, lanes {lanes}")
+    emit({"phase": "supervisor", "part": "portfolio",
+          "winner": s.lanes["winner"], "lanes": lanes,
+          "witness": [len(w_.raw_trace), len(w_.trace)], **r})
+    check(all(v > 0 for v in total.values()),
+          f"supervisor phase skipped a kernel: {total}")
+    emit({"phase": "supervisor", "secs": time.time() - t_phase,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -2593,6 +2902,7 @@ def main() -> int:
     lab_launches = run(phase_labtests)
     scen_launches = run(phase_scenarios)
     spill_launches = run(phase_spill)
+    sup_launches = run(phase_supervisor)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -2605,12 +2915,14 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": replaces[k][0],
          "replaces": replaces[k][1],
          "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
-                      + scen_launches[k] + spill_launches[k]),
+                      + scen_launches[k] + spill_launches[k]
+                      + sup_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
                               "scenarios": scen_launches[k],
-                              "spill": spill_launches[k]},
+                              "spill": spill_launches[k],
+                              "supervisor": sup_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

@@ -46,9 +46,10 @@ Deliberate differences from the reference: one ``TensorSearch`` on one
 device replaces ``ShardedTensorSearch`` over a mesh (a frontier past a
 rung's ``frontier_cap`` escalates the ladder, as the reference's strict
 frontier drops do, and the host keeps the visited set, so ``visited_cap``
-bounds nothing here); no transient-dispatch retry wraps the search or the
-probe; and the probe's warm-up (``compile_secs``) is not deducted from
-the BFS's budget.
+bounds nothing here); and the probe's warm-up (``compile_secs``) is not
+deducted from the BFS's budget.  As in the reference, the search and the
+probe each run under ``supervisor.install_retry``: a transient dispatch
+error retries with backoff instead of failing the lab test.
 """
 
 from __future__ import annotations
@@ -367,6 +368,7 @@ _LADDER = [(1 << 14, 1 << 19), (1 << 17, 1 << 22), (1 << 19, 1 << 24)]
 
 def _run_tensor(binding: TwinBinding, settings, state, device, chunk=512):
     from dslabs_tpu_torch.tpu.engine import CapacityOverflow, TensorSearch
+    from dslabs_tpu_torch.tpu.supervisor import install_retry
     from dslabs_tpu_torch.utils.flags import GlobalSettings
 
     net_cap, timer_cap = binding.initial_caps()
@@ -381,6 +383,11 @@ def _run_tensor(binding: TwinBinding, settings, state, device, chunk=512):
         search = TensorSearch(
             protocol, chunk=chunk, frontier_cap=f_cap, visited_cap=v_cap,
             strict=True, record_trace=True, device=device)
+        # Transient-dispatch retry (tpu/supervisor.py): a transient device
+        # error mid-search retries with backoff instead of failing the lab
+        # test; verdict flow is untouched (CapacityOverflow passes
+        # straight through to the capacity ladder below).
+        install_retry(search)
         search.set_runtime_masks(marr, tarr)
         rel = None
         if settings.depth_limited():
@@ -526,6 +533,7 @@ def _rollout_probe(binding, settings, state, device):
     import time
 
     from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+    from dslabs_tpu_torch.tpu.supervisor import install_retry
     from dslabs_tpu_torch.tpu.swarm import SwarmSearch
     from dslabs_tpu_torch.utils.flags import GlobalSettings
 
@@ -553,6 +561,7 @@ def _rollout_probe(binding, settings, state, device):
             return None, secs()
         search = SwarmSearch(protocol, walkers_per_device=128,
                              max_steps=min(rel, 192), seed=0, device=device)
+        install_retry(search)
         search.set_runtime_masks(marr, tarr)
         root, history = binding.derive_root(search, state)
         budget = 10.0 * GlobalSettings.time_scale

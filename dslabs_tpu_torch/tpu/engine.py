@@ -227,6 +227,30 @@ class SearchOutcome:
     respilled_frontier: int = 0
     spill_drain_ms: int = 0
     spill_wait_ms: int = 0
+    # Recovery accounting (tpu/supervisor.py, tpu/warden.py): transient
+    # dispatches retried in place, ladder rungs abandoned before this
+    # one, the rung that produced the verdict, warden children spawned
+    # past the first, dispatches SIGKILLed mid-flight, watchdog-abandoned
+    # threads still blocked, in-place knob-shrink re-levels, the mesh
+    # width of the rung (1 on one device) and its halvings.  Zero / None
+    # outside the supervisor.
+    retries: int = 0
+    failovers: int = 0
+    engine: Optional[str] = None
+    child_restarts: int = 0
+    killed_dispatches: int = 0
+    abandoned_threads: int = 0
+    knob_retries: int = 0
+    mesh_width: Optional[int] = None
+    mesh_shrinks: int = 0
+    # Portfolio cancellation: the run stopped at a level boundary because
+    # the other lane landed a terminal verdict first (TIME_EXHAUSTED
+    # shaped; never a standalone verdict).
+    cancelled: bool = False
+    # The device type the verdict's search ran on ("cuda" or "cpu"): a
+    # warden child forced off the card shows "cpu" here.  None outside
+    # the supervisor.
+    platform: Optional[str] = None
 
     @property
     def dropped_states(self) -> int:
@@ -530,6 +554,45 @@ def host_copy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+def read_only(fn):
+    """Mark a dispatch function that writes no state outliving the call
+    (a readback, or an expand that returns new tensors): the supervisor's
+    boundary may rerun it after it raised partway.  Unmarked functions
+    (a chunk step, a promote, an init) write the carry in place, and a
+    failure raised inside one is answered from the last checkpoint."""
+    fn.read_only = True
+    return fn
+
+
+@read_only
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A blocking readback, as the ``device.sync`` / ``device.flags``
+    dispatch sites run it."""
+    return t.cpu().numpy()
+
+
+@read_only
+def _fetch_occupied(table: torch.Tensor) -> np.ndarray:
+    """The spill eviction's fetch: the table's occupied lines, on the
+    host."""
+    return visited_mod.host_occupied(table)
+
+
+def _reset_nxt(carry: dict) -> None:
+    """The spill drain's reset: nxt restarts empty, the abort code
+    clears."""
+    carry["nxt_n"].zero_()
+    carry["f_drop"].zero_()
+
+
+def _reset_table(carry: dict) -> None:
+    """The spill eviction's reset: the table and ``vis_n`` restart empty
+    (a fresh epoch), the abort code clears."""
+    carry["visited"].fill_(visited_mod.EMPTY)
+    carry["vis_n"].zero_()
+    carry["f_drop"].zero_()
+
+
 def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[..., idx]`` where ``0 <= idx < NN`` and 0 elsewhere: the
     reference's one-hot select ``sum((idx == arange(NN)) * table)``.
@@ -565,8 +628,25 @@ class TensorSearch:
     (``run_host``, taken when ``record_trace`` or ``use_host_visited`` is
     set), with runtime delivery masks in both.  ``telemetry``, an option
     of the reference engine that the port does not have yet, raises
-    ``NotImplementedError`` naming the slice that brings it (supervisor
-    and telemetry).
+    ``NotImplementedError`` naming the slice that brings it (telemetry
+    and tracing).
+
+    The dispatch seam (:meth:`_dispatch`): every device dispatch and
+    blocking readback of both loops goes through one boundary, a plain
+    call until the search supervisor (``tpu/supervisor.py``) installs
+    its retry / watchdog / fault-injection hook.  Tags, as in the
+    reference: ``device.init`` (from the root, or the table rebuilt from
+    a dump), ``device.step``, ``device.sync`` (the stats readback),
+    ``device.promote``, ``device.flags`` (the terminal flag rows),
+    ``host.expand`` (``run_host``), and in spill mode
+    ``device.spill_drain``, ``device.spill_evict`` (each a read-only
+    fetch, then the reset) and ``device.spill_reinject``.  The carry is
+    updated in place, so a dispatch function that writes state outliving
+    the call cannot be rerun after it raised halfway: functions that
+    write nothing carry the :func:`read_only` mark, which the boundary
+    reads before it retries a failure raised inside one.  Each loop
+    publishes ``_current_depth`` as a level starts and checks
+    :meth:`_cancelled` at every level boundary (portfolio mode).
 
     Checkpoints (``tpu/checkpoint.py``): with ``checkpoint_path`` and
     ``checkpoint_every`` = k, every k-th level boundary writes the
@@ -585,7 +665,7 @@ class TensorSearch:
     abort points, so every count, ``spilled_keys``, ``host_tier_hits``
     and ``respilled_frontier`` included, equals the reference's.  The
     port's spill deliberately has no environment default
-    (``DSLABS_SPILL``), no ``_dispatch`` seam and no telemetry events.
+    (``DSLABS_SPILL``) and no telemetry events.
 
     ``symmetry=True`` (default off) hashes each state's canonical orbit
     representative under the protocol's symmetry groups
@@ -629,7 +709,7 @@ class TensorSearch:
                  symmetry: Optional[bool] = None,
                  device=None):
         if telemetry is not None:
-            raise _later("telemetry", "supervisor + telemetry")
+            raise _later("telemetry", "telemetry and tracing")
         if isinstance(spill, spill_mod.SpillConfig):
             self._spill = spill_mod.SpillManager(spill)
         elif spill:
@@ -643,6 +723,12 @@ class TensorSearch:
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
         self._resumed_from_depth = 0
+        # The dispatch seam's state: the supervisor's hook (None = plain
+        # calls), the portfolio lane's cancel event, and the depth of the
+        # level being expanded (read by heartbeats).
+        self._dispatch_hook = None
+        self._cancel_event = None
+        self._current_depth = 0
         self.p = protocol
         self.device = resolve_device(device)
         self.frontier_cap = frontier_cap
@@ -719,6 +805,26 @@ class TensorSearch:
         self._flag_names = (["exc"]
                             + [f"inv:{n}" for n in protocol.invariants]
                             + [f"goal:{n}" for n in protocol.goals])
+
+    def _dispatch(self, tag: str, fn, *args):
+        """The device-dispatch boundary: every hot-loop dispatch and
+        blocking readback of this engine goes through here.  With no hook
+        installed it is a plain call; the search supervisor installs its
+        retry / watchdog / fault-injection boundary as
+        ``_dispatch_hook``.  Tags are ``"<engine>.<site>"``: the engine
+        half keys the supervisor's fault plan and per-rung counters."""
+        hook = self._dispatch_hook
+        if hook is None:
+            return fn(*args)
+        return hook(tag, fn, *args)
+
+    def _cancelled(self) -> bool:
+        """Portfolio-lane cancellation: when the other lane lands a
+        terminal verdict first, the supervisor sets this event and every
+        run loop returns a TIME_EXHAUSTED outcome marked ``cancelled`` at
+        its next level boundary."""
+        ev = self._cancel_event
+        return ev is not None and ev.is_set()
 
     def set_runtime_masks(self, marr, tarr) -> None:
         """Install per-run delivery masks: ``marr`` / ``tarr`` (arrays or
@@ -1011,6 +1117,7 @@ class TensorSearch:
                                         exc, ok, t_over)
         return rows, ok & (ids >= 0).reshape(-1), over
 
+    @read_only
     def _expand_chunk(self, chunk_rows: torch.Tensor,
                       chunk_valid: torch.Tensor, ev_pass: int = 0,
                       masks=None, dedup: Optional[bool] = None):
@@ -1632,9 +1739,13 @@ class TensorSearch:
             if self.max_depth is not None and depth >= self.max_depth:
                 return exhausted("DEPTH_EXHAUSTED")
             if (self.max_secs is not None
-                    and time.time() - t0 > self.max_secs):
-                return exhausted("TIME_EXHAUSTED")
+                    and time.time() - t0 > self.max_secs) \
+                    or self._cancelled():
+                out = exhausted("TIME_EXHAUSTED")
+                out.cancelled = self._cancelled()
+                return out
             depth += 1
+            self._current_depth = depth
             if self.record_trace:
                 self._levels.append({"parent_rows": parent_rows,
                                      "event_ids": []})
@@ -1652,8 +1763,9 @@ class TensorSearch:
                         [chunk_rows, frontier[:1].expand(pad, -1)])
                 chunk_valid = torch.arange(C, device=dev) < c
                 (rows, valids, fp, unique, overflow, ev_rem, event_ids,
-                 flags) = self._expand_chunk(chunk_rows, chunk_valid, 0,
-                                             self._rt_masks)
+                 flags) = self._dispatch("host.expand", self._expand_chunk,
+                                         chunk_rows, chunk_valid, 0,
+                                         self._rt_masks)
                 n_over, n_rem = (int(x) for x in
                                  torch.stack([overflow, ev_rem]).cpu())
                 if n_over:
@@ -1974,7 +2086,7 @@ class TensorSearch:
                       t0, vis_over) -> SearchOutcome:
         """Resolve the first terminal flag (checkState order).  The flag
         rows are the one non-scalar readback, paid once per run."""
-        rows = carry["flag_rows"].cpu().numpy()
+        rows = self._dispatch("device.flags", to_host, carry["flag_rows"])
         for fi, fname in enumerate(self._flag_names):
             if flag_counts[fi] <= 0:
                 continue
@@ -2049,12 +2161,14 @@ class TensorSearch:
                 return SearchOutcome(
                     "SPACE_EXHAUSTED", ck.explored, len(ck.visited_keys),
                     ck.depth, time.time() - t0, visited_overflow=ck.vis_over)
-            carry = self._carry_from_ckpt(ck, cap)
+            carry = self._dispatch("device.init", self._carry_from_ckpt,
+                                   ck, cap)
             depth = ck.depth
             n_chunks = -(-len(ck.frontier) // C)
             last = (ck.explored, len(ck.visited_keys), ck.vis_over)
         else:
-            carry = self._build_dev_init(cap)(flatten_state(state))
+            carry = self._dispatch("device.init", self._build_dev_init(cap),
+                                   flatten_state(state))
             depth = 0
             n_chunks = 1
             last = (0, 1, 0)   # (explored, unique, vis_over) at the last sync
@@ -2065,26 +2179,36 @@ class TensorSearch:
                     or self._ev_tmr < p.n_nodes * p.timer_cap)
         nf = len(self._flag_names)
         while True:
-            if self.max_secs is not None and time.time() - t0 > self.max_secs:
+            if (self.max_secs is not None
+                    and time.time() - t0 > self.max_secs) \
+                    or self._cancelled():
                 return SearchOutcome(
                     "TIME_EXHAUSTED", last[0], last[1], depth,
-                    time.time() - t0, visited_overflow=last[2])
+                    time.time() - t0, visited_overflow=last[2],
+                    cancelled=self._cancelled())
             if self.max_depth is not None and depth >= self.max_depth:
                 return SearchOutcome(
                     "DEPTH_EXHAUSTED", last[0], last[1], depth,
                     time.time() - t0, visited_overflow=last[2])
             depth += 1
+            self._current_depth = depth
             j = ev_pass = 0
-            sdev = None
+            sdev = s = None
             while j < n_chunks:
-                sdev = step(carry, j, ev_pass)
-                if windowed and int(sdev[6]) > 0:
-                    ev_pass += 1
-                    continue
+                sdev = self._dispatch("device.step", step, carry, j, ev_pass)
+                if windowed:
+                    # The window remainder decides the next step: the
+                    # wave syncs per step (its last readback is the
+                    # wave's stats).
+                    s = self._dispatch("device.sync", to_host, sdev)
+                    if int(s[6]) > 0:
+                        ev_pass += 1
+                        continue
                 j += 1
                 ev_pass = 0
-            s = sdev.cpu().numpy()
-            promote(carry)
+            if not windowed:
+                s = self._dispatch("device.sync", to_host, sdev)
+            self._dispatch("device.promote", promote, carry)
             (explored, overflow, vis_over, f_drop, vis_n,
              nxt_n) = (int(x) for x in s[:6])
             flag_counts = s[7:7 + nf]
@@ -2152,9 +2276,10 @@ class TensorSearch:
     # frontier spool and, for a full table, evicting the table to the
     # host tier; and once the tier is live, each level boundary
     # refilters the would-be frontier against it.  The wave syncs once
-    # per chunk step (no speculation).  Deliberate difference: the
-    # reference routes each host round trip through its ``_dispatch``
-    # seam and fault plan; the port calls them directly.
+    # per chunk step (no speculation).  Each host round trip goes through
+    # the ``_dispatch`` seam as in the reference: the drain and the
+    # eviction are a read-only fetch and then the reset, each dispatched
+    # under the site's tag.
 
     @staticmethod
     def _pow2_bucket(n: int, cap: int) -> int:
@@ -2195,12 +2320,16 @@ class TensorSearch:
         later eviction; then nxt is reset on the device."""
         sp = self._spill
         if nxt_n:
-            rows_d = carry["nxt"][:nxt_n]
-            rows_u = self._pk.unpack(rows_d) if self._pk is not None \
-                else rows_d
-            keys = self._spill_keys_of(rows_u, cap).cpu().numpy()
-            keep = self._spill_keep_mask(rows_u).cpu().numpy()
-            rows = host_copy(rows_d)
+            @read_only
+            def fetch():
+                rows_d = carry["nxt"][:nxt_n]
+                rows_u = self._pk.unpack(rows_d) if self._pk is not None \
+                    else rows_d
+                return (host_copy(rows_d),
+                        self._spill_keys_of(rows_u, cap).cpu().numpy(),
+                        self._spill_keep_mask(rows_u).cpu().numpy())
+
+            rows, keys, keep = self._dispatch("device.spill_drain", fetch)
 
             def host_half():
                 idx = sp.refilter(
@@ -2209,26 +2338,28 @@ class TensorSearch:
                 sp.spool(rows[idx[keep[idx]]])
 
             sp.submit_drain(host_half)
-        carry["nxt_n"].zero_()
-        carry["f_drop"].zero_()
+        self._dispatch("device.spill_drain", _reset_nxt, carry)
 
     def _spill_evict_dev(self, carry) -> None:
         """Bulk eviction: the occupied table lines go to the host tier on
         the same ordered drain queue as the refilters, and the table and
         ``vis_n`` restart empty (a fresh epoch)."""
         sp = self._spill
-        occ = visited_mod.host_occupied(carry["visited"])
+        occ = self._dispatch("device.spill_evict", _fetch_occupied,
+                             carry["visited"])
         sp.submit_drain(lambda: sp.evict(occ))
-        carry["visited"].fill_(visited_mod.EMPTY)
-        carry["vis_n"].zero_()
-        carry["f_drop"].zero_()
+        self._dispatch("device.spill_evict", _reset_table, carry)
 
     def _spill_inject(self, carry, rows: np.ndarray) -> int:
         """A host segment of native (packed) rows becomes the live cur:
         a further wave at the same BFS depth."""
         n = len(rows)
-        carry["cur"][:n] = torch.from_numpy(rows).to(self.device)
-        carry["cur_n"].fill_(n)
+
+        def inject(c):
+            c["cur"][:n] = torch.from_numpy(rows).to(self.device)
+            c["cur_n"].fill_(n)
+
+        self._dispatch("device.spill_reinject", inject, carry)
         return n
 
     def _spill_wave(self, carry, step, cap: int, n_cur: int) -> np.ndarray:
@@ -2244,7 +2375,9 @@ class TensorSearch:
                     or self._ev_tmr < p.n_nodes * p.timer_cap)
         j = ev_pass = 0
         while True:
-            s = step(carry, j, ev_pass).cpu().numpy()
+            s = self._dispatch("device.sync", to_host,
+                               self._dispatch("device.step", step, carry,
+                                              j, ev_pass))
             code = int(s[3])
             vis_n, nxt_n = int(s[4]), int(s[5])
             if code:
@@ -2327,23 +2460,31 @@ class TensorSearch:
             if not len(ck.frontier):
                 return done("SPACE_EXHAUSTED", ck.explored,
                             len(ck.visited_keys), ck.depth)
-            carry, n_cur = self._spill_carry_from_ckpt(ck, cap)
+            carry, n_cur = self._dispatch("device.init",
+                                          self._spill_carry_from_ckpt, ck,
+                                          cap)
             depth = ck.depth
             explored = ck.explored
             unique = sp.unique(0)
         else:
             # A fresh run must not see an earlier run's tier or spool.
             sp.reset_run()
-            carry = self._build_dev_init(cap)(flatten_state(state))
+            carry = self._dispatch("device.init", self._build_dev_init(cap),
+                                   flatten_state(state))
             depth = 0
             n_cur = 1
             explored, unique = 0, 1
         while True:
-            if self.max_secs is not None and time.time() - t0 > self.max_secs:
-                return done("TIME_EXHAUSTED", explored, unique, depth)
+            if (self.max_secs is not None
+                    and time.time() - t0 > self.max_secs) \
+                    or self._cancelled():
+                out = done("TIME_EXHAUSTED", explored, unique, depth)
+                out.cancelled = self._cancelled()
+                return out
             if self.max_depth is not None and depth >= self.max_depth:
                 return done("DEPTH_EXHAUSTED", explored, unique, depth)
             depth += 1
+            self._current_depth = depth
             # ---- expand the level: cur, then every spooled segment of
             # the same level as a further wave.
             while True:
@@ -2382,7 +2523,7 @@ class TensorSearch:
             if not (sp.active or sp.should_evict(vis_n, V)):
                 if nxt_n == 0:
                     return done("SPACE_EXHAUSTED", explored, unique, depth)
-                promote(carry)
+                self._dispatch("device.promote", promote, carry)
                 n_cur = nxt_n
                 if self._ckpt_due(depth):
                     self._write_dev_ckpt(carry, depth, explored, 0, nxt_n,

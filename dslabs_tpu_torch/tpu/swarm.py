@@ -63,8 +63,18 @@ kernels and runs a zero-step round before the clock starts; sizes come
 from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
 fleet runs on one device, so a dump resumes only at its own walker
 count.  A mesh of more than one device comes with the multi-device
-swarm, and ``telemetry`` with the supervisor and telemetry slice; each
+swarm, and ``telemetry`` with the telemetry and tracing slice; each
 raises ``NotImplementedError`` until then.
+
+Dispatch seam (``TensorSearch._dispatch``, installed by the search
+supervisor): the fleet's init (from the root or a round dump) is
+``swarm.init``; each walk step, with its one-scalar first-hit read, is
+``swarm.step`` (the reference's ``swarm.round`` is one fused program of
+a round's steps; here a round is a host loop of walk steps, so no site
+needs a stretched watchdog deadline); the round's stats readback is
+``swarm.sync``; the first-hit capture readback is ``swarm.flags``.  The
+readbacks are read-only; init and the walk step write the fleet carry.
+A cancelled swarm (portfolio mode) stops at its next round boundary.
 
 Minimization replays batches of candidate traces with
 ``_step_batch``; see :func:`minimize_event_trace` for how a batch
@@ -90,7 +100,8 @@ from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          SearchOutcome, TensorProtocol,
                                          TensorSearch, _later,
-                                         flatten_state, host_copy)
+                                         flatten_state, host_copy,
+                                         read_only)
 
 __all__ = ["SwarmSearch", "Witness", "minimize_event_trace",
            "replay_events", "build_witness"]
@@ -357,6 +368,15 @@ def build_witness(search: TensorSearch, root_row, raw_trace: List[int],
 
 
 # ------------------------------------------------------------ the swarm
+
+@read_only
+def _hit_captures(carry: dict) -> tuple:
+    """The first-hit capture arrays on the host: counts, rows, histories,
+    depths, seed indices and the seed pool."""
+    return tuple(host_copy(carry[k]) for k in (
+        "hit_cnt", "hit_rows", "hit_hist", "hit_depth", "hit_seed",
+        "seeds"))
+
 
 def _mesh_size(mesh) -> int:
     """Devices of a ``mesh`` argument: None, a device count, a sequence
@@ -666,11 +686,20 @@ class SwarmSearch(TensorSearch):
         while k < budget:
             if deadline is not None and time.time() > deadline:
                 break
-            self._walk(carry)
             k += 1
-            if bool((carry["hit_cnt"] > 0).any()):
+            if self._dispatch("swarm.step", self._walk_and_check, carry):
                 break
         self.walk_secs += time.time() - t0
+        return self._dispatch("swarm.sync", self._round_stats, carry, k)
+
+    def _walk_and_check(self, carry: dict) -> bool:
+        """One walk step, then whether any flag has fired (the step's one
+        scalar read)."""
+        self._walk(carry)
+        return bool((carry["hit_cnt"] > 0).any())
+
+    @read_only
+    def _round_stats(self, carry: dict, k: int) -> np.ndarray:
         return torch.cat([
             torch.stack([carry[n] for n in (
                 "explored", "fresh", "revisit", "restarts", "over",
@@ -703,11 +732,12 @@ class SwarmSearch(TensorSearch):
         t_c = time.time()
         if self.device.type == "cuda":
             _build.lib()
-        resumed = self._load_swarm_ckpt() if resume else None
+        resumed = (self._dispatch("swarm.init", self._load_swarm_ckpt)
+                   if resume else None)
         if resumed is not None:
             carry, rounds, prev_elapsed = resumed
         else:
-            carry = self._init_carry(state)
+            carry = self._dispatch("swarm.init", self._init_carry, state)
             rounds, prev_elapsed = 0, 0.0
         self._round(carry, 0)
         self.compile_secs += time.time() - t_c
@@ -719,9 +749,12 @@ class SwarmSearch(TensorSearch):
             timed_out = deadline is not None and time.time() > deadline
             round_cap = (self.max_rounds is not None
                          and rounds >= self.max_rounds)
-            if timed_out or round_cap:
-                return self._exhaust_outcome(stats, rounds, t0)
+            if timed_out or round_cap or self._cancelled():
+                out = self._exhaust_outcome(stats, rounds, t0)
+                out.cancelled = self._cancelled()
+                return out
             rounds += 1
+            self._current_depth = rounds
             stats = self._round(carry, self.steps_per_round, deadline)
             vis_over, over = int(stats[5]), int(stats[4])
             fill = int(stats[1]) / (self.n_devices * self.visited_cap)
@@ -872,12 +905,8 @@ class SwarmSearch(TensorSearch):
         """First-hit resolution: one readback of the capture arrays,
         checkState flag order, then the witness pipeline (minimize +
         replay-verify) before the verdict is returned."""
-        cnts = carry["hit_cnt"].cpu().numpy()
-        rows = carry["hit_rows"].cpu().numpy()
-        hist = carry["hit_hist"].cpu().numpy()
-        depth = carry["hit_depth"].cpu().numpy()
-        seed_i = carry["hit_seed"].cpu().numpy()
-        pool = carry["seeds"].cpu().numpy()
+        cnts, rows, hist, depth, seed_i, pool = self._dispatch(
+            "swarm.flags", _hit_captures, carry)
         elapsed = time.time() - t0
         sd = self._stats_dict(stats, rounds, elapsed)
         for fi, fname in enumerate(self._flag_names):

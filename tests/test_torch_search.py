@@ -300,6 +300,7 @@ def test_port_imports_no_jax():
                  "tpu/backend.py", "tpu/adapters/paxos.py",
                  "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
                  "tpu/swarm.py", "tpu/checkpoint.py", "tpu/spill.py",
+                 "tpu/supervisor.py", "tpu/warden.py",
                  "search/search.py", "search/trace.py",
                  "harness/__init__.py", "harness/annotations.py",
                  "harness/junit.py", "harness/runner.py", "harness/tee.py",

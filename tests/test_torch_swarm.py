@@ -314,7 +314,7 @@ def test_walker_overflow_counted_and_warned():
     (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
     (dict(mesh=2), "multi-device swarm"),
     (dict(mesh=["cuda:0", "cuda:1"]), "multi-device swarm"),
-    (dict(telemetry=object()), "supervisor \\+ telemetry"),
+    (dict(telemetry=object()), "telemetry and tracing"),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
 def test_unported_options_raise_naming_their_slice(kw, slice_name,

@@ -501,3 +501,23 @@ def violating(proto):
     return dataclasses.replace(
         proto, goals={},
         invariants={"NOT_DONE": lambda s, f=done: ~f(s)})
+
+
+def pruned(proto):
+    """The completion goal as a prune (the supervisor tests' twins: the
+    search runs the whole space).  Module-level, so that a warden child
+    imports it by reference (``tests.torch_harness_cases:pruned``)."""
+    return dataclasses.replace(
+        proto, goals={}, prunes={"CLIENTS_DONE": proto.goals["CLIENTS_DONE"]})
+
+
+def pruned_without_jax(proto):
+    """:func:`pruned`, refusing to run in a process that has loaded JAX
+    or the JAX package (the warden child must import neither)."""
+    import sys
+
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "dslabs_tpu")]
+    if loaded:
+        raise RuntimeError(f"warden child loaded {loaded[:5]}")
+    return pruned(proto)
