@@ -44,7 +44,7 @@ table) once.  Each phase prints one JSON line:
            launches of one unpack call (a 4096-row chunk) and one pack
            call (the rows one chunk step appends on average) by CUDA
            events and under torch.profiler;
-  profile  the compiled flagship (packed) and the hand twin to depth 8
+  profile  the compiled flagship (packed) and the hand twin to depth 6
            under torch.profiler: the device's busy share (summed kernel
            time over wall time), device launches per chunk step, the
            ported kernels' device time, the insert's device launches
@@ -197,6 +197,31 @@ table) once.  Each phase prints one JSON line:
            replay-verified 12-event witness, the winning lane).  Per run:
            seconds, peak device memory, the recovery fields and each
            kernel's launches;
+  telemetry the telemetry layer (tpu/telemetry.py, tpu/tracing.py) on the
+           supervisor phase's flagship to depth 8 (316,096 / 1,495,288):
+           bare and recorded runs in turns (B, R, B, R; R with
+           Telemetry.for_checkpoint, the flight log and STATUS.json on),
+           with equal counts, equal dispatches per tag (a counting hook),
+           equal launches of each kernel and an equal count of
+           synchronising CUDA calls (set_sync_debug_mode("warn"), each
+           warning recorded), spans equal to dispatches and one level
+           record per depth of each attempt of the device loop; per run
+           its seconds, and the ratio of the medians, the flight log's
+           records and bytes, the p50 / p90 of device.step, .sync and
+           .promote and their summed walls (step = the host's launch
+           time, sync = device wait), in a process that earlier phases
+           have warmed (run alone, the phase first runs once uncounted); a
+           run under the torch.profiler window (4 steps), whose Chrome
+           trace must hold both kernels, and its device ms;
+           the supervisor with a recorder and one transient on a depth-5
+           step (rung and retry events, the spans' retries summing to the
+           outcome's); and a traced warden ladder (device, device, host)
+           whose first child hangs on depth 6's first step after a dump,
+           is reaped at its grace and resumed on the card to the pins: the
+           run dir's flight log keeps the dead child's open device.step,
+           watch names it, tracing.assemble gives both children under the
+           trace with every parent in the tree, and ``python -m
+           dslabs_tpu_torch.tpu.telemetry report|trace`` exit 0;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -204,8 +229,8 @@ table) once.  Each phase prints one JSON line:
            each kernel during that run (each must be > 0).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-launches those of the search, swarm, labtests, scenarios, spill and
-supervisor phases' runs), the
+launches those of the search, swarm, labtests, scenarios, spill,
+supervisor and telemetry phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -247,9 +272,16 @@ FP_OPS_PER_LANE = 28
 # build this keeps the whole script well inside its 1200 s limit even if
 # the wave that starts just before the budget is the largest one.
 SEARCH_MAX_SECS = 240.0
-# Depth of the profiled flagship search: deep enough that most chunks are
-# full (4096 states).
-PROFILE_DEPTH = 8
+# Depth of the compiled and trace phases' flagship runs: deep enough that
+# most chunks are full (4096 states).
+FLAGSHIP_DEPTH = 8
+# Depth of the profile phase's flagship runs, cut from 8 for the script's
+# 1,200 s limit: torch.profiler's processing of ~7,400 device records per
+# chunk step is most of the phase (134-176 s at depth 8 on H100 hosts,
+# 49 s at depth 6).  At depth 6 the run has 12 chunk steps, against 38 at
+# depth 8, and fewer of its chunks are full, so the phase's busy share
+# and launches per chunk step are not comparable with depth-8 figures.
+PROFILE_DEPTH = 6
 # bench.py's flagship configuration.
 FLAGSHIP_KW = dict(n=3, n_clients=2, w=1, max_slots=3, net_cap=64,
                    timer_cap=6)
@@ -2827,6 +2859,291 @@ def phase_supervisor(torch, mods):
     return total
 
 
+# The telemetry phase: the flagship at the supervisor phase's width and
+# depth, bare and recorded in turns, under a profiler window, under the
+# supervisor with a recorder, and as a traced warden ladder.
+TEL_PROFILE_STEPS = 4
+
+
+def dispatch_counter(counts):
+    """A ``_dispatch_hook`` counting dispatches per tag."""
+    def hook(tag, fn, *args):
+        counts[tag] = counts.get(tag, 0) + 1
+        return fn(*args)
+    return hook
+
+
+def counted_run(torch, mods, ts):
+    """``timed_search`` with a counting hook on the seam and the
+    synchronising CUDA calls counted (``set_sync_debug_mode("warn")``,
+    each warning recorded) -> (outcome, record + dispatches + syncs)."""
+    import warnings
+
+    counts = {}
+    ts._dispatch_hook = dispatch_counter(counts)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            o, rec = timed_search(torch, mods, ts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rec["dispatches"] = counts
+    sites = {}
+    for w in caught:
+        # The sync debug mode's own warning; set_sync_debug_mode's one-off
+        # prototype notice also says "synchronizing" and is not a sync.
+        if "called a synchronizing" in str(w.message):
+            at = f"{os.path.basename(w.filename)}:{w.lineno}"
+            sites[at] = sites.get(at, 0) + 1
+    rec["syncs"] = sum(sites.values())
+    rec["sync_sites"] = sites
+    return o, rec
+
+
+def level_runs(levels):
+    """Level records' depths split into runs that restart at depth 1 (a
+    frontier-buffer growth restarts the device loop from the root)."""
+    runs = []
+    for lv in levels:
+        if lv["depth"] == 1 or not runs:
+            runs.append([])
+        runs[-1].append(lv["depth"])
+    return runs
+
+
+def phase_telemetry(torch, mods, warm_up: bool = True):
+    """The telemetry layer on the card (module docstring).  ``warm_up``
+    runs the flagship once uncounted first, for a process in which no
+    earlier phase has run it.  Returns the kernels' launches over the
+    phase's in-process runs."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu import supervisor as S
+    from dslabs_tpu_torch.tpu import telemetry as T
+    from dslabs_tpu_torch.tpu import tracing
+    from dslabs_tpu_torch.tpu.warden import Warden
+
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SUP_DEPTH]
+
+    def search(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return engine.TensorSearch(flagship_protocol(), strict=True,
+                                   max_depth=SUP_DEPTH, **SUP_CAPS, **kw)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        # ---- bare against recorded, in turns: B, R, B, R, in a warm
+        # process (on an H100 the first run in a process made 96
+        # synchronising calls, each later run 72).
+        warm_secs = None
+        if warm_up:
+            o, r = timed_search(torch, mods, search())
+            add(r["launches"])
+            warm_secs = r["secs"]
+        runs = []
+        for i, kind in enumerate("BRBR"):
+            tel = None
+            if kind == "R":
+                tel = T.Telemetry.for_checkpoint(
+                    os.path.join(tmp, f"rec{i}", "search.ckpt"))
+            o, r = counted_run(torch, mods, search(telemetry=tel))
+            add(r["launches"])
+            if tel is not None:
+                tel.close()
+                recs = T.read_flight(tel.flight_log)
+                spans = [x for x in recs if x["t"] == "span"]
+                levels = [x for x in recs if x["t"] == "level"]
+                by_tag = {}
+                for s in spans:
+                    by_tag[s["tag"]] = by_tag.get(s["tag"], 0) + 1
+                lruns = level_runs(levels)
+                check(by_tag == r["dispatches"]
+                      and lruns[-1] == list(range(1, SUP_DEPTH + 1))
+                      and len(lruns) == by_tag["device.init"]
+                      and all(x == list(range(1, len(x) + 1))
+                              for x in lruns)
+                      and os.path.exists(tel.status_path),
+                      f"telemetry recorded run: spans {by_tag} against "
+                      f"dispatches {r['dispatches']}, levels {lruns}")
+                rep = T.build_report(recs)
+                r["flight"] = dict(
+                    records=len(recs),
+                    bytes=os.path.getsize(tel.flight_log),
+                    levels=len(levels), attempts=len(lruns),
+                    sites={t: {q: rep["sites"][t][q]
+                               for q in ("count", "p50", "p90", "total")}
+                           for t in ("device.step", "device.sync",
+                                     "device.promote")})
+                r["step_wall"] = rep["sites"]["device.step"]["total"]
+                r["sync_wall"] = rep["sites"]["device.sync"]["total"]
+                r["spans"] = len(spans)
+                if i == 1:
+                    step5 = next(s["i"] for s in spans
+                                 if s["tag"] == "device.step"
+                                 and s["depth"] == 5)
+                    step6 = next(s["i"] for s in spans
+                                 if s["tag"] == "device.step"
+                                 and s["depth"] == 6)
+            check(r["key"] == pinned, f"telemetry run {kind}{i}: {r}")
+            runs.append(r)
+        b, rr = runs[0::2], runs[1::2]
+        same = ("launches", "dispatches", "syncs")
+        check(all(x[k] == b[0][k] for x in runs for k in same)
+              and b[0]["syncs"] > 0,
+              "telemetry: bare and recorded runs differ in "
+              + json.dumps({f"{'BRBR'[i]}{i}": {k: x[k] for k in same}
+                            for i, x in enumerate(runs)})
+              + "; synchronising calls by site: "
+              + json.dumps([x["sync_sites"] for x in runs]))
+        med_b = statistics.median(x["secs"] for x in b)
+        med_r = statistics.median(x["secs"] for x in rr)
+        emit({"phase": "telemetry", "part": "bare_vs_recorded",
+              "runs": [{"kind": "BRBR"[i], "secs": x["secs"],
+                        "launches": x["launches"], "syncs": x["syncs"],
+                        "dispatches": sum(x["dispatches"].values()),
+                        "peak_mem_bytes": x["peak_mem_bytes"],
+                        **({"flight": x["flight"], "spans": x["spans"],
+                            "step_wall": x["step_wall"],
+                            "sync_wall": x["sync_wall"]}
+                           if "flight" in x else {})}
+                       for i, x in enumerate(runs)],
+              "median_ratio": med_r / med_b, "warm_up_secs": warm_secs,
+              "dispatches_by_tag": b[0]["dispatches"]})
+
+        # ---- the profiler window.
+        pdir = os.path.join(tmp, "profile")
+        tel = T.Telemetry(profile_dir=pdir,
+                          profile_steps=TEL_PROFILE_STEPS)
+        o, r = timed_search(torch, mods, search(telemetry=tel))
+        tel.close()
+        add(r["launches"])
+        win = tel.profile
+        check(r["key"] == pinned and win.error is None
+              and win.trace_path is not None
+              and os.path.exists(win.trace_path),
+              f"telemetry profiler window: {r}, error {win.error}")
+        with open(win.trace_path) as f:
+            ev = json.load(f)["traceEvents"]
+        kern = [e for e in ev if e.get("cat") == "kernel"]
+        names = {n: sum(1 for e in kern if n in e.get("name", ""))
+                 for n in ("fingerprint_rows_kernel", "insert_coop_kernel")}
+        check(all(v > 0 for v in names.values()),
+              f"telemetry profiler window: kernels {names} among "
+              f"{len(kern)} kernel events")
+        emit({"phase": "telemetry", "part": "profile_window",
+              "secs": r["secs"], "steps": TEL_PROFILE_STEPS,
+              "trace_bytes": os.path.getsize(win.trace_path),
+              "kernel_events": len(kern), "ported_kernel_events": names,
+              "device_ms": sum(e.get("dur", 0) for e in kern) / 1e3})
+
+        # ---- the supervisor under a recorder: one transient on a
+        # depth-5 chunk step.
+        tel = T.Telemetry()
+        sup = S.SearchSupervisor(
+            flagship_protocol(), ladder=("device", "host"), strict=True,
+            max_depth=SUP_DEPTH, telemetry=tel,
+            fault_plan=S.FaultPlan().raise_at(step5),
+            policy=S.RetryPolicy(backoff_base=0.01), **SUP_CAPS)
+        kernels, visited = mods["kernels"], mods["visited"]
+        kernels.LAUNCHES["fingerprint_rows"] = 0
+        visited.LAUNCHES["insert"] = 0
+        t0 = time.time()
+        o = sup.run()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        add(kernel_counts(mods))
+        kinds = [e["kind"] for e in tel.events if e.get("t") == "event"]
+        span_retries = sum(s["retries"] for s in tel.ring
+                           if s["t"] == "span")
+        check([o.end_condition, o.unique_states, o.states_explored,
+               o.depth] == pinned and o.retries == 1
+              and "rung" in kinds and "retry" in kinds
+              and span_retries == o.retries
+              and o.trace_id == tel.trace_id,
+              f"telemetry supervisor: retries {o.retries}, spans' "
+              f"{span_retries}, events {kinds}")
+        emit({"phase": "telemetry", "part": "supervisor", "at": step5,
+              "secs": secs, "retries": o.retries,
+              "span_retries": span_retries, "events": kinds,
+              "summary": {k: v for k, v in tel.summary().items()
+                          if k in ("spans", "dispatches", "events",
+                                   "levels")}})
+
+        # ---- a traced warden ladder: the first child hung on depth 6's
+        # first step after a dump and reaped; the next resumes on the card.
+        trace = tracing.mint_trace_id()
+        run_dir = os.path.join(tmp, "warden")
+        saved = os.environ.get(tracing.TRACE_ENV)
+        os.environ[tracing.TRACE_ENV] = trace
+        try:
+            w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
+                       max_depth=SUP_DEPTH, **SUP_CAPS,
+                       checkpoint_path=os.path.join(run_dir, "warden.npz"),
+                       checkpoint_every=1,
+                       steady_grace=WARDEN_STEADY_GRACE,
+                       grace_slack=WARDEN_SLACK,
+                       fault={"kind": "hang", "at": step6, "spawns": [0],
+                              "after_ckpt": True})
+            t0 = time.time()
+            o = w.run()
+            secs = time.time() - t0
+        finally:
+            if saved is None:
+                os.environ.pop(tracing.TRACE_ENV, None)
+            else:
+                os.environ[tracing.TRACE_ENV] = saved
+        recs, torn = tracing.read_flight_lax(
+            os.path.join(run_dir, "flight.jsonl"))
+        segs = tracing.segment_flight(recs)
+        dead = segs[0]["in_flight"] if segs else None
+        watch = T.render_watch(run_dir)
+        tr = tracing.assemble(run_dir)
+        nodes = tr["jobs"][0]["nodes"]
+        ids = {n["span_id"] for n in nodes}
+        cli = {}
+        for cmd in ("report", "trace"):
+            p = subprocess.run(
+                [sys.executable, "-m", "dslabs_tpu_torch.tpu.telemetry",
+                 cmd, run_dir], capture_output=True, text=True, cwd=ROOT,
+                timeout=120)
+            cli[cmd] = [p.returncode, len(p.stdout)]
+        check([o.end_condition, o.unique_states, o.states_explored,
+               o.depth] == pinned and o.platform == "cuda"
+              and [d.kind for d in w.deaths] == ["wedge"]
+              and len(segs) == 2
+              and all(s["meta"].get("trace_id") == trace for s in segs)
+              and dead is not None and dead["tag"] == "device.step"
+              and segs[1]["in_flight"] is None
+              and "in-flight" in watch
+              and tr["jobs"][0]["trace_id"] == trace
+              and sum(1 for n in nodes if n["kind"] == "run") == 2
+              and any(n["kind"] == "in_flight" for n in nodes)
+              and all(n["parent"] is None or n["parent"] in ids
+                      for n in nodes)
+              and all(v[0] == 0 for v in cli.values()),
+              f"telemetry warden: {o.end_condition} {o.unique_states} "
+              f"{o.states_explored}, deaths {[d.kind for d in w.deaths]}, "
+              f"segments {len(segs)}, dead {dead}, cli {cli}")
+        emit({"phase": "telemetry", "part": "warden", "secs": secs,
+              "trace_id": trace, "segments": len(segs), "torn_lines": torn,
+              "in_flight": {k: dead[k] for k in ("tag", "i", "depth")},
+              "resumed_from_depth": o.resumed_from_depth,
+              "nodes": len(nodes), "phases": tr["jobs"][0]["phases"],
+              "cli": cli})
+    check(all(v > 0 for v in total.values()),
+          f"telemetry phase skipped a kernel: {total}")
+    emit({"phase": "telemetry", "secs": time.time() - t_phase,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -2893,9 +3210,9 @@ def main() -> int:
 
     kres = run(phase_kernels, gen)
     run(phase_parity)
-    run(phase_compiled, PROFILE_DEPTH)
+    run(phase_compiled, FLAGSHIP_DEPTH)
     run(phase_profile, PROFILE_DEPTH)
-    run(phase_trace, PROFILE_DEPTH)
+    run(phase_trace, FLAGSHIP_DEPTH)
     run(phase_harness)
     run(phase_lab4)
     swarm_launches = run(phase_swarm)
@@ -2903,6 +3220,7 @@ def main() -> int:
     scen_launches = run(phase_scenarios)
     spill_launches = run(phase_spill)
     sup_launches = run(phase_supervisor)
+    tel_launches = run(phase_telemetry, False)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -2916,13 +3234,14 @@ def main() -> int:
          "replaces": replaces[k][1],
          "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
                       + scen_launches[k] + spill_launches[k]
-                      + sup_launches[k]),
+                      + sup_launches[k] + tel_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
                               "scenarios": scen_launches[k],
                               "spill": spill_launches[k],
-                              "supervisor": sup_launches[k]},
+                              "supervisor": sup_launches[k],
+                              "telemetry": tel_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

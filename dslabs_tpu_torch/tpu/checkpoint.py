@@ -42,9 +42,16 @@ back to ``.prev`` with a warning on a torn or corrupt main dump and raises
 :class:`CheckpointCorrupt` when no candidate verifies.
 :class:`AsyncCheckpointWriter` is the skip-if-busy background writer.
 
+The run directory: :func:`run_dir_layout` names everything a
+checkpointed run keeps beside its dump (the flight recorder, STATUS.json
+and the cost ledger of ``tpu/telemetry.py`` and ``tpu/tracing.py``), under
+the reference's names, so both packages lay a run dir out alike.
+
 Deliberate differences from the reference: the per-level archive copy
-(``DSLABS_MEMO_LEVELS``) belongs to the memo service and is not ported,
-nor are the run-directory path helpers.
+(``DSLABS_MEMO_LEVELS``) belongs to the memo service and is not ported;
+the layout keeps the reference's ``compile_cache`` entry, but the port
+compiles nothing there (its kernels build once per checkout, in
+``tpu/_build.py``).
 """
 
 from __future__ import annotations
@@ -60,7 +67,57 @@ import numpy as np
 
 __all__ = ["FORMAT_VERSION", "CheckpointMismatch", "CheckpointCorrupt",
            "SearchCheckpoint", "config_fingerprint", "save", "load",
-           "peek_fingerprint", "peek_depth", "AsyncCheckpointWriter"]
+           "peek_fingerprint", "peek_depth", "AsyncCheckpointWriter",
+           "default_flight_log", "default_status_path",
+           "default_costs_path", "run_dir_layout"]
+
+
+def _beside(checkpoint_path, name: str) -> Optional[str]:
+    """``name`` in the dump's directory; None without a checkpoint."""
+    if not checkpoint_path:
+        return None
+    return os.path.join(os.path.dirname(os.path.abspath(checkpoint_path)),
+                        name)
+
+
+def default_flight_log(checkpoint_path) -> Optional[str]:
+    """The telemetry flight recorder of a checkpointed run: a
+    ``flight.jsonl`` beside the dump, so a killed or wedged run leaves its
+    dispatch trail next to the state it would resume from."""
+    return _beside(checkpoint_path, "flight.jsonl")
+
+
+def default_status_path(checkpoint_path) -> Optional[str]:
+    """The live monitor's ``STATUS.json`` beside the dump, rewritten
+    atomically at level boundaries (``telemetry watch <run-dir>``)."""
+    return _beside(checkpoint_path, "STATUS.json")
+
+
+def default_costs_path(checkpoint_path) -> Optional[str]:
+    """The append-only cost ledger (``tracing.CostMeter``) of a
+    standalone checkpointed run: ``COSTS.jsonl`` beside the dump."""
+    return _beside(checkpoint_path, "COSTS.jsonl")
+
+
+def run_dir_layout(checkpoint_path) -> dict:
+    """Everything a checkpointed run keeps in its directory:
+
+      checkpoint     the atomic ``.npz`` dump (and its ``.prev`` rotation)
+      compile_cache  the reference's compile-cache directory name, kept
+                     so that both packages name a run dir's files alike;
+                     the port writes nothing there
+      flight_log     the telemetry flight recorder
+      status         the live monitor's STATUS.json
+      costs          the append-only cost ledger
+    """
+    return {
+        "checkpoint": checkpoint_path,
+        "prev": (checkpoint_path + ".prev") if checkpoint_path else None,
+        "compile_cache": _beside(checkpoint_path, "compile_cache"),
+        "flight_log": default_flight_log(checkpoint_path),
+        "status": default_status_path(checkpoint_path),
+        "costs": default_costs_path(checkpoint_path),
+    }
 
 # Shared with the reference: a dump of either package names this format.
 FORMAT_VERSION = "dslabs-search-ckpt-v7"

@@ -53,6 +53,7 @@ from dslabs_tpu_torch.tpu import kernels, packing as packing_mod
 from dslabs_tpu_torch.tpu import spill as spill_mod
 from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu._build import resolve_device
+from dslabs_tpu_torch.tpu.telemetry import skew_metrics
 # The plain fingerprint lives beside its kernel; re-exported here where the
 # reference engine defines it.
 from dslabs_tpu_torch.tpu.kernels import row_fingerprints
@@ -251,6 +252,9 @@ class SearchOutcome:
     # warden child forced off the card shows "cpu" here.  None outside
     # the supervisor.
     platform: Optional[str] = None
+    # The causal trace this verdict belongs to (tpu/tracing.py), stamped
+    # from the attached telemetry recorder.  None outside any trace.
+    trace_id: Optional[str] = None
 
     @property
     def dropped_states(self) -> int:
@@ -626,10 +630,16 @@ class TensorSearch:
     Ports both loops of the reference: the device-resident wave loop
     (``_run_device``) and the trace-recording host-dedup loop
     (``run_host``, taken when ``record_trace`` or ``use_host_visited`` is
-    set), with runtime delivery masks in both.  ``telemetry``, an option
-    of the reference engine that the port does not have yet, raises
-    ``NotImplementedError`` naming the slice that brings it (telemetry
-    and tracing).
+    set), with runtime delivery masks in both.
+
+    ``telemetry`` (a ``tpu/telemetry.py`` recorder, or attach one with
+    ``Telemetry.attach``): every ``_dispatch`` becomes a flight-recorder
+    span, and each loop hands the recorder one level record per level
+    (depth, wall, explored, unique, next frontier, table load, one-lane
+    per-device block and skew; the fault block with a fault model, the
+    drain wall split in spill mode) and the verdict, all built from the
+    scalars the loop has read already: no added dispatch, sync or
+    readback.  A verdict carries the recorder's ``trace_id``.
 
     The dispatch seam (:meth:`_dispatch`): every device dispatch and
     blocking readback of both loops goes through one boundary, a plain
@@ -665,7 +675,7 @@ class TensorSearch:
     abort points, so every count, ``spilled_keys``, ``host_tier_hits``
     and ``respilled_frontier`` included, equals the reference's.  The
     port's spill deliberately has no environment default
-    (``DSLABS_SPILL``) and no telemetry events.
+    (``DSLABS_SPILL``).
 
     ``symmetry=True`` (default off) hashes each state's canonical orbit
     representative under the protocol's symmetry groups
@@ -708,8 +718,11 @@ class TensorSearch:
                  packed: Optional[bool] = None,
                  symmetry: Optional[bool] = None,
                  device=None):
-        if telemetry is not None:
-            raise _later("telemetry", "telemetry and tracing")
+        # The telemetry recorder (None = no spans, no level records), and
+        # the explored count of spill mode's last level record (kept over
+        # runs, as the reference keeps it).
+        self._telemetry = telemetry
+        self._spill_prev_explored = 0
         if isinstance(spill, spill_mod.SpillConfig):
             self._spill = spill_mod.SpillManager(spill)
         elif spill:
@@ -812,8 +825,13 @@ class TensorSearch:
         installed it is a plain call; the search supervisor installs its
         retry / watchdog / fault-injection boundary as
         ``_dispatch_hook``.  Tags are ``"<engine>.<site>"``: the engine
-        half keys the supervisor's fault plan and per-rung counters."""
+        half keys the supervisor's fault plan and per-rung counters.  An
+        attached telemetry recorder wraps the whole chain, hook included,
+        so each dispatch is one span."""
         hook = self._dispatch_hook
+        tel = self._telemetry
+        if tel is not None:
+            return tel.record_dispatch(self, tag, hook, fn, *args)
         if hook is None:
             return fn(*args)
         return hook(tag, fn, *args)
@@ -1226,13 +1244,24 @@ class TensorSearch:
         ``checkpoint_path`` when a dump of this configuration exists
         there (``CheckpointMismatch`` when the dump is another's)."""
         self._resumed_from_depth = 0
+        tel = self._telemetry
+        if self._spill is not None:
+            # Spill evictions, spools and reinjections become events.
+            self._spill.telemetry = tel
         if self.record_trace or self.use_host_visited:
             out = self.run_host(check_initial, initial, resume=resume)
+            eng = "host"
         else:
             out = self._run_device(check_initial, initial, resume=resume)
+            eng = "device"
         out.resumed_from_depth = self._resumed_from_depth
         self._stamp_capacity(out)
-        return self._stamp_faults(out)
+        self._stamp_faults(out)
+        if tel is not None:
+            if out.trace_id is None:
+                out.trace_id = tel.trace_id
+            tel.on_outcome(out, engine=eng)
+        return out
 
     def random_rollouts(self, n_walkers: int = 256, n_steps: int = 64,
                         seed: int = 0, initial: Optional[dict] = None,
@@ -1253,6 +1282,8 @@ class TensorSearch:
             ev_budget=(self._ev_msg, self._ev_tmr), device=self.device)
         if self._rt_masks is not None:
             sw.set_runtime_masks(*self._rt_masks)
+        # The probe's dispatches and rounds go to this engine's recorder.
+        sw._telemetry = self._telemetry
         out = sw.run(initial=initial, check_initial=False)
         # decode_trace reads the walk root off whichever search the caller
         # holds.
@@ -1270,6 +1301,40 @@ class TensorSearch:
         out.symmetry_perms = (self.p.symmetry.n_perms
                               if self._canon is not None else 0)
         return out
+
+    def _fault_block(self) -> dict:
+        """The ``faults`` block of level records and STATUS.json: this
+        run's fault-event counts by family."""
+        fc = self._fault_counts
+        return {"partition_events": int(fc[0]),
+                "crash_events": int(fc[1]),
+                "drop_events": int(fc[2]),
+                "dup_events": int(fc[3]),
+                "fault_events": int(fc.sum())}
+
+    def _feed_level(self, engine: str, depth: int, t_lvl: float,
+                    explored: int, prev_explored: int, unique: int,
+                    nxt_n: int, vis_n: Optional[int] = None,
+                    spill: Optional[dict] = None) -> None:
+        """Hand the recorder one level record, the reference's keys and
+        values, from host scalars the loop already holds.  ``vis_n`` is
+        the device table's occupancy (None on the host loop, which keeps
+        no table: no ``load_factor``); ``spill`` the drain wall split."""
+        delta = [explored - prev_explored]
+        rec = {"depth": depth, "wall": round(time.time() - t_lvl, 4),
+               "explored": explored, "unique": unique,
+               "next_frontier": int(nxt_n)}
+        lf = 0.0
+        if vis_n is not None:
+            lf = rec["load_factor"] = round(vis_n / self.visited_cap, 4)
+        if spill is not None:
+            rec["spill"] = spill
+        rec["per_device"] = {"explored": delta, "frontier": [int(nxt_n)],
+                             "load_factor": [lf], "drops": [0]}
+        rec["skew"] = {"explored": skew_metrics(delta)}
+        if self.p.fault is not None:
+            rec["faults"] = self._fault_block()
+        self._telemetry.on_level(engine, rec)
 
     def _stamp_faults(self, out: SearchOutcome) -> SearchOutcome:
         """Attach the run's fault-event counts by family (zeros without a
@@ -1690,6 +1755,7 @@ class TensorSearch:
                 "(per-level trace spills cannot be rebuilt from a "
                 "checkpoint); rerun without record_trace")
         self._levels = []
+        self._host_prev_explored = 0
         self._fault_counts[:] = 0
         samples = None
         if ck is not None:
@@ -1746,6 +1812,7 @@ class TensorSearch:
                 return out
             depth += 1
             self._current_depth = depth
+            t_lvl = time.time()
             if self.record_trace:
                 self._levels.append({"parent_rows": parent_rows,
                                      "event_ids": []})
@@ -1833,6 +1900,11 @@ class TensorSearch:
             if not expand.any():
                 return exhausted("SPACE_EXHAUSTED")
             keep_idx = np.nonzero(expand)[0]
+            if self._telemetry is not None:
+                self._feed_level("host", depth, t_lvl, explored,
+                                 self._host_prev_explored, len(visited[0]),
+                                 len(keep_idx))
+                self._host_prev_explored = explored
             parent_rows = rows_np[keep_idx]
             frontier_n = len(keep_idx)
             if self.record_trace:
@@ -2192,6 +2264,7 @@ class TensorSearch:
                     time.time() - t0, visited_overflow=last[2])
             depth += 1
             self._current_depth = depth
+            t_wave = time.time()
             j = ev_pass = 0
             sdev = s = None
             while j < n_chunks:
@@ -2238,6 +2311,9 @@ class TensorSearch:
                     f"{p.name}: visited table > 75% full "
                     f"({vis_n}/{self.visited_cap}) at depth {depth}; "
                     "raise visited_cap")
+            if self._telemetry is not None:
+                self._feed_level("device", depth, t_wave, explored, last[0],
+                                 vis_n, nxt_n, vis_n=vis_n)
             last = (explored, vis_n, vis_over)
             self._last_dev_carry = carry
             if flag_counts.any():
@@ -2485,6 +2561,7 @@ class TensorSearch:
                 return done("DEPTH_EXHAUSTED", explored, unique, depth)
             depth += 1
             self._current_depth = depth
+            t_lvl = time.time()
             # ---- expand the level: cur, then every spooled segment of
             # the same level as a further wave.
             while True:
@@ -2518,6 +2595,13 @@ class TensorSearch:
                 if seg is None:
                     break
                 n_cur = self._spill_inject(carry, seg)
+            if self._telemetry is not None:
+                # With the drain's wall split since the last level: host
+                # seconds inside drain jobs beside those blocked on them.
+                self._feed_level("device", depth, t_lvl, explored,
+                                 self._spill_prev_explored, unique, nxt_n,
+                                 vis_n=vis_n, spill=sp.level_walls())
+                self._spill_prev_explored = explored
             # ---- level boundary: the plain promote until the tier or
             # the spool is live.
             if not (sp.active or sp.should_evict(vis_n, V)):

@@ -36,11 +36,18 @@ Checkpoints stay tier-agnostic (``tpu/checkpoint.py``): ``visited_keys``
 is the deduplicated union of the device table and the tier, the frontier
 holds every spooled segment, and the counters ride ``extra__spill_stats``.
 
+Telemetry (``tpu/telemetry.py``): with a recorder on
+``SpillManager.telemetry`` (the engine sets it at run start), each
+eviction, spooled batch and reinjected segment is an event
+(``spill_evict``, ``spill_spool``, ``spill_reinject``), and
+:meth:`SpillManager.level_walls` gives the per-level drain wall split
+that spill-mode level records carry.  Evictions and spools run on the
+drain worker's thread; the recorder's lock orders them.
+
 Deliberate differences from the reference: every size and switch comes
 from :class:`SpillConfig` arguments (the ``DSLABS_SPILL*``,
 ``DSLABS_VISITED_WARN`` and ``DSLABS_DROPPED_WARN`` environment knobs are
-not ported), and the telemetry events and per-level wall split belong to
-the telemetry slice.
+not ported).
 """
 
 from __future__ import annotations
@@ -351,6 +358,11 @@ class SpillManager:
         self.spool_next = FrontierSpool()   # level being assembled
         self.stats = SpillStats()
         self._worker: Optional[_DrainWorker] = None
+        # The drain walls (busy, wait) at the last level_walls() call.
+        self._walls_reported = (0.0, 0.0)
+        # The telemetry recorder, set by the engine at run start (None =
+        # no events).
+        self.telemetry = None
         # Device-table inserts of this epoch that duplicate a tier key
         # (refilter hits); reset at each eviction.
         self.dup_epoch = 0
@@ -365,6 +377,7 @@ class SpillManager:
         self.spool_next = FrontierSpool()
         self.stats = SpillStats()
         self.dup_epoch = 0
+        self._walls_reported = (0.0, 0.0)
         if self._worker is not None:
             self._worker.busy_secs = 0.0
 
@@ -396,6 +409,21 @@ class SpillManager:
             self.stats.drain_wait_ms += int((time.time() - t0) * 1000)
             self.stats.drain_wall_ms = int(w.busy_secs * 1000)
 
+    def level_walls(self) -> dict:
+        """The drain's wall split since the last call: seconds inside
+        drain jobs, seconds the search loop blocked on them, and their gap
+        (host work hidden behind the device)."""
+        busy = (self._worker.busy_secs if self._worker is not None
+                else 0.0)
+        self.stats.drain_wall_ms = int(busy * 1000)
+        wait = self.stats.drain_wait_ms / 1000.0
+        pb, pw = self._walls_reported
+        self._walls_reported = (busy, wait)
+        return {"drain_wall": round(busy - pb, 4),
+                "drain_wait": round(wait - pw, 4),
+                "drain_overlap": round(max(0.0, (busy - pb)
+                                           - (wait - pw)), 4)}
+
     # ------------------------------------------------------------ state
 
     @property
@@ -424,6 +452,9 @@ class SpillManager:
         self.stats.spilled_keys += n_new
         self.stats.evictions += 1
         self.dup_epoch = 0
+        if self.telemetry is not None:
+            self.telemetry.event("spill_evict", keys=n_new,
+                                 tier=len(self.tier))
         return n_new
 
     def refilter(self, rows: np.ndarray, keys: np.ndarray) -> np.ndarray:
@@ -445,12 +476,20 @@ class SpillManager:
         if len(rows):
             self.stats.respilled_frontier += len(rows)
             self.spool_next.push(rows)
+            if self.telemetry is not None:
+                self.telemetry.event(
+                    "spill_spool", rows=len(rows),
+                    spool_rows=sum(len(r) for r in self.spool_next.segments),
+                    tier=len(self.tier))
 
     def pop_current(self) -> Optional[np.ndarray]:
         self.barrier()
         seg = self.spool_cur.pop()
         if seg is not None:
             self.stats.reinjections += 1
+            if self.telemetry is not None:
+                self.telemetry.event("spill_reinject", rows=len(seg),
+                                     tier=len(self.tier))
         return seg
 
     def advance_level(self) -> None:

@@ -66,10 +66,18 @@ Sticky CUDA errors (an illegal memory access, a device-side assert, an
 unspecified launch failure) poison the process's context and classify
 ``fatal``; only a warden child recovers from one.
 
+Telemetry (``tpu/telemetry.py``): ``telemetry=`` on the boundary makes
+every injected fault, in-place retry and abandoned dispatch an event
+(``fault_inject``, ``retry``, ``wedged``), and a span's ``retries`` counts
+the retries its dispatch absorbed; on the supervisor it is attached to
+every rung's engine (and the portfolio's swarm lane) and adds the
+ladder's events (``rung``, ``failover``, ``capacity_retry``,
+``knobs_shrunk``, ``lane``, ``lane_winner``); the verdict carries the
+recorder's ``trace_id``.
+
 Not in the port yet: the ``sharded`` rung and the elastic width ladder
 (``"sharded"`` in a ladder raises ``NotImplementedError``; ``elastic``
-is accepted and has nothing to expand), and ``telemetry=`` (raises,
-naming the telemetry and tracing slice).  ``aot_warmup=True`` loads the
+is accepted and has nothing to expand).  ``aot_warmup=True`` loads the
 built kernels before the run and reports that time on
 ``compile_secs``.  The reference's environment knobs
 (``DSLABS_ABANDONED_WARN``, ``DSLABS_ELASTIC``, ``DSLABS_KNOB_SHRINKS``)
@@ -391,9 +399,9 @@ class DispatchBoundary:
     def __init__(self, policy: Optional[RetryPolicy] = None,
                  plan: Optional[FaultPlan] = None,
                  observer=None, telemetry=None):
-        if telemetry is not None:
-            raise _later("telemetry", "telemetry and tracing")
         self.policy = policy or RetryPolicy()
+        # The telemetry recorder of fault, retry and wedge events.
+        self.telemetry = telemetry
         self.plan = plan
         self.retries = 0
         self.timeouts = 0
@@ -461,6 +469,9 @@ class DispatchBoundary:
             self.site_counts[(engine, site)] = sidx + 1
             rule = (self.plan.match(engine, idx, site, sidx)
                     if self.plan else None)
+            if rule is not None and self.telemetry is not None:
+                self.telemetry.event("fault_inject", engine=engine,
+                                     site=site, index=idx, fault=rule.kind)
             ran = False
             try:
                 if self.observer is not None:
@@ -482,6 +493,9 @@ class DispatchBoundary:
                 raise
             except DispatchTimeout as e:
                 self.timeouts += 1
+                if self.telemetry is not None:
+                    self.telemetry.event("wedged", engine=engine, site=site,
+                                         index=idx)
                 raise EngineFailure(engine, "wedged", e)
             except Exception as e:  # noqa: BLE001 - classified below
                 if classify_failure(e) != "transient":
@@ -496,6 +510,10 @@ class DispatchBoundary:
                     raise EngineFailure(engine, "retries_exhausted", e)
                 self._engine_retries[engine] = used + 1
                 self.retries += 1
+                if self.telemetry is not None:
+                    self.telemetry.event("retry", engine=engine, site=site,
+                                         index=idx, attempt=used + 1,
+                                         error=type(e).__name__)
                 time.sleep(self._backoff(used))
 
     def _backoff(self, attempt: int) -> float:
@@ -612,7 +630,9 @@ class SearchSupervisor:
     failure first re-levels the rung in place with a halved chunk (up to
     :data:`MAX_KNOB_SHRINKS` times).  The returned ``SearchOutcome`` carries
     ``retries`` / ``failovers`` / ``engine`` / ``knob_retries`` /
-    ``resumed_from_depth``, so no degradation is silent."""
+    ``resumed_from_depth``, so no degradation is silent.  ``telemetry``
+    (a ``tpu/telemetry.py`` recorder) is attached to every rung and
+    receives the ladder's events."""
 
     def __init__(self, protocol,
                  ladder: Tuple[str, ...] = ("device", "host"),
@@ -646,8 +666,7 @@ class SearchSupervisor:
                              "sharded, multi-device swarm and chaos")
             if rung not in ("device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
-        if telemetry is not None:
-            raise _later("telemetry", "telemetry and tracing")
+        self.telemetry = telemetry
         self.protocol = protocol
         self.ladder = tuple(ladder)
         self.device = resolve_device(device)
@@ -794,8 +813,10 @@ class SearchSupervisor:
         installed on every rung."""
         from dslabs_tpu_torch.tpu.engine import CapacityOverflow
 
+        tel = self.telemetry
         self.boundary = DispatchBoundary(self.policy, self.fault_plan,
-                                         observer=self.dispatch_observer)
+                                         observer=self.dispatch_observer,
+                                         telemetry=tel)
         self.failures = []
         self.knob_retries = 0
         warm = self._warm_up()
@@ -809,8 +830,12 @@ class SearchSupervisor:
                 self.boundary.install(search, engine=rung)
                 self.boundary.reset_budget(rung)
                 search._cancel_event = cancel
+                search._telemetry = tel
                 do_resume = ((resume or i > 0 or shrink > 0)
                              and search.has_resumable_checkpoint())
+                if tel is not None:
+                    tel.event("rung", engine=rung, index=i,
+                              resume=bool(do_resume), width=1, shrink=shrink)
                 try:
                     out = search.run(check_initial=check_initial,
                                      initial=initial, resume=do_resume)
@@ -823,8 +848,16 @@ class SearchSupervisor:
                         # spike costs a re-level, not a rung.
                         shrink += 1
                         self.knob_retries += 1
+                        if tel is not None:
+                            tel.event("knobs_shrunk", engine=rung,
+                                      shrink=shrink,
+                                      chunk=max(1, self.chunk >> shrink),
+                                      width=1, error=str(e.cause)[:200])
                         continue
                     self.failures.append(e)
+                    if tel is not None:
+                        tel.event("failover", engine=rung, failure=e.kind,
+                                  width=1, error=str(e.cause)[:200])
                 except CapacityOverflow as e:
                     if self.spill != "ladder":
                         raise
@@ -845,6 +878,8 @@ class SearchSupervisor:
             out.abandoned_threads = self.boundary.abandoned_alive()
             out.compile_secs += warm
             out.platform = search.device.type
+            if out.trace_id is None and tel is not None:
+                out.trace_id = tel.trace_id
             self.last_platform = out.platform
             self.last_search = search
             return out
@@ -867,6 +902,10 @@ class SearchSupervisor:
             search = self._build(rung, cfg, shrink=shrink)
             self.boundary.install(search, engine=rung)
             search._cancel_event = cancel
+            search._telemetry = self.telemetry
+            if self.telemetry is not None:
+                self.telemetry.event("capacity_retry", engine=rung,
+                                     host_cap=cfg.host_cap)
             self._last_capacity_search = search
             try:
                 return search.run(check_initial=check_initial,
@@ -914,6 +953,9 @@ class SearchSupervisor:
             lanes[name] = out
             if out.end_condition in terminal:
                 lanes.setdefault("winner", name)
+                if self.telemetry is not None:
+                    self.telemetry.event("lane_winner", lane=name,
+                                         end=out.end_condition)
                 cancel.set()
 
         def bfs_lane():
@@ -934,9 +976,11 @@ class SearchSupervisor:
         def swarm_lane():
             try:
                 sw = self._build_swarm()
-                boundary = DispatchBoundary(self.policy, self.fault_plan)
+                boundary = DispatchBoundary(self.policy, self.fault_plan,
+                                            telemetry=self.telemetry)
                 boundary.install(sw, engine="swarm")
                 sw._cancel_event = cancel
+                sw._telemetry = self.telemetry
                 out = sw.run(resume=resume, initial=initial,
                              check_initial=False)
                 out.engine = "swarm"
@@ -946,6 +990,8 @@ class SearchSupervisor:
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 lanes["swarm_err"] = e
 
+        if self.telemetry is not None:
+            self.telemetry.event("lane", lanes="bfs+swarm")
         threads = [threading.Thread(target=bfs_lane, daemon=True,
                                     name="dslabs-portfolio-bfs"),
                    threading.Thread(target=swarm_lane, daemon=True,
@@ -994,8 +1040,8 @@ class SearchSupervisor:
             max_secs=self.max_secs, chunk=self.chunk,
             frontier_cap=self.frontier_cap,
             visited_cap=self.visited_cap, ev_budget=self.ev_budget,
-            aot_warmup=self.aot_warmup, device=self.device,
-            **(self.warden_kwargs or {}))
+            aot_warmup=self.aot_warmup, telemetry=self.telemetry,
+            device=self.device, **(self.warden_kwargs or {}))
         try:
             return warden.run(resume=resume)
         finally:

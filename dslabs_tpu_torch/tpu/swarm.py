@@ -63,8 +63,14 @@ kernels and runs a zero-step round before the clock starts; sizes come
 from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
 fleet runs on one device, so a dump resumes only at its own walker
 count.  A mesh of more than one device comes with the multi-device
-swarm, and ``telemetry`` with the telemetry and tracing slice; each
-raises ``NotImplementedError`` until then.
+swarm and raises ``NotImplementedError`` until then.
+
+Telemetry (``telemetry=``, ``tpu/telemetry.py``): the warm-up is a
+``compile`` event (the kernel library's load and the zero-step round),
+each round a level record of engine ``swarm`` (explored, unique,
+restarts, deepest, a one-lane ``per_device`` block and its skew, the
+card's peak allocated bytes) built from the round's stats readback, and
+the verdict an outcome record; the dispatches are spans.
 
 Dispatch seam (``TensorSearch._dispatch``, installed by the search
 supervisor): the fleet's init (from the root or a round dump) is
@@ -97,6 +103,7 @@ import torch
 from dslabs_tpu_torch.tpu import _build, kernels
 from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
 from dslabs_tpu_torch.tpu import visited as visited_mod
+from dslabs_tpu_torch.tpu import telemetry as tel_mod
 from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          SearchOutcome, TensorProtocol,
                                          TensorSearch, _later,
@@ -724,9 +731,15 @@ class SwarmSearch(TensorSearch):
             if out is not None:
                 return out
         try:
-            return self._run_rounds(state, resume)
+            out = self._run_rounds(state, resume)
         finally:
             self._join_ckpt_writer()
+        tel = self._telemetry
+        if tel is not None:
+            if out.trace_id is None:
+                out.trace_id = tel.trace_id
+            tel.on_outcome(out, engine="swarm")
+        return out
 
     def _run_rounds(self, state, resume: bool = False) -> SearchOutcome:
         t_c = time.time()
@@ -741,6 +754,13 @@ class SwarmSearch(TensorSearch):
             rounds, prev_elapsed = 0, 0.0
         self._round(carry, 0)
         self.compile_secs += time.time() - t_c
+        tel = self._telemetry
+        if tel is not None:
+            # The warm-up as an event, not a span: spans stay equal to
+            # dispatches.
+            tel.event("compile", engine="swarm",
+                      secs=round(time.time() - t_c, 4), aot=True)
+        prev_explored = 0
         t0 = time.time() - prev_elapsed
         deadline = None if self.max_secs is None else t0 + self.max_secs
         stats = None
@@ -755,7 +775,11 @@ class SwarmSearch(TensorSearch):
                 return out
             rounds += 1
             self._current_depth = rounds
+            t_round = time.time()
             stats = self._round(carry, self.steps_per_round, deadline)
+            if tel is not None:
+                prev_explored = self._feed_round(tel, stats, rounds,
+                                                 t_round, prev_explored)
             vis_over, over = int(stats[5]), int(stats[4])
             fill = int(stats[1]) / (self.n_devices * self.visited_cap)
             if (fill >= VISITED_WARN
@@ -783,6 +807,28 @@ class SwarmSearch(TensorSearch):
                     "net/timer caps (strict swarm); raise the caps")
             if self._ckpt_due(rounds):
                 self._save_swarm_ckpt(carry, rounds, time.time() - t0)
+
+    def _feed_round(self, tel, stats, rounds: int, t_round: float,
+                    prev_explored: int) -> int:
+        """One round's level record from its stats readback (one lane:
+        the fleet runs on one device).  Returns the round's explored
+        count, the next round's baseline."""
+        explored, fresh = int(stats[0]), int(stats[1])
+        restarts, deepest = int(stats[3]), int(stats[6])
+        delta = [explored - prev_explored]
+        rec = {"depth": rounds, "wall": round(time.time() - t_round, 4),
+               "explored": explored, "unique": fresh, "next_frontier": 0,
+               "deepest": deepest, "restarts": restarts,
+               "per_device": {"explored": delta, "unique": [fresh],
+                              "restarts": [restarts],
+                              "deepest": [deepest]},
+               "skew": {"explored": tel_mod.skew_metrics(delta),
+                        "unique": tel_mod.skew_metrics([fresh])}}
+        hbm = tel_mod.device_memory_stats([self.device])
+        if hbm is not None:
+            rec["hbm_peak"] = hbm
+        tel.on_level("swarm", rec)
+        return explored
 
     # ------------------------------------------------------- checkpoints
 

@@ -41,11 +41,17 @@ runs each rung in a process of its own instead:
   this class; outcomes keep the recovery accounting plus
   ``child_restarts`` and ``killed_dispatches``.
 
-:class:`LineWatch` is the shared child-stream monitor.  Not in the port
-yet: the child's run-dir telemetry recorder (the telemetry and tracing
-slice; the reference treats it as optional).  The trace identity
-(``DSLABS_TRACE_ID`` / ``DSLABS_PARENT_SPAN``) is forwarded to each
-child as the reference forwards it.
+* **Telemetry.**  ``Warden(telemetry=...)`` re-emits each child
+  heartbeat as a ``heartbeat`` event and each reaped child as a
+  ``child_death`` event, parent-side.  A checkpointed child records its
+  own run into the run dir (``Telemetry.for_checkpoint``: the flight log
+  and STATUS.json beside the dump); a resumed child appends a segment to
+  the same flight log, so ``telemetry watch|report|trace <run-dir>``
+  show the whole ladder, the dead child's in-flight dispatch included.
+  The trace identity (``DSLABS_TRACE_ID`` / ``DSLABS_PARENT_SPAN``,
+  ``tpu/tracing.py``) is forwarded to each child.
+
+:class:`LineWatch` is the shared child-stream monitor.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import time
 from typing import List, Optional, Tuple
 
 from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
+from dslabs_tpu_torch.tpu import tracing as tracing_mod
 from dslabs_tpu_torch.tpu.supervisor import (CHILD_RC_FAILED, EngineFailure,
                                              RetryPolicy,
                                              SupervisorExhausted,
@@ -74,29 +81,6 @@ __all__ = ["Warden", "LineWatch", "classify_death", "outcome_to_dict",
 # PYTHONPATH so ``-m dslabs_tpu_torch.tpu.warden`` resolves from any cwd.
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-# Trace propagation: one env pair threads a trace through the process
-# tree (the reference's tpu/tracing.py contract).
-TRACE_ENV = "DSLABS_TRACE_ID"
-PARENT_ENV = "DSLABS_PARENT_SPAN"
-
-
-def _current_trace() -> Tuple[Optional[str], Optional[str]]:
-    """The (trace_id, parent_span) this process inherited, or (None,
-    None) outside any trace."""
-    return (os.environ.get(TRACE_ENV) or None,
-            os.environ.get(PARENT_ENV) or None)
-
-
-def _child_trace_env(trace_id: Optional[str],
-                     parent_span: Optional[str]) -> dict:
-    """The env additions that thread a trace into a child process."""
-    env = {}
-    if trace_id:
-        env[TRACE_ENV] = trace_id
-    if parent_span:
-        env[PARENT_ENV] = parent_span
-    return env
 
 
 def classify_death(exitcode: Optional[int],
@@ -123,7 +107,7 @@ _SCALAR_FIELDS = (
     "killed_dispatches", "abandoned_threads", "mesh_width", "mesh_shrinks",
     "knob_retries", "cancelled", "fault_events", "partition_events",
     "crash_events", "drop_events", "dup_events", "spilled_keys",
-    "host_tier_hits", "respilled_frontier", "platform")
+    "host_tier_hits", "respilled_frontier", "platform", "trace_id")
 
 
 def outcome_to_dict(out) -> dict:
@@ -283,8 +267,6 @@ class Warden:
         from dslabs_tpu_torch.tpu._build import resolve_device
         from dslabs_tpu_torch.tpu.supervisor import _later
 
-        if telemetry is not None:
-            raise _later("telemetry", "telemetry and tracing")
         for rung in ladder:
             if rung == "sharded":
                 raise _later("the sharded rung",
@@ -319,7 +301,9 @@ class Warden:
         self.grace_slack = grace_slack
         self.fault = fault
         self.env = env or {}
-        env_trace, env_parent = _current_trace()
+        # Parent-side recorder of the children's heartbeats and deaths.
+        self.telemetry = telemetry
+        env_trace, env_parent = tracing_mod.current_trace()
         self.trace_id = trace_id or env_trace
         self.parent_span = parent_span or env_parent
         self.failures: List[EngineFailure] = []
@@ -377,7 +361,8 @@ class Warden:
         env.update(self.env)
         # Trace identity after self.env: an explicit warden-level trace
         # wins over whatever the caller's env carried.
-        env.update(_child_trace_env(self.trace_id, self.parent_span))
+        env.update(tracing_mod.child_trace_env(self.trace_id,
+                                               self.parent_span))
         return env
 
     def _run_child(self, rung: str, resume: bool) -> dict:
@@ -450,6 +435,13 @@ class Warden:
             if t == "hb":
                 last_hb = msg
                 grace = float(msg.get("grace", self.steady_grace))
+                if self.telemetry is not None:
+                    self.telemetry.event(
+                        "heartbeat", rung=rung, phase=msg.get("phase"),
+                        tag=msg.get("tag"), n=msg.get("n"),
+                        depth=msg.get("depth"),
+                        ckpt_depth=msg.get("ckpt_depth"),
+                        grace=msg.get("grace"))
                 continue
             if t == "result":
                 proc.wait()
@@ -503,6 +495,13 @@ class Warden:
                                last_hb=res.get("last_hb"),
                                silent_secs=res.get("silent_secs"))
             self.deaths.append(death)
+            if self.telemetry is not None:
+                # The death's class rides as ``failure``: ``kind`` is the
+                # event's own name (the supervisor's failover events use
+                # the same field).
+                self.telemetry.event(
+                    "child_death", rung=rung, failure=death.kind,
+                    exitcode=death.exitcode, detail=death.detail[:200])
             self.failures.append(EngineFailure(
                 rung, death.kind, RuntimeError(death.detail)))
         raise SupervisorExhausted(self.failures)
@@ -615,6 +614,18 @@ def _child_main() -> int:
                    "depth": depth, "ckpt_depth": st["ckpt_depth"],
                    "grace": idle_g})
 
+    # A checkpointed child records its run into the run dir (flight log
+    # and STATUS.json beside the dump); a resumed child appends to the
+    # same flight log.  Never fatal: an unwritable dir runs unrecorded.
+    child_tel = None
+    if ckpt_path:
+        try:
+            from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+            child_tel = Telemetry.for_checkpoint(
+                ckpt_path, engine_hint=f"warden-child:{rung}")
+        except Exception:  # noqa: BLE001 - observability is optional
+            child_tel = None
     try:
         sup = SearchSupervisor(
             proto, ladder=(rung,), policy=policy,
@@ -627,7 +638,8 @@ def _child_main() -> int:
             frontier_cap=spec.get("frontier_cap", 1 << 14),
             visited_cap=spec.get("visited_cap", 1 << 20),
             ev_budget=ev, aot_warmup=spec.get("aot_warmup", False),
-            dispatch_observer=observer, device=spec.get("device"))
+            dispatch_observer=observer, telemetry=child_tel,
+            device=spec.get("device"))
         out = sup.run(resume=bool(spec.get("resume")))
     except BaseException as e:  # noqa: BLE001 - reported over the pipe
         kind = "failed"
@@ -636,6 +648,9 @@ def _child_main() -> int:
         _send({"t": "err", "kind": kind,
                "error": f"{type(e).__name__}: {e}"[:500]})
         return CHILD_RC_FAILED
+    finally:
+        if child_tel is not None:
+            child_tel.close()
     _send({"t": "result", "outcome": outcome_to_dict(out),
            "platform": sup.last_search.device.type})
     return 0

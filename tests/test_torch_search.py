@@ -210,23 +210,26 @@ def _compiled_flagship():
     (dict(checkpoint_path="ck.npz"), None),
     (dict(checkpoint_every=2), None),
     (dict(spill=True), None),
-    (dict(telemetry=object()), None),
+    (dict(telemetry=True), None),
 ])
 def test_unported_options_raise(kw, proto, tmp_path):
-    """Options of later slices raise, naming the slice (``telemetry``);
-    the options the spill + checkpoint slice ported (``checkpoint_path``,
-    ``checkpoint_every``, ``spill``) build and run to the plain search's
-    verdict and counts, ``run(resume=True)`` with no dump from the root."""
+    """The options later slices ported build and run to the plain
+    search's verdict and counts, ``run(resume=True)`` with no dump from
+    the root: ``checkpoint_path``, ``checkpoint_every`` and ``spill``
+    (the spill + checkpoint slice) and ``telemetry`` (the telemetry and
+    tracing slice, with one level record per level)."""
     p = t_pp(2) if proto is None else proto()
     if "telemetry" in kw:
-        with pytest.raises(NotImplementedError, match="slice"):
-            teng.TensorSearch(p, device="cpu", **kw)
-        return
+        from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+        kw = {"telemetry": Telemetry()}
     if "checkpoint_path" in kw:
         kw = {**kw, "checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
     out = _port(p, **kw).run(resume=True)
     assert _key(out) == _key(_port(p).run())
     assert out.resumed_from_depth == 0
+    if "telemetry" in kw:
+        assert len(kw["telemetry"].levels) == out.depth
 
 
 @pytest.mark.parametrize("proto", [_compiled_flagship, lambda: t_pp(2)],
@@ -301,6 +304,7 @@ def test_port_imports_no_jax():
                  "tpu/specs_lab4.py", "tpu/adapters/shardstore.py",
                  "tpu/swarm.py", "tpu/checkpoint.py", "tpu/spill.py",
                  "tpu/supervisor.py", "tpu/warden.py",
+                 "tpu/telemetry.py", "tpu/tracing.py",
                  "search/search.py", "search/trace.py",
                  "harness/__init__.py", "harness/annotations.py",
                  "harness/junit.py", "harness/runner.py", "harness/tee.py",

@@ -484,19 +484,27 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 
 
 @pytest.mark.parametrize("build,slice_name", [
-    (lambda: _tsup(t_pp(2), ladder=("sharded", "device")),
+    (lambda t: _tsup(t_pp(2), ladder=("sharded", "device")),
      "sharded, multi-device swarm and chaos"),
-    (lambda: _tsup(t_pp(2), telemetry=object()), "telemetry and tracing"),
-    (lambda: tsup.DispatchBoundary(telemetry=object()),
-     "telemetry and tracing"),
-    (lambda: __import__("dslabs_tpu_torch.tpu.warden",
-                        fromlist=["Warden"]).Warden(
-        "m:f", telemetry=object(), device="cpu"), "telemetry and tracing"),
+    (lambda t: _tsup(t_pp(2), telemetry=t), None),
+    (lambda t: tsup.DispatchBoundary(telemetry=t), None),
+    (lambda t: __import__("dslabs_tpu_torch.tpu.warden",
+                          fromlist=["Warden"]).Warden(
+        "m:f", telemetry=t, device="cpu"), None),
 ], ids=["sharded_rung", "supervisor_telemetry", "boundary_telemetry",
         "warden_telemetry"])
 def test_unported_options_raise_naming_their_slice(build, slice_name):
+    """The sharded rung raises, naming its slice; ``telemetry=``, which
+    the telemetry and tracing slice ported, builds and keeps the
+    recorder."""
+    from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+    tel = Telemetry()
+    if slice_name is None:
+        assert build(tel).telemetry is tel
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
-        build()
+        build(tel)
 
 
 def test_ladder_options(tpp_base):

@@ -314,14 +314,15 @@ def test_walker_overflow_counted_and_warned():
     (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
     (dict(mesh=2), "multi-device swarm"),
     (dict(mesh=["cuda:0", "cuda:1"]), "multi-device swarm"),
-    (dict(telemetry=object()), "telemetry and tracing"),
+    (dict(telemetry=True), None),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
 def test_unported_options_raise_naming_their_slice(kw, slice_name,
                                                    tmp_path):
     """Options of later slices raise, naming the slice; the options the
     spill + checkpoint slice ported (``frontier_seed``, round
-    checkpoints) build and run."""
+    checkpoints) and ``telemetry`` (the telemetry and tracing slice: one
+    round record) build and run."""
     if slice_name is not None:
         with pytest.raises(NotImplementedError, match=slice_name):
             tsw.SwarmSearch(t_pp(2), device="cpu", **kw)
@@ -329,10 +330,16 @@ def test_unported_options_raise_naming_their_slice(kw, slice_name,
     proto = _goal_pruned(t_pp(2))
     if "frontier_seed" in kw:
         kw = {"frontier_seed": _bfs_dump(proto, tmp_path)}
+    elif "telemetry" in kw:
+        from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+        kw = {"telemetry": Telemetry()}
     else:
         kw = {**kw, "checkpoint_path": str(tmp_path / kw["checkpoint_path"])}
     out = _swarm(proto, max_rounds=1, **kw).run()
     assert out.end_condition == "TIME_EXHAUSTED"
+    if "telemetry" in kw:
+        assert [r["depth"] for r in kw["telemetry"].levels] == [1]
     assert out.swarm["rounds"] == 1 and out.resumed_from_depth == 0
     if "checkpoint_path" in kw:
         assert tck.peek_depth(kw["checkpoint_path"]) == 1
