@@ -222,6 +222,26 @@ table) once.  Each phase prints one JSON line:
            watch names it, tracing.assemble gives both children under the
            trace with every parent in the tree, and ``python -m
            dslabs_tpu_torch.tpu.telemetry report|trace`` exit 0;
+  analysis the analysis layer (dslabs_tpu_torch/analysis/): the hot-path
+           audit's sync rules on primitive calls
+           (dslabs_tpu_torch/analysis/sync_cases.py: each call's
+           synchronising CUDA calls equal to the table, to the audit's
+           count on the card and on the CPU); the conformance linter over
+           the port's tree (zero findings, its seconds); the hot-path
+           audit's standard set (run_jaxpr: the pingpong engine, the
+           compiled paxos_spec(3) with symmetry, the spill variant and
+           the swarm) on the card with zero findings,
+           the rebuild check included; and the compiled packed flagship
+           and the hand flagship at full width (chunk 4096, frontier_cap
+           2^20, visited_cap 2^24) audited site by site.  For every site
+           the synchronising CUDA calls of one call (after an uncounted
+           warm-up) under set_sync_debug_mode("warn") must equal the
+           audit's count on the card, its count on the CPU (the audit set
+           on the CPU; the flagships at chunk 16) and the site's budget;
+           the flagships' chunk step takes 1 sync packed and 0 by the hand
+           twin.  Per site: the counts and the aten ops of one call (the
+           host's issue work); per flagship: the chunk step's syncs and
+           ops, the kernels' launches over its audit;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -230,7 +250,7 @@ table) once.  Each phase prints one JSON line:
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 launches those of the search, swarm, labtests, scenarios, spill,
-supervisor and telemetry phases' runs), the
+supervisor, telemetry and analysis phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -603,6 +623,47 @@ def timed_search(torch, mods, ts):
                    chunk_steps=ts.chunk_steps - steps0, launches=launches)
 
 
+# Seconds a profiled region waits, after its last synchronize and outside
+# its timed part, before the profiler stops: without it the card's trace
+# lost the tail of a session's device records (the last few hundred to
+# few thousand) in about half of the short runs that followed the big
+# profiled phases, so lab 4's one-launch-per-insert check saw the last
+# insert missing three runs in a row; with it, no such tail was lost.
+PROFILE_SETTLE_SECS = 0.2
+
+
+class KernelStat:
+    """One name of a profiled run's device activity: ``key``, ``count``
+    (launches) and ``self_device_time_total`` (summed device
+    microseconds), the fields of a ``key_averages()`` entry the phases
+    read."""
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_kernels(torch, prof) -> list:
+    """A finished torch.profiler run's CUDA entries, summed by name
+    straight from its kineto events: the entries ``key_averages()`` gives
+    for the device (an async record counted with no time, as there), less
+    its processing, which builds an event object, and a tree, of every
+    record first and took longer than the runs of 90,000-280,000
+    launches it read."""
+    cuda = torch.autograd.DeviceType.CUDA
+    stats = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda:
+            continue
+        name = ev.name()
+        s = stats.get(name)
+        if s is None:
+            s = stats[name] = KernelStat(name)
+        s.count += 1
+        if not (ev.is_async() or ev.start_thread_id() != ev.end_thread_id()):
+            s.self_device_time_total += (ev.end_ns() - ev.start_ns()) / 1e3
+    return list(stats.values())
+
+
 def profiled_call(torch, fn):
     """One ``fn()`` under torch.profiler (device activity) -> (device ms,
     device launches)."""
@@ -611,8 +672,8 @@ def profiled_call(torch, fn):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        time.sleep(PROFILE_SETTLE_SECS)
+    kern = device_kernels(torch, prof)
     return sum(dev_ms(e) for e in kern), sum(e.count for e in kern)
 
 
@@ -736,16 +797,15 @@ PORT_KERNELS = {
 
 
 def dev_ms(e) -> float:
-    """Device milliseconds of one key_averages() entry."""
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0)) / 1e3
+    """Device milliseconds of one :class:`KernelStat`."""
+    return e.self_device_time_total / 1e3
 
 
 def profiled_run(torch, ts):
     """``ts.run()`` under torch.profiler -> (outcome, wall ms, CUDA kernel
-    entries of key_averages(), summed device ms).  Device activity only:
-    host-side op events would multiply the trace (about four per kernel)
-    and its processing time."""
+    entries (:func:`device_kernels`), summed device ms).  Device activity
+    only: host-side op events would multiply the trace (about four per
+    kernel)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -753,8 +813,8 @@ def profiled_run(torch, ts):
         o = ts.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        time.sleep(PROFILE_SETTLE_SECS)
+    kern = device_kernels(torch, prof)
     busy_ms = sum(dev_ms(e) for e in kern)
     check(busy_ms > 0, "torch.profiler recorded no device time")
     return o, wall_ms, kern, busy_ms
@@ -3144,6 +3204,186 @@ def phase_telemetry(torch, mods, warm_up: bool = True):
     return total
 
 
+# The analysis phase: the audit set's and the flagships' dispatch sites,
+# each site's synchronising calls counted three ways.  The flagships'
+# CPU predictions run the same code at a small size (sync counts do not
+# depend on widths).
+ANALYSIS_FLAGSHIP_CAPS = dict(chunk=4096, frontier_cap=1 << 20,
+                              visited_cap=1 << 24)
+ANALYSIS_CPU_CAPS = dict(chunk=16, frontier_cap=1 << 8, visited_cap=1 << 12)
+
+
+def sync_debug_count(torch, fn, args) -> tuple:
+    """The synchronising CUDA calls of one ``fn(*args)`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``, each warning recorded and
+    filtered as ``counted_run`` filters them -> (count, their lines)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    at = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+          if "called a synchronizing" in str(w.message)]
+    return len(at), at
+
+
+def site_debug_counts(torch, sites) -> dict:
+    """Per site function: its synchronising calls on the card in one call
+    after an uncounted warm-up, on clones of its arguments (the audit's
+    protocol)."""
+    from dslabs_tpu_torch.analysis.hotpath_audit import (clone_args,
+                                                         site_entries)
+
+    out = {}
+    for tag, name, e in site_entries(sites):
+        e["fn"](*clone_args(tuple(e["args"])))
+        args = clone_args(tuple(e["args"]))
+        out[tag if name is None else f"{tag}:{name}"] = \
+            sync_debug_count(torch, e["fn"], args)
+    return out
+
+
+def three_way(card: dict, debug: dict, cpu: dict, what: str) -> dict:
+    """Each site's sync count on the card under sync debug mode, by the
+    audit on the card and on the CPU, and its budget: all equal."""
+    check(set(card) == set(debug) == set(cpu),
+          f"{what}: site sets differ: card {sorted(card)}, debug "
+          f"{sorted(debug)}, cpu {sorted(cpu)}")
+    table = {}
+    for k in sorted(card):
+        row = dict(debug=debug[k][0], card=card[k]["syncs"],
+                   cpu=cpu[k]["syncs"], budget=card[k]["budget"],
+                   ops=card[k]["ops"])
+        check(row["debug"] == row["card"] == row["cpu"] == row["budget"]
+              == cpu[k]["budget"],
+              f"{what} {k}: syncs debug {debug[k]}, audit on the card "
+              f"{card[k]['sync_ops']}, on the CPU {cpu[k]['sync_ops']}, "
+              f"budget {row['budget']}")
+        table[k] = row
+    return table
+
+
+def phase_analysis(torch, mods):
+    """The analysis layer on the card (module docstring).  Returns the
+    kernels' launches over the phase's audits."""
+    from dslabs_tpu_torch import analysis
+    from dslabs_tpu_torch.analysis import hotpath_audit as HA
+    from dslabs_tpu_torch.tpu.engine import TensorSearch
+
+    from dslabs_tpu_torch.analysis import sync_cases as SC
+
+    t_phase = time.time()
+    kern, vis = mods["kernels"], mods["visited"]
+    # The J1 rules on primitive calls (analysis/sync_cases.py): the
+    # table's count, the sync debug mode's and the audit's on the card
+    # and on the CPU, each after a warm-up call.
+    rules = {}
+    for name, (fn, want) in sorted(SC.CASES.items()):
+        fn(SC.operand("cuda"))
+        got = (sync_debug_count(torch, fn, (SC.operand("cuda"),))[0],
+               len(HA.count_syncs(fn, (SC.operand("cuda"),))),
+               len(HA.count_syncs(fn, (SC.operand("cpu"),))))
+        check(got == (want,) * 3,
+              f"sync rule {name}: table {want}, debug / audit on the card "
+              f"/ on the CPU {got}")
+        rules[name] = want
+    t = time.time()
+    conf = analysis.run_conformance()
+    conf_secs = time.time() - t
+    check(conf == [], "conformance findings: "
+          + "; ".join(f.render() for f in conf))
+
+    # The standard audit set (run_jaxpr, J5 rebuild included) on the card
+    # and, as the prediction, on the CPU.
+    torch.cuda.synchronize()
+    kern.LAUNCHES["fingerprint_rows"] = 0
+    vis.LAUNCHES["insert"] = 0
+    t = time.time()
+    card_rep, cpu_rep = {}, {}
+    found = analysis.run_jaxpr(device="cuda", report=card_rep)
+    check(not [f for f in found if not f.waived],
+          "audit set findings on the card: "
+          + "; ".join(f.render() for f in found))
+    audit_secs = time.time() - t
+    t = time.time()
+    debug = {}
+    for i, eng in enumerate(HA.build_audit_engines("cuda")):
+        debug[f"{i}:{type(eng).__name__}"] = site_debug_counts(
+            torch, eng.dispatch_site_programs())
+    debug_secs = time.time() - t
+    t = time.time()
+    found = analysis.run_jaxpr(device="cpu", deep=False, report=cpu_rep)
+    check(found == [], "audit set findings on the CPU: "
+          + "; ".join(f.render() for f in found))
+    cpu_secs = time.time() - t
+    check(sorted(card_rep) == sorted(debug) == sorted(cpu_rep),
+          f"audit sets differ: {sorted(card_rep)} {sorted(debug)} "
+          f"{sorted(cpu_rep)}")
+    audit_set = {eng: three_way(card_rep[eng], debug[eng], cpu_rep[eng],
+                                eng) for eng in sorted(card_rep)}
+
+    # The flagships at full width: the compiled packed twin and the hand
+    # twin, each site audited and counted on the card, predicted on the
+    # CPU at a small size.
+    flagships = {}
+    for name, proto in (("compiled", flagship_protocol()),
+                        ("hand", hand_flagship_protocol())):
+        t = time.time()
+        gc.collect()
+        torch.cuda.empty_cache()
+        ts = TensorSearch(proto, strict=True, **ANALYSIS_FLAGSHIP_CAPS)
+        sites = ts.dispatch_site_programs()
+        before = dict(kern.LAUNCHES), dict(vis.LAUNCHES)
+        rep = {}
+        found = HA.audit_sites(sites, "TensorSearch", report=rep)
+        torch.cuda.synchronize()
+        launches = {
+            "fingerprint_rows": kern.LAUNCHES["fingerprint_rows"]
+            - before[0]["fingerprint_rows"],
+            "insert": vis.LAUNCHES["insert"] - before[1]["insert"]}
+        check(found == [], f"{name} flagship findings: "
+              + "; ".join(f.render() for f in found))
+        dbg = site_debug_counts(torch, sites)
+        del sites, ts
+        cpu = {}
+        found = HA.audit_search(
+            TensorSearch(proto, device="cpu", **ANALYSIS_CPU_CAPS),
+            report=cpu)
+        check(found == [], f"{name} flagship findings on the CPU: "
+              + "; ".join(f.render() for f in found))
+        table = three_way(rep, dbg, cpu, f"{name} flagship")
+        check(table["device.step"]["debug"]
+              == (1 if name == "compiled" else 0),
+              f"{name} flagship device.step: {table['device.step']}")
+        check(launches["fingerprint_rows"] > 0 and launches["insert"] > 0,
+              f"{name} flagship audit skipped a kernel: {launches}")
+        flagships[name] = dict(
+            step_syncs=table["device.step"]["debug"],
+            step_ops=table["device.step"]["ops"],
+            step_sync_lines=dbg["device.step"][1],
+            launches=launches, secs=time.time() - t, sites=table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    total = {"fingerprint_rows": kern.LAUNCHES["fingerprint_rows"],
+             "insert": vis.LAUNCHES["insert"]}
+    check(all(v > 0 for v in total.values()),
+          f"analysis phase skipped a kernel: {total}")
+    emit({"phase": "analysis", "secs": time.time() - t_phase,
+          "sync_rules": rules,
+          "conformance": {"findings": len(conf), "secs": conf_secs},
+          "audit_set": {"findings": 0, "card_secs": audit_secs,
+                        "debug_secs": debug_secs, "cpu_secs": cpu_secs,
+                        "sites": audit_set},
+          "flagships": flagships, "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -3221,6 +3461,7 @@ def main() -> int:
     spill_launches = run(phase_spill)
     sup_launches = run(phase_supervisor)
     tel_launches = run(phase_telemetry, False)
+    ana_launches = run(phase_analysis)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -3234,14 +3475,16 @@ def main() -> int:
          "replaces": replaces[k][1],
          "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
                       + scen_launches[k] + spill_launches[k]
-                      + sup_launches[k] + tel_launches[k]),
+                      + sup_launches[k] + tel_launches[k]
+                      + ana_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
                               "scenarios": scen_launches[k],
                               "spill": spill_launches[k],
                               "supervisor": sup_launches[k],
-                              "telemetry": tel_launches[k]},
+                              "telemetry": tel_launches[k],
+                              "analysis": ana_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

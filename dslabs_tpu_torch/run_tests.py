@@ -14,9 +14,11 @@ selection and PASS/points output as the root driver.  Where they differ:
   card that raises before any test runs.  ``--search-backend object`` (or
   ``DSLABS_SEARCH_BACKEND=object``) asks for the object checker on the
   host;
-* ``DSLABS_FORCE_CPU`` is not read: it pins JAX's platform;
-* ``--lint`` raises ``NotImplementedError``: the static conformance
-  linter (``analysis/``) is not ported yet.
+* ``DSLABS_FORCE_CPU`` is not read: it pins JAX's platform.
+
+``--lint`` runs the port's conformance linter
+(``dslabs_tpu_torch.analysis``) over the port's specs, twins and labs
+before any test, and returns 1 on an unwaived finding.
 
 Exit code 1 on any failure.
 """
@@ -65,8 +67,9 @@ def _parse_args(argv):
                    help="enable conformance checks (determinism, "
                         "idempotence, clone consistency)")
     p.add_argument("--lint", action="store_true",
-                   help="the static protocol conformance linter: not "
-                        "ported, raises NotImplementedError")
+                   help="run the static protocol conformance linter "
+                        "(C1-C6) before the labs; unwaived findings "
+                        "fail the run")
     p.add_argument("--no-timeouts", action="store_true",
                    help="disable per-test timeouts")
     p.add_argument("--single-threaded", action="store_true",
@@ -188,10 +191,16 @@ def main(argv=None) -> int:
     _apply_flags(args)
 
     if args.lint:
-        raise NotImplementedError(
-            "--lint: the static conformance linter (analysis/) is not "
-            "ported yet; it comes with the analysis slice of the PyTorch "
-            "port (see ROADMAP.md)")
+        # The static half of --checks: the conformance linter runs before
+        # the labs, and an unwaived finding gates them (a protocol that
+        # fails conformance would give untrustworthy verdicts anyway).
+        from dslabs_tpu_torch import analysis
+
+        findings = analysis.run_conformance()
+        print(analysis.render_findings(findings,
+                                       header="conformance lint"))
+        if any(not f.waived for f in findings):
+            return 1
     if args.replay_traces:
         return _replay_traces()
     if args.visualize_trace:

@@ -15,17 +15,22 @@ headers takes minutes to compile.
 
 :func:`resolve_device` is the one place where the port's entry points pick
 their device: the card unless the caller names another.
+:func:`plain_version` marks the kernels' plain PyTorch versions while they
+run, so that the hot-path audit (``analysis/hotpath_audit.py``) leaves
+their ops out on the CPU, as it cannot see the kernels on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -154,3 +159,27 @@ def resolve_device(device) -> torch.device:
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain PyTorch path")
     return dev
+
+
+# Plain-version calls running on each thread (see plain_version).
+_PLAIN = threading.local()
+
+
+def plain_version(fn):
+    """Mark ``fn`` as a kernel's plain PyTorch version: while it runs,
+    :func:`in_plain_version` is true on its thread.  What ``fn`` computes
+    does not change."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        _PLAIN.depth = getattr(_PLAIN, "depth", 0) + 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PLAIN.depth -= 1
+
+    return wrapped
+
+
+def in_plain_version() -> bool:
+    """True inside a kernel's plain version on this thread."""
+    return getattr(_PLAIN, "depth", 0) > 0

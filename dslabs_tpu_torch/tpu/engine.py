@@ -617,6 +617,11 @@ def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 VISITED_WARN = 0.85
 
 
+# ``sanitize=`` values: off, the hot-path audit at the first run, and the
+# audit with its retrace check.
+SANITIZE_MODES = (None, "on", "full")
+
+
 def _later(option: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"TensorSearch: {option} is not ported yet; it comes with the "
@@ -698,7 +703,17 @@ class TensorSearch:
     argument decides), and the device loop packs only the successor rows
     it appends, where the reference packs every successor row and then
     selects; the out-of-domain count is the same, since the reference
-    masks it by the selection too."""
+    masks it by the selection too.
+
+    ``sanitize`` ("on" or "full"; default None, off) runs the hot-path
+    audit (``analysis/hotpath_audit.py``) over :meth:`dispatch_site_programs`
+    once, when the first :meth:`run` starts (the engine, a subclass's
+    included, is built by then): each site once on a throwaway carry, its
+    host syncs against its budget, its dtypes, its in-place writes and,
+    with "full", its rebuild.  Findings become ``sanitizer_finding``
+    events on an attached recorder and one ``RuntimeWarning``; the audit
+    never raises.  It replaces the reference's ``DSLABS_SANITIZE``
+    environment variable; off, nothing of the audit is imported."""
 
     def __init__(self, protocol: TensorProtocol,
                  frontier_cap: int = 1 << 16,
@@ -717,7 +732,12 @@ class TensorSearch:
                  telemetry=None,
                  packed: Optional[bool] = None,
                  symmetry: Optional[bool] = None,
-                 device=None):
+                 device=None,
+                 sanitize: Optional[str] = None):
+        if sanitize not in SANITIZE_MODES:
+            raise ValueError(f"sanitize must be one of {SANITIZE_MODES}, "
+                             f"got {sanitize!r}")
+        self._sanitize = sanitize
         # The telemetry recorder (None = no spans, no level records), and
         # the explored count of spill mode's last level record (kept over
         # runs, as the reference keeps it).
@@ -818,6 +838,104 @@ class TensorSearch:
         self._flag_names = (["exc"]
                             + [f"inv:{n}" for n in protocol.invariants]
                             + [f"goal:{n}" for n in protocol.goals])
+
+    def _maybe_sanitize(self) -> None:
+        """The hot-path audit of ``sanitize="on"`` or ``"full"`` (which
+        adds the retrace check), once per engine, first thing in
+        :meth:`run` (and ``SwarmSearch.run``): findings become
+        ``sanitizer_finding`` events on an attached recorder and one
+        warning.  Off (None) is off: no import, no dispatch, no sync."""
+        if self._sanitize is None:
+            return
+        deep = self._sanitize == "full"
+        self._sanitize = None              # audited: later runs skip it
+        from dslabs_tpu_torch.analysis.hotpath_audit import sanitize_engine
+
+        sanitize_engine(self, deep=deep)
+
+    def dispatch_site_programs(self) -> Dict[str, object]:
+        """Every function this engine dispatches through :meth:`_dispatch`,
+        keyed by its tag (``tpu/telemetry.py DISPATCH_SITES``), for the
+        hot-path audit (``analysis/hotpath_audit.py``).  An entry is
+        ``dict(fn, args, builder)``; the site's contract (``in_place``,
+        ``multi``, ``syncs``) is its registry entry's, and an entry sets
+        one only where it must: ``device.step``'s ``syncs``, the budget in
+        this engine's configuration (packed, spill), and the resets'.  A
+        tag the loop dispatches with two functions (the spill drain's and
+        the eviction's fetch, then reset) lists both, each with its
+        ``name``.  ``args`` are real tensors on the engine's device around
+        a throwaway carry built from the root row at the engine's caps
+        (the audit runs the sites, and must never touch a carry a search
+        holds); ``builder`` rebuilds the function for the retrace check.
+        Audit-only tags: ``visited.insert`` (kernel 2 over one chunk
+        step's keys), and with packing ``packing.pack`` /
+        ``packing.unpack``, with ``symmetry=True``
+        ``symmetry.canonicalize``."""
+        C = self.chunk
+        dev = self.device
+        cap = -(-self.frontier_cap // C) * C       # run()'s user_cap
+        row0 = flatten_state(self.initial_state())
+        carry = self._build_dev_init(cap)(row0)
+        rows = row0.expand(C, -1).contiguous()
+        valid = torch.arange(C, device=dev) < 1
+        n_stats = 7 + len(self._flag_names) + (4 if self._ev_flt else 0)
+        n_keys = C * self._num_events()
+        keys = (torch.arange(4 * n_keys, dtype=torch.int64, device=dev)
+                * 2654435761 % (1 << 31)).to(torch.int32).reshape(-1, 4)
+        sites: Dict[str, object] = {
+            "device.init": dict(
+                fn=self._build_dev_init(cap), args=(row0,),
+                builder=lambda: self._build_dev_init(cap)),
+            "device.step": dict(
+                fn=self._build_dev_step(cap), args=(carry, 0, 0),
+                syncs=int(self._pk is not None)
+                + int(self._spill is not None),
+                builder=lambda: self._build_dev_step(cap)),
+            "device.sync": dict(
+                fn=to_host,
+                args=(torch.zeros((n_stats,), dtype=torch.int64,
+                                  device=dev),)),
+            "device.promote": dict(
+                fn=self._build_dev_promote(cap), args=(carry,),
+                builder=lambda: self._build_dev_promote(cap)),
+            "device.flags": dict(fn=to_host, args=(carry["flag_rows"],)),
+            "host.expand": dict(
+                fn=self._expand_chunk,
+                args=(rows, valid, 0, self._rt_masks),
+                builder=lambda: self._expand_chunk),
+            "visited.insert": dict(
+                fn=visited_mod.insert,
+                args=(carry["visited"], keys,
+                      torch.ones((n_keys,), dtype=torch.bool, device=dev)),
+                builder=lambda: visited_mod.insert),
+        }
+        if self._spill is not None:
+            segment = host_copy(carry["cur"][:1])
+            sites["device.spill_drain"] = [
+                dict(name="fetch", fn=self._spill_fetch,
+                     args=(carry, 1, cap)),
+                dict(name="reset", fn=_reset_nxt, args=(carry,), syncs=0)]
+            sites["device.spill_evict"] = [
+                dict(name="fetch", fn=_fetch_occupied,
+                     args=(carry["visited"],)),
+                dict(name="reset", fn=_reset_table, args=(carry,),
+                     syncs=0)]
+            sites["device.spill_reinject"] = dict(
+                fn=self._inject_rows, args=(carry, segment))
+        if self._pk is not None:
+            pk = self._pk
+            sites["packing.pack"] = dict(fn=pk.pack, args=(rows,),
+                                         builder=lambda: pk.pack)
+            sites["packing.unpack"] = dict(fn=pk.unpack,
+                                           args=(pk.pack(rows),),
+                                           builder=lambda: pk.unpack)
+        if self._canon is not None:
+            from dslabs_tpu_torch.tpu.symmetry import build_canonicalizer
+
+            sites["symmetry.canonicalize"] = dict(
+                fn=self._canon, args=(rows,),
+                builder=lambda: build_canonicalizer(self.p, self._off))
+        return sites
 
     def _dispatch(self, tag: str, fn, *args):
         """The device-dispatch boundary: every hot-loop dispatch and
@@ -1243,6 +1361,7 @@ class TensorSearch:
         loop (:meth:`run_host`).  ``resume=True`` continues from
         ``checkpoint_path`` when a dump of this configuration exists
         there (``CheckpointMismatch`` when the dump is another's)."""
+        self._maybe_sanitize()
         self._resumed_from_depth = 0
         tel = self._telemetry
         if self._spill is not None:
@@ -2094,7 +2213,9 @@ class TensorSearch:
             carry["fault_cnt"] = torch.zeros((4,), dtype=torch.int64,
                                              device=dev)
         if self._spill is not None:
-            carry["vis_snap"] = torch.empty_like(table)
+            # Written before every read; filled so that a carry's
+            # contents are a function of its inputs.
+            carry["vis_snap"] = torch.full_like(table, visited_mod.EMPTY)
         return carry
 
     def _build_dev_init(self, cap: int):
@@ -2396,16 +2517,8 @@ class TensorSearch:
         later eviction; then nxt is reset on the device."""
         sp = self._spill
         if nxt_n:
-            @read_only
-            def fetch():
-                rows_d = carry["nxt"][:nxt_n]
-                rows_u = self._pk.unpack(rows_d) if self._pk is not None \
-                    else rows_d
-                return (host_copy(rows_d),
-                        self._spill_keys_of(rows_u, cap).cpu().numpy(),
-                        self._spill_keep_mask(rows_u).cpu().numpy())
-
-            rows, keys, keep = self._dispatch("device.spill_drain", fetch)
+            rows, keys, keep = self._dispatch(
+                "device.spill_drain", self._spill_fetch, carry, nxt_n, cap)
 
             def host_half():
                 idx = sp.refilter(
@@ -2415,6 +2528,17 @@ class TensorSearch:
 
             sp.submit_drain(host_half)
         self._dispatch("device.spill_drain", _reset_nxt, carry)
+
+    @read_only
+    def _spill_fetch(self, carry, nxt_n: int, cap: int):
+        """The drain's fetch: nxt's first ``nxt_n`` rows (as stored),
+        their keys and keep mask, on the host (three copies)."""
+        rows_d = carry["nxt"][:nxt_n]
+        rows_u = self._pk.unpack(rows_d) if self._pk is not None \
+            else rows_d
+        return (host_copy(rows_d),
+                self._spill_keys_of(rows_u, cap).cpu().numpy(),
+                self._spill_keep_mask(rows_u).cpu().numpy())
 
     def _spill_evict_dev(self, carry) -> None:
         """Bulk eviction: the occupied table lines go to the host tier on
@@ -2429,14 +2553,16 @@ class TensorSearch:
     def _spill_inject(self, carry, rows: np.ndarray) -> int:
         """A host segment of native (packed) rows becomes the live cur:
         a further wave at the same BFS depth."""
+        self._dispatch("device.spill_reinject", self._inject_rows, carry,
+                       rows)
+        return len(rows)
+
+    def _inject_rows(self, carry, rows: np.ndarray) -> None:
+        """The reinjection: host rows (native storage) uploaded into
+        ``cur``, which then holds them alone."""
         n = len(rows)
-
-        def inject(c):
-            c["cur"][:n] = torch.from_numpy(rows).to(self.device)
-            c["cur_n"].fill_(n)
-
-        self._dispatch("device.spill_reinject", inject, carry)
-        return n
+        carry["cur"][:n] = torch.from_numpy(rows).to(self.device)
+        carry["cur_n"].fill_(n)
 
     def _spill_wave(self, carry, step, cap: int, n_cur: int) -> np.ndarray:
         """Expand the injected frontier completely, one sync per chunk

@@ -76,6 +76,7 @@ def _fingerprint32(flat: torch.Tensor, seed: int
     return hi, lo
 
 
+@_build.plain_version
 def row_fingerprints(flat: torch.Tensor) -> torch.Tensor:
     """[N, L] int32 rows -> [N, 4] int32 holding the uint32 keys (a_hi,
     a_lo, b_hi, b_lo): two independent 64-bit fingerprints, one 128-bit

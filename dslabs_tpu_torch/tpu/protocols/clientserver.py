@@ -33,8 +33,10 @@ CLIENT_MS = 100
 def _rec(cond, cols):
     """[P, 1, W] record of the lanes ``cols`` where ``cond``, else blank."""
     p = cond.shape[0]
-    rec = torch.stack([torch.as_tensor(c, dtype=torch.int32,
-                                       device=cond.device).expand(p)
+    rec = torch.stack([c.to(torch.int32).expand(p)
+                       if isinstance(c, torch.Tensor)
+                       else torch.full((p,), c, dtype=torch.int32,
+                                       device=cond.device)
                        for c in cols], dim=1)
     return torch.where(cond[:, None], rec, SENTINEL)[:, None, :]
 

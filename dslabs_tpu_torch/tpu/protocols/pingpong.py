@@ -33,8 +33,10 @@ PING_MS = 10
 def _row(cond: torch.Tensor, *cols) -> torch.Tensor:
     """[P, 1, W] record with the given lanes where ``cond``, else blank."""
     p = cond.shape[0]
-    rec = torch.stack([torch.as_tensor(c, dtype=torch.int32,
-                                       device=cond.device).expand(p)
+    rec = torch.stack([c.to(torch.int32).expand(p)
+                       if isinstance(c, torch.Tensor)
+                       else torch.full((p,), c, dtype=torch.int32,
+                                       device=cond.device)
                        for c in cols], dim=1)
     return torch.where(cond[:, None], rec, SENTINEL)[:, None, :]
 

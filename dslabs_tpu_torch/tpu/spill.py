@@ -66,7 +66,8 @@ import numpy as np
 
 __all__ = ["SpillConfig", "SpillStats", "HostVisitedTier",
            "FrontierSpool", "SpillManager", "TIER_FORMAT", "TierMismatch",
-           "TierCorrupt", "save_tier", "load_tier"]
+           "TierCorrupt", "save_tier", "load_tier",
+           "spill_manager_for_audit"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -539,3 +540,13 @@ class SpillManager:
         outcome.respilled_frontier = self.stats.respilled_frontier
         outcome.spill_drain_ms = self.stats.drain_wall_ms
         outcome.spill_wait_ms = self.stats.drain_wait_ms
+
+
+def spill_manager_for_audit() -> SpillConfig:
+    """The configuration of a minimal manager whose only job is putting
+    an engine in spill mode (``TensorSearch(spill=...)`` builds the
+    manager from it), so that the hot-path audit
+    (``analysis/hotpath_audit.py``) covers the spill variant's step,
+    drain, eviction and reinjection sites.  The audit runs no search: the
+    tier stays empty and the small host cap costs nothing."""
+    return SpillConfig(high_water=0.60, host_cap=1 << 16)

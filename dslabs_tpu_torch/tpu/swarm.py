@@ -95,7 +95,7 @@ import heapq
 import math
 import time
 import warnings
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -401,7 +401,9 @@ class SwarmSearch(TensorSearch):
     ``run()`` returns the standard :class:`SearchOutcome`:
     INVARIANT_VIOLATED / EXCEPTION_THROWN / GOAL_FOUND with a verified
     :class:`Witness`, else TIME_EXHAUSTED with the fleet statistics on
-    ``outcome.swarm``; exhaustive verdicts stay BFS-only."""
+    ``outcome.swarm``; exhaustive verdicts stay BFS-only.  ``sanitize``
+    is ``TensorSearch``'s: the hot-path audit of the swarm's four sites
+    when the first run starts."""
 
     def __init__(self, protocol: TensorProtocol, mesh=None,
                  walkers_per_device: Optional[int] = None,
@@ -423,7 +425,8 @@ class SwarmSearch(TensorSearch):
                  minimize: bool = True,
                  replay_verify: bool = True,
                  telemetry=None,
-                 device=None):
+                 device=None,
+                 sanitize: Optional[str] = None):
         if _mesh_size(mesh) > 1:
             raise _later("a mesh of more than one device",
                          "multi-device swarm")
@@ -449,12 +452,28 @@ class SwarmSearch(TensorSearch):
                          ev_budget=ev_budget, visited_cap=visited_cap,
                          strict=strict, checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every,
-                         telemetry=telemetry, device=device)
+                         telemetry=telemetry, device=device,
+                         sanitize=sanitize)
         self.compile_secs = 0.0
         # Walk steps, and the host seconds of the rounds that ran them,
         # over every run of this search.
         self.walk_steps = 0
         self.walk_secs = 0.0
+
+    def dispatch_site_programs(self) -> Dict[str, object]:
+        """The swarm's dispatch sites for the hot-path audit (the base
+        class's docstring): ``swarm.init``, the walk step, the round's
+        stats and the first-hit captures, around a throwaway fleet carry
+        built from the root by ``swarm.init`` itself."""
+        state = self.initial_state()
+        carry = self._init_carry(state)
+        return {
+            "swarm.init": dict(fn=self._init_carry, args=(state,)),
+            "swarm.step": dict(fn=self._walk_and_check, args=(carry,),
+                               builder=lambda: self._walk_and_check),
+            "swarm.sync": dict(fn=self._round_stats, args=(carry, 1)),
+            "swarm.flags": dict(fn=_hit_captures, args=(carry,)),
+        }
 
     # --------------------------------------------------- diversification
 
@@ -537,12 +556,18 @@ class SwarmSearch(TensorSearch):
                 "unresolved); raise visited_cap")
         # Keys the table held before the first walk step.
         self.preseeded_keys = n_ins
+        # The host-made arrays go up in two uploads: the depth bounds with
+        # the counters (int64), the temperatures with the affinities
+        # (float32); the counters are views of the first.
+        k = len(bounds)
+        ints = torch.as_tensor(np.concatenate(
+            [bounds.astype(np.int64), np.asarray(counters, np.int64)]),
+            device=dev)
+        flts = torch.as_tensor(np.stack([temps, affin]), device=dev)
         carry = {
             "rows": rows, "depths": depths, "hists": hists,
             "streak": streak, "seed_idx": seed_idx, "seeds": seeds,
-            "bounds": torch.as_tensor(bounds, device=dev).to(torch.int64),
-            "temps": torch.as_tensor(temps, device=dev),
-            "affin": torch.as_tensor(affin, device=dev),
+            "bounds": ints[:k], "temps": flts[0], "affin": flts[1],
             "visited": table,
             "hit_cnt": torch.zeros((nf,), dtype=torch.int64, device=dev),
             "hit_rows": torch.zeros((nf, self.lanes), dtype=torch.int32,
@@ -552,9 +577,8 @@ class SwarmSearch(TensorSearch):
             "hit_depth": torch.zeros((nf,), dtype=torch.int64, device=dev),
             "hit_seed": torch.zeros((nf,), dtype=torch.int64, device=dev),
         }
-        for name, v in zip(self._COUNTERS, counters):
-            carry[name] = torch.tensor(int(v), dtype=torch.int64,
-                                       device=dev)
+        for i, name in enumerate(self._COUNTERS):
+            carry[name] = ints[k + i]
         return carry
 
     def _init_carry(self, state) -> dict:
@@ -707,11 +731,12 @@ class SwarmSearch(TensorSearch):
 
     @read_only
     def _round_stats(self, carry: dict, k: int) -> np.ndarray:
-        return torch.cat([
-            torch.stack([carry[n] for n in (
-                "explored", "fresh", "revisit", "restarts", "over",
-                "vis_over", "deepest")]).cpu(),
-            torch.tensor([k]), carry["hit_cnt"].cpu()]).numpy()
+        """The round's stats vector: the counters, ``k``, the flag
+        counts (one readback)."""
+        s = torch.cat([torch.stack([carry[n] for n in self._COUNTERS]),
+                       carry["hit_cnt"]]).cpu().numpy()
+        n = len(self._COUNTERS)
+        return np.concatenate([s[:n], np.asarray([k], np.int64), s[n:]])
 
     # --------------------------------------------------------------- run
 
@@ -722,6 +747,7 @@ class SwarmSearch(TensorSearch):
         roots the walk at an arbitrary state (the staged-search contract).
         Warm-up (the kernels' build and a zero-step round) is kept out of
         the wall budget and reported on ``outcome.compile_secs``."""
+        self._maybe_sanitize()
         self._resumed_from_depth = 0
         state = self._initial_or(initial)
         self._trace_root = {k: v.cpu().numpy() for k, v in state.items()}

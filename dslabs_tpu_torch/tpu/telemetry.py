@@ -65,12 +65,13 @@ Deliberate differences from the reference: the ``DSLABS_PROFILE*``,
 ``DSLABS_SKEW_WARN``, ``DSLABS_BENCH_REGRESS_PCT`` and
 ``DSLABS_COMPILE_REGRESS_FLOOR`` environment knobs are arguments or
 module constants here; the profiler window is ``torch.profiler``, not
-``jax.profiler``; :data:`DISPATCH_SITES` lists the port's own tags (the
-sharded, lanes and packing sites and the reference's audit fields come
-with their slices); a span's ``scale`` is always 1.0 (the port's
-watchdog has no per-site deadline scales); per-device lanes have one
-entry (one card).  The module imports the stdlib only; torch is imported
-where the profiler window and the memory poll need it.
+``jax.profiler``; :data:`DISPATCH_SITES` lists the port's own tags with
+the audit fields (``in_place`` for the reference's ``donated``, and
+``syncs``; the sharded and lanes sites come with their slices); a
+span's ``scale`` is always 1.0 (the port's watchdog has no per-site
+deadline scales); per-device lanes have one entry (one card).  The
+module imports the stdlib only; torch is imported where the profiler
+window and the memory poll need it.
 """
 
 from __future__ import annotations
@@ -93,22 +94,78 @@ __all__ = ["Telemetry", "MetricsRegistry", "Counter", "Gauge",
            "read_ledger", "compare_ledger", "render_compare",
            "DISPATCH_SITES", "main"]
 
-# Every tag the port's loops route through ``TensorSearch._dispatch``.
-# ``hot``: a steady-state dispatch worth a profiler capture.
+# Every tag the port's loops route through ``TensorSearch._dispatch``,
+# and the audit-only tags of the hot-path auditor
+# (``analysis/hotpath_audit.py``), with the contract each site is
+# audited against:
+#
+#   hot       a steady-state dispatch worth a profiler capture
+#   in_place  the site updates its carry in place (the reference's
+#             ``donated``): its carry tensors of >= 64 KiB keep their
+#             storage over a call (J3)
+#   multi     collectives are expected (False: any is a J4 finding)
+#   program   the site runs device work (False: a readback or a host
+#             helper)
+#   syncs     host syncs one call may take by design (J1); None where
+#             it depends on the engine's configuration, and then the
+#             engine's site entry (``dispatch_site_programs``) carries
+#             the value for its own
+#
+# This is the one copy of each site's contract: an engine's entry holds
+# its function and arguments, and overrides the contract only where it
+# must (``device.step``'s budget, and each function of a two-function
+# tag).
 DISPATCH_SITES = {
-    "device.init": dict(hot=False),
-    "device.step": dict(hot=True),
-    "device.sync": dict(hot=False),
-    "device.promote": dict(hot=False),
-    "device.flags": dict(hot=False),
-    "device.spill_drain": dict(hot=False),
-    "device.spill_evict": dict(hot=False),
-    "device.spill_reinject": dict(hot=False),
-    "host.expand": dict(hot=True),
-    "swarm.init": dict(hot=False),
-    "swarm.step": dict(hot=True),
-    "swarm.sync": dict(hot=False),
-    "swarm.flags": dict(hot=False),
+    "device.init": dict(hot=False, in_place=False, multi=False,
+                        program=True, syncs=0),
+    # Unpacked and outside spill mode, none.  Packed, one: the count of
+    # the selected rows (torch.nonzero, engine.py _build_dev_step) before
+    # they are packed; spill mode, one: the abort code read before the
+    # step writes the carry.  Both: two.
+    "device.step": dict(hot=True, in_place=True, multi=False,
+                        program=True, syncs=None),
+    "device.sync": dict(hot=False, in_place=False, multi=False,
+                        program=False, syncs=1),       # the stats readback
+    "device.promote": dict(hot=False, in_place=True, multi=False,
+                           program=True, syncs=0),
+    "device.flags": dict(hot=False, in_place=False, multi=False,
+                         program=False, syncs=1),      # the flag rows
+    # Two functions each: a read-only fetch (the drain's rows, keys and
+    # keep mask, three copies; the eviction's occupied lines, one), then
+    # an in-place reset; the budget is the fetch's, and the reset's entry
+    # sets its own, none.
+    "device.spill_drain": dict(hot=False, in_place=True, multi=False,
+                               program=True, syncs=3),
+    "device.spill_evict": dict(hot=False, in_place=True, multi=False,
+                               program=True, syncs=1),
+    "device.spill_reinject": dict(hot=False, in_place=True, multi=False,
+                                  program=False, syncs=1),  # the upload
+    "host.expand": dict(hot=True, in_place=False, multi=False,
+                        program=True, syncs=0),
+    # The fleet's schedules and counters uploaded (two) and the table's
+    # insert counts read (one).
+    "swarm.init": dict(hot=False, in_place=False, multi=False,
+                       program=True, syncs=3),
+    # The walk step rebinds its per-walker arrays (where-selects) and
+    # writes only the table in place; one sync, the first-hit scalar.
+    "swarm.step": dict(hot=True, in_place=False, multi=False,
+                       program=True, syncs=1),
+    "swarm.sync": dict(hot=False, in_place=False, multi=False,
+                       program=False, syncs=1),        # the round stats
+    "swarm.flags": dict(hot=False, in_place=False, multi=False,
+                        program=False, syncs=6),       # six capture arrays
+    # Audit-only: kernel 2 alone, over one chunk step's keys; the pack
+    # and unpack of frontier rows and the symmetry canonicalize pass,
+    # which run inside the step (registered by engines that pack or
+    # reduce).
+    "visited.insert": dict(hot=True, in_place=True, multi=False,
+                           program=True, syncs=0),
+    "packing.pack": dict(hot=False, in_place=False, multi=False,
+                         program=True, syncs=0),
+    "packing.unpack": dict(hot=False, in_place=False, multi=False,
+                           program=True, syncs=0),
+    "symmetry.canonicalize": dict(hot=False, in_place=False,
+                                  multi=False, program=True, syncs=0),
 }
 
 # The hot sites' suffixes (the profiler window's selection), derived from
@@ -1087,10 +1144,18 @@ def render_sites(summary: dict) -> str:
 
 def _render_registry() -> str:
     """The dispatch-site registry (the ``sites`` command)."""
-    out = [f"{'site':28s} {'hot':>4s}"]
+    cols = ("hot", "in_place", "multi", "program")
+    out = [f"{'site':28s} " + " ".join(f"{c:>8s}" for c in cols)
+           + f" {'syncs':>5s}"]
     for tag in sorted(DISPATCH_SITES):
+        m = DISPATCH_SITES[tag]
+        syncs = "cfg" if m["syncs"] is None else str(m["syncs"])
         out.append(f"{tag:28s} "
-                   f"{'yes' if DISPATCH_SITES[tag]['hot'] else 'no':>4s}")
+                   + " ".join(f"{'yes' if m[c] else 'no':>8s}"
+                              for c in cols)
+                   + f" {syncs:>5s}")
+    out.append("(syncs cfg: by the engine's configuration, packed and "
+               "spill; see DISPATCH_SITES)")
     return "\n".join(out)
 
 

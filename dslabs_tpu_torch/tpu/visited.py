@@ -111,7 +111,9 @@ def build_table(cap: int, keys: torch.Tensor, device=None
     table, ins, unres = insert(
         empty_table(cap, device), keys,
         torch.ones((keys.shape[0],), dtype=torch.bool, device=device))
-    return table, int(ins.sum()), int(unres.sum())
+    n_ins, n_unres = (int(x) for x in
+                      torch.stack([ins.sum(), unres.sum()]).cpu())
+    return table, n_ins, n_unres
 
 
 def _sizes(n: int) -> Tuple[int, int]:
@@ -149,6 +151,7 @@ def _probe_iter(table, keys, bkt_i, ps, unres, idx, V, RT, batch_n):
     return bkt_i, newly & unres, winner & unres
 
 
+@_build.plain_version
 def insert_plain(table: torch.Tensor, keys: torch.Tensor,
                  valid: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -315,9 +315,13 @@ def test_missing_twin_stays_a_fail(monkeypatch):
     assert not r.passed and "NoTensorTwin: no tensor twin adapter" in r.error
 
 
-def test_lint_is_not_ported(monkeypatch):
+def test_lint_is_not_ported(monkeypatch, tmp_path, capsys):
+    """``--lint`` raised until the analysis slice; now it runs the port's
+    conformance linter first, clean on the shipped tree."""
     from dslabs_tpu_torch.utils.flags import GlobalSettings
 
     monkeypatch.setattr(GlobalSettings, "search_backend", "object")
-    with pytest.raises(NotImplementedError, match="analysis"):
-        port_driver.main(["--lint", "--lab", "0"])
+    monkeypatch.chdir(tmp_path)
+    assert port_driver.main(["--lint", "--replay-traces"]) == 0
+    out = capsys.readouterr().out
+    assert "conformance lint: 0 finding(s)" in out

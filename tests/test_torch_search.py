@@ -311,7 +311,9 @@ def test_port_imports_no_jax():
                  "runner/network.py", "runner/run_settings.py",
                  "runner/run_state.py", "viz/__init__.py", "viz/config.py",
                  "viz/server.py", "viz/debugger.py", "run_tests.py",
-                 "_labtests/__init__.py"):
+                 "_labtests/__init__.py", "analysis/__init__.py",
+                 "analysis/__main__.py", "analysis/core.py",
+                 "analysis/conformance.py", "analysis/hotpath_audit.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):
