@@ -37,8 +37,9 @@ table) once.  Each phase prints one JSON line:
            6 / 25 / 102, plain single-decree Paxos exhausted at 1548 / 202
            / 11, generated pingpong and clientserver equal to their hand
            twins, the compiled flagship to depth 4 713 / 2457 also on the
-           CPU), then the compiled flagship to depth 8 packed and unpacked
-           in turns beside the hand twin, with equal counts: seconds,
+           CPU), then the compiled flagship to depth 8 packed, the hand
+           twin and the compiled flagship unpacked, once each, with equal
+           counts: seconds,
            unique states/min, peak device memory, chunk steps and the
            launches of each kernel per run; and the device time and
            launches of one unpack call (a 4096-row chunk) and one pack
@@ -51,8 +52,8 @@ table) once.  Each phase prints one JSON line:
            beside its calls (must be equal: one launch per insert) and the
            top kernels by device time;
   trace    the trace-recording host loop (record_trace=True, run_host):
-           the flagship to depth 8 twice between two device-loop runs to
-           the same depth, with equal counts, seconds, unique states/min,
+           the flagship to depth 8 once beside a device-loop run to the
+           same depth, with equal counts, seconds, unique states/min,
            peak device memory and the launches of each kernel during the
            traced runs (the fingerprint's must be > 0; the host keeps the
            visited set, so the insert's must be 0), then once more under
@@ -133,7 +134,7 @@ table) once.  Each phase prints one JSON line:
   scenarios symmetry reduction and the fault plane: the partitioned
            flagship (the flagship's spec under the reference's one-era
            partition, make_paxos_partition_spec, goals stripped) at full
-           width on the device loop, strict and packed, to depth 8 or
+           width on the device loop, strict and packed, to depth 7 or
            SCENARIO_SECS: lanes, packed words, outcome, unique
            states/min, peak device memory, partition events (> 0, equal
            to the fault events) and each kernel's launches (> 0); the
@@ -175,8 +176,8 @@ table) once.  Each phase prints one JSON line:
            dumps' sizes and write seconds, and each kernel's launches;
   supervisor the search supervisor and the warden (tpu/supervisor.py,
            tpu/warden.py) on the compiled packed flagship (strict, chunk
-           4096, frontier_cap and visited_cap 2^20) to depth 8 (316,096 /
-           1,495,288): probe_device on the card; a bare TensorSearch run
+           4096, frontier_cap and visited_cap 2^20) to depth 7 (69,673 /
+           301,551): probe_device on the card; a bare TensorSearch run
            and SearchSupervisor(ladder=("device", "host")) fault-free,
            with the pinned counts, zero recovery counters and equal
            kernel launches; two injected transients on a depth-5 chunk
@@ -189,7 +190,8 @@ table) once.  Each phase prints one JSON line:
            sync abandoned by the 5 s watchdog and failed over, both
            against a bare run to depth 7; a warden child SIGKILLed after
            a durable dump and the next child resumed on the card (ladder
-           device, device, host); a warden child hung on a depth-6
+           device, device, host; these children run beside the
+           in-process cases above); a warden child hung on a depth-6
            chunk step on the card and reaped at its announced 5 s grace
            plus slack, the next child resumed on the card to the pinned
            counts (the same ladder); and
@@ -198,7 +200,7 @@ table) once.  Each phase prints one JSON line:
            seconds, peak device memory, the recovery fields and each
            kernel's launches;
   telemetry the telemetry layer (tpu/telemetry.py, tpu/tracing.py) on the
-           supervisor phase's flagship to depth 8 (316,096 / 1,495,288):
+           supervisor phase's flagship to depth 7 (69,673 / 301,551):
            bare and recorded runs in turns (B, R, B, R; R with
            Telemetry.for_checkpoint, the flight log and STATUS.json on),
            with equal counts, equal dispatches per tag (a counting hook),
@@ -242,6 +244,46 @@ table) once.  Each phase prints one JSON line:
            twin.  Per site: the counts and the aten ops of one call (the
            host's issue work); per flagship: the chunk step's syncs and
            ops, the kernels' launches over its audit;
+  lanes    batched job lanes (tpu/lanes.py) on the compiled packed
+           flagship at full width (strict, frontier_cap and visited_cap
+           2^20, chunk 1024, so that a lane step at L=4 holds the solo
+           step's 4,096 rows): four solo runs to depth 8 at chunk 4096,
+           then four identical jobs in one batch, each lane at the pins
+           (316,096 / 1,495,288), with one superstep per level and the
+           batch's dispatches per job at most 0.5x a solo run's (its wall
+           against the four solo walls is recorded, not gated); a mixed
+           batch of more jobs than lanes with per-job depth limits
+           (LANE_MIXED; lanes refilled, swaps >= 2), each job equal to a
+           solo device-loop run of it; a LaneBatchWarden child on the card
+           SIGKILLed after its lanes' depth-4 dumps (classified oom, the
+           batch run dir's STATUS.json with its per-lane block) and
+           respawned, the new child resuming every lane on the card from
+           its own dump (resumed_from_depth 4), each lane equal to its
+           solo run (these children run beside the mixed batch and the
+           next one); and a poisoned lane (the
+           lab 1 wide twin at visited_cap 64, where the solo run raises)
+           evicted beside a max_depth=3 mate equal to its solo run.  Per
+           batch: seconds, unique states/min summed over the lanes, peak
+           device memory, lane steps, levels, swaps, dispatches by tag and
+           each kernel's launches, inside the supersteps kernel 1 once and
+           kernel 2 L times per lane step;
+  service  the checking service (service/) on the card, memo off and
+           admission on (the port's conformance linter gates every job in
+           a child off the card): two tenants' jobs (two pingpong jobs and
+           one lab 1 client/server job each) drained solo by a CheckServer
+           (lanes=0, one worker, one warden child per job), and the same
+           jobs (the last submitted with ``python -m
+           dslabs_tpu_torch.service submit``, the queue read with
+           ``status``) drained in lane batches by the CLI's ``drain
+           --lanes 4 --workers 1`` (the two servers side by side), every
+           command exiting 0: equal verdicts,
+           per-tenant COSTS explored and unique equal between the drains,
+           the lanes drain's dispatches per job at most 0.5x the solo
+           drain's, each batch's lane shares summing to 1,
+           SERVER_STATUS.json's lanes block equal to the drain summary's,
+           and a lane job's causal tree (tracing.assemble on the service
+           root) holding its batch's shared spans.  Seconds of each step,
+           dispatches per job, device seconds;
   search   the main path at full size: the compiled flagship, packed
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
@@ -250,7 +292,7 @@ table) once.  Each phase prints one JSON line:
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 launches those of the search, swarm, labtests, scenarios, spill,
-supervisor, telemetry and analysis phases' runs), the
+supervisor, telemetry, analysis and lanes phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -259,6 +301,7 @@ the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -272,6 +315,9 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# Where this run and its child processes keep compiled bytecode (listed
+# in .gitignore; see bytecode_cache).
+BYTECODE_CACHE = os.path.join(ROOT, ".pycache")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 3.35 TB/s.  int32
 # logic/shift/add rate: 132 SMs x 64 lanes per clock (the CUDA
@@ -747,11 +793,11 @@ def phase_compiled(torch, mods, depth: int):
 
     hand = hand_flagship_protocol()
     runs = []
+    # Each once: the equal counts are the check; the seconds beside each
+    # other are one call's reading, not a ranked comparison.
     for label, p, packed in (
             ("compiled_packed", fl, True), ("hand", hand, True),
-            ("compiled_unpacked", fl, False),
-            ("compiled_unpacked", fl, False), ("hand", hand, True),
-            ("compiled_packed", fl, True)):
+            ("compiled_unpacked", fl, False)):
         runs.append(dict(run=label, **timed_search(
             torch, mods, search(p, packed))[1]))
         check(all(v > 0 for v in runs[-1]["launches"].values()),
@@ -898,8 +944,8 @@ def profile_twin(torch, mods, depth: int, twin: str, proto):
 
 def phase_trace(torch, mods, depth: int):
     """The trace-recording host loop on the card: the flagship to
-    ``depth`` through run_host (twice) between two device-loop runs to the
-    same depth, then two goal searches whose traces are checked."""
+    ``depth`` through the device loop and then through run_host, then two
+    goal searches whose traces are checked."""
     engine = mods["engine"]
     from dslabs_tpu_torch.tpu.protocols.paxos import make_paxos_protocol
     from dslabs_tpu_torch.tpu.protocols.primarybackup import make_pb_protocol
@@ -917,7 +963,7 @@ def phase_trace(torch, mods, depth: int):
         return dict(loop="host" if trace else "device", **timed_search(
             torch, mods, flagship_search(trace))[1])
 
-    flagship = [timed(False), timed(True), timed(True), timed(False)]
+    flagship = [timed(False), timed(True)]
     check(all(r["key"] == flagship[0]["key"] for r in flagship)
           and flagship[0]["key"][0] == "DEPTH_EXHAUSTED",
           f"flagship run_host and device loop differ: {flagship}")
@@ -1941,7 +1987,8 @@ def phase_labtests(torch, mods, labs="01234"):
 
 # The partitioned flagship's budget on the device loop, and its depth.
 SCENARIO_SECS = 60.0
-SCENARIO_DEPTH = 8
+# Depth 8 until the lanes and service phases needed the time.
+SCENARIO_DEPTH = 7
 # The symmetric search at width: paxos_spec(SYM_N), DECIDED pruned, raw and
 # canonical (unique, explored, depth) and its permutations (the JAX
 # package's counts on the CPU).
@@ -2636,11 +2683,14 @@ def phase_spill(torch, mods):
 
 
 # The supervisor phase: the flagship at full width through SearchSupervisor
-# and the warden, fault-free and under each kind of fault.
-SUP_DEPTH = 8
+# and the warden, fault-free and under each kind of fault, to depth 7
+# (depth 8 until the lanes and service phases needed the time; every
+# fault is injected at depth 5 or 6 either way).
+SUP_DEPTH = 7
 SUP_FAILOVER_DEPTH = 7
 SUP_CAPS = dict(chunk=4096, frontier_cap=1 << 20, visited_cap=1 << 20)
-# The flagship's pinned depth-8 explored count (PERF.md §6).
+# The flagship's pinned depth-7 and depth-8 counts (PERF.md §6).
+FLAGSHIP_D7 = ["DEPTH_EXHAUSTED", 69673, 301551, 7]
 FLAGSHIP_D8_EXPLORED = 1495288
 SUP_DEADLINE = 5.0
 WARDEN_STEADY_GRACE = 5.0
@@ -2703,8 +2753,7 @@ def phase_supervisor(torch, mods):
         return S.SearchSupervisor(flagship_protocol(), strict=True,
                                   max_depth=depth, **SUP_CAPS, **kw)
 
-    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
-              SUP_DEPTH]
+    pinned = FLAGSHIP_D7
     clean = dict(engine="device", retries=0, failovers=0, knob_retries=0,
                  resumed_from_depth=0, abandoned_threads=0,
                  child_restarts=0, killed_dispatches=0)
@@ -2747,7 +2796,25 @@ def phase_supervisor(torch, mods):
                     if tag == "device.sync" and d == depth)
 
     recs = {}
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # ---- the warden: a child SIGKILLed after a durable dump, the
+        # next child resumed on the card, the host rung unused.  The
+        # ladder's children run in their own processes while the
+        # in-process cases below run here.
+        def warden_kill():
+            w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
+                       max_depth=SUP_DEPTH, **SUP_CAPS,
+                       checkpoint_path=os.path.join(tmp, "warden.npz"),
+                       checkpoint_every=1,
+                       fault={"kind": "die", "at": first_step(6),
+                              "after_ckpt": True})
+            t0 = time.time()
+            o = w.run()
+            return w, o, time.time() - t0
+
+        f_kill = pool.submit(warden_kill)
+
         # ---- transient: two injected transients on a warm chunk step.
         at = first_step(5)
         o, r = supervised(sup(fault_plan=S.FaultPlan().raise_at(at, count=2),
@@ -2838,19 +2905,8 @@ def phase_supervisor(torch, mods):
         del s
         torch.cuda.empty_cache()
         emit({"phase": "supervisor", "part": "in_process", **recs})
-
-        # ---- the warden: a child SIGKILLed after a durable dump, the
-        # next child resumed on the card, the host rung unused.
-        w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
-                   max_depth=SUP_DEPTH, **SUP_CAPS,
-                   checkpoint_path=os.path.join(tmp, "warden.npz"),
-                   checkpoint_every=1,
-                   fault={"kind": "die", "at": first_step(6),
-                          "after_ckpt": True})
-        t0 = time.time()
-        o = w.run()
-        r_kill = dict(key=key(o), secs=time.time() - t0,
-                      platform=w.last_platform,
+        w, o, secs = f_kill.result()
+        r_kill = dict(key=key(o), secs=secs, platform=w.last_platform,
                       deaths=[d.kind for d in w.deaths], **recovery(o))
         check(r_kill["key"] == pinned and o.child_restarts == 1
               and o.engine == "device" and w.last_platform == "cuda"
@@ -2859,8 +2915,8 @@ def phase_supervisor(torch, mods):
               f"supervisor warden kill: {r_kill}")
 
         # ---- the warden: a child hung on a warm chunk step on the card
-        # after a durable dump, SIGKILLed at its announced grace; the
-        # next child resumes on the card, the host rung unused.
+        # after a durable dump, SIGKILLed at its announced grace; the next
+        # child resumes on the card, the host rung unused.
         w = Warden(**WARDEN_FLAGSHIP, ladder=("device", "device", "host"),
                    max_depth=SUP_DEPTH, **SUP_CAPS,
                    checkpoint_path=os.path.join(tmp, "warden_hang.npz"),
@@ -2985,8 +3041,7 @@ def phase_telemetry(torch, mods, warm_up: bool = True):
 
     t_phase = time.time()
     total = {"fingerprint_rows": 0, "insert": 0}
-    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
-              SUP_DEPTH]
+    pinned = FLAGSHIP_D7
 
     def search(**kw):
         gc.collect()
@@ -3384,6 +3439,405 @@ def phase_analysis(torch, mods):
     return total
 
 
+# The lanes phase: the compiled packed flagship at full width in L-lane
+# batches at chunk 1024 (one lane step holds the solo step's 4,096 rows),
+# to depth 8; the mixed batch's per-job depth limits (more jobs than lanes,
+# so lanes are refilled); the killed batch child's depth limit and the
+# dispatch index its SIGKILL fires at (depth 5's superstep: init is 0,
+# then superstep, sync and promote per level, each lane dumped after its
+# promote); the poisoned-lane pair's caps.
+LANE_L = 4
+LANE_DEPTH = 8
+LANE_CAPS = dict(chunk=1024, frontier_cap=1 << 20, visited_cap=1 << 20)
+LANE_MIXED = (4, 5, 6, 5, 4, 6)
+LANE_KILL_DEPTH = 6
+LANE_KILL_AT = 13
+LANE_EVICT_CAPS = dict(chunk=64, frontier_cap=1 << 10, visited_cap=64)
+LANE_FLAGSHIP = dict(WARDEN_FLAGSHIP, factory_kwargs=dict(FLAGSHIP_KW))
+
+
+def prune_done(proto):
+    """The lab 1 twin with its completion goal as a prune, as the
+    reference's lane tests build it (the search runs the whole space)."""
+    return dataclasses.replace(proto, goals={},
+                               prunes={"CLIENTS_DONE":
+                                       proto.goals["CLIENTS_DONE"]})
+
+
+class LaunchSpy:
+    """A ``_dispatch`` hook that counts an engine's dispatches by tag and
+    the kernels' launches inside each tag's dispatches."""
+
+    def __init__(self, mods):
+        self.mods = mods
+        self.tags = {}
+        self.launches = {}
+
+    def __call__(self, tag, fn, *args):
+        before = kernel_counts(self.mods)
+        out = fn(*args)
+        self.tags[tag] = self.tags.get(tag, 0) + 1
+        got = self.launches.setdefault(tag, {k: 0 for k in before})
+        for k, v in kernel_counts(self.mods).items():
+            got[k] += v - before[k]
+        return out
+
+    @property
+    def dispatches(self) -> int:
+        return sum(self.tags.values())
+
+
+def lane_run(torch, mods, ls, jobs, **kw):
+    """``ls.run_lanes(jobs)`` with the kernel counts set to 0 just before
+    and read just after, and a LaunchSpy at the seam -> (result, record:
+    seconds, unique/min summed over the lanes, peak device memory, lane
+    steps, dispatches by tag, launches of each kernel in all and inside
+    the supersteps)."""
+    spy = LaunchSpy(mods)
+    ls._dispatch_hook = spy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods["kernels"].LAUNCHES["fingerprint_rows"] = 0
+    mods["visited"].LAUNCHES["insert"] = 0
+    steps0 = ls.chunk_steps
+    t0 = time.time()
+    res = ls.run_lanes(jobs, **kw)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = kernel_counts(mods)
+    unique = sum(o.unique_states for o in res.outcomes.values())
+    step_launches = spy.launches.get("lanes.superstep",
+                                     {k: 0 for k in launches})
+    lane_steps = ls.chunk_steps - steps0
+    check(step_launches["fingerprint_rows"] == lane_steps
+          and step_launches["insert"] == ls.L * lane_steps,
+          f"lane steps {lane_steps} at L={ls.L}: superstep launches "
+          f"{step_launches}")
+    return res, dict(
+        secs=secs, unique_per_min=unique / secs * 60,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        lane_steps=lane_steps, levels=res.levels, swaps=res.swaps,
+        occupancy=res.occupancy, dispatches=spy.dispatches,
+        dispatches_by_tag=dict(spy.tags), launches=launches,
+        superstep_launches=step_launches,
+        jobs={j: [o.end_condition, o.unique_states, o.states_explored,
+                  o.depth] for j, o in sorted(res.outcomes.items())},
+        errors=dict(res.errors))
+
+
+def phase_lanes(torch, mods):
+    """Batched job lanes on the card (module docstring).  Returns the
+    kernels' launches over the phase's in-process lane batches."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu.lanes import LaneBatchWarden, LaneJob, \
+        LaneSearch
+
+    t_phase = time.time()
+    total = {"fingerprint_rows": 0, "insert": 0}
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              LANE_DEPTH]
+    fl = flagship_protocol()
+
+    def add(rec):
+        for k in total:
+            total[k] += rec["launches"][k]
+
+    # ---- four solo runs of the job, at chunk 4096, each with its
+    # dispatches counted at the seam.
+    solo = []
+    for _ in range(4):
+        ts = engine.TensorSearch(fl, strict=True, max_depth=LANE_DEPTH,
+                                 **SUP_CAPS)
+        spy = LaunchSpy(mods)
+        ts._dispatch_hook = spy
+        o, rec = timed_search(torch, mods, ts)
+        check(rec["key"] == pinned, f"lanes solo: {rec}")
+        solo.append(dict(rec, dispatches=spy.dispatches))
+        del ts
+    solo_secs = sum(r["secs"] for r in solo)
+    solo_disp = statistics.mean(r["dispatches"] for r in solo)
+
+    # ---- L identical jobs in one batch.
+    ls = LaneSearch(fl, n_lanes=LANE_L, strict=True, **LANE_CAPS)
+    check((ls.lanes, ls.plane) == (842, 217),
+          f"lane flagship lanes {ls.lanes}, plane {ls.plane}")
+    res, same = lane_run(torch, mods, ls, [
+        LaneJob(f"same{i}", max_depth=LANE_DEPTH) for i in range(LANE_L)])
+    add(same)
+    check(not res.errors and all(v == pinned for v in same["jobs"].values())
+          and len(same["jobs"]) == LANE_L, f"lanes identical: {same}")
+    check(same["dispatches_by_tag"]["lanes.superstep"] == res.levels
+          == LANE_DEPTH, f"lanes identical supersteps: {same}")
+    disp_ratio = same["dispatches"] / LANE_L / solo_disp
+    check(disp_ratio <= 0.5, f"lanes dispatches per job {disp_ratio} x solo")
+    check(abs(sum(o.lane_share for o in res.outcomes.values()) - 1.0)
+          < 1e-4, f"lanes identical shares: {res.outcomes}")
+    del ls, res
+
+    # ---- a batch child on the card SIGKILLed after its lanes' depth-4
+    # dumps, respawned by the warden, every lane resumed on the card from
+    # its own dump.  The children run in their own processes while the
+    # mixed and evict batches below run here (after the timed identical
+    # batch, so its wall against the solo walls is taken alone).
+    kill_dir = tempfile.TemporaryDirectory(dir=ROOT)
+    kill_jobs = [{"job_id": f"kill{i}", "max_depth": LANE_KILL_DEPTH,
+                  "checkpoint_path": os.path.join(kill_dir.name, f"kill{i}",
+                                                  "ckpt.npz"),
+                  "checkpoint_every": 1} for i in range(2)]
+    for j in kill_jobs:
+        os.makedirs(os.path.dirname(j["checkpoint_path"]))
+    kill_w = LaneBatchWarden(jobs=kill_jobs, n_lanes=2, strict=True,
+                             run_dir=os.path.join(kill_dir.name, "batch"),
+                             fault={"kind": "die", "at": LANE_KILL_AT},
+                             steady_grace=60.0, max_restarts=1,
+                             **LANE_FLAGSHIP, **LANE_CAPS)
+
+    def kill_batch():
+        t0 = time.time()
+        kres = kill_w.run()
+        return kres, time.time() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    f_kill = pool.submit(kill_batch)
+    try:
+        mixed, evict, refs = lanes_beside_kill(torch, mods, fl, pinned, add)
+        kres, kill_secs = f_kill.result()
+        status = json.load(open(os.path.join(kill_dir.name, "batch",
+                                             "STATUS.json")))
+    finally:
+        pool.shutdown(wait=True)
+        kill_dir.cleanup()
+    killed = dict(
+        secs=kill_secs, deaths=kill_w.deaths, child_restarts=kres.child_restarts,
+        platform=kill_w.last_platform, levels=kres.levels, errors=kres.errors,
+        status_lanes=status.get("lanes"),
+        jobs={j: [o.end_condition, o.unique_states, o.states_explored,
+                  o.depth, o.resumed_from_depth, o.platform]
+              for j, o in sorted(kres.outcomes.items())})
+    want = refs[LANE_KILL_DEPTH] + [4, "cuda"]
+    check(not kres.errors and [d["kind"] for d in kill_w.deaths] == ["oom"]
+          and kres.child_restarts == 1 and kill_w.last_platform == "cuda"
+          and killed["status_lanes"]
+          and killed["jobs"] == {j["job_id"]: want for j in kill_jobs}
+          and kres.levels == LANE_KILL_DEPTH - 4
+          and abs(sum(o.lane_share for o in kres.outcomes.values()) - 1.0)
+          < 1e-4,
+          f"lanes kill/respawn: {killed}, solo {refs[LANE_KILL_DEPTH]}")
+    check(all(v > 0 for v in total.values()),
+          f"lanes phase skipped a kernel: {total}")
+    emit({"phase": "lanes", "secs": time.time() - t_phase,
+          "L": LANE_L, "caps": LANE_CAPS, "depth": LANE_DEPTH,
+          "solo": solo, "identical": same,
+          "wall_vs_four_solo": same["secs"] / solo_secs,
+          "dispatches_per_job_vs_solo": disp_ratio,
+          "mixed": mixed, "mixed_limits": LANE_MIXED, "mixed_solo": refs,
+          "killed": killed, "evict": evict, "launches": total})
+    return total
+
+
+def lanes_beside_kill(torch, mods, fl, pinned, add):
+    """The lanes phase's in-process batches that run beside the killed
+    batch's children: the mixed batch with its solo references, and the
+    poisoned lane.  Returns (mixed record, evict record, solo keys by
+    depth limit)."""
+    engine = mods["engine"]
+    from dslabs_tpu_torch.tpu.lanes import LaneJob, LaneSearch
+    from dslabs_tpu_torch.tpu.protocols.clientserver import \
+        make_clientserver_protocol
+
+    def key(o):
+        return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+    # ---- a mixed batch: more jobs than lanes, per-job depth limits, each
+    # job against a solo device-loop run of the same job.
+    refs = {LANE_DEPTH: pinned}
+    for d in sorted(set(LANE_MIXED) - {LANE_DEPTH}):
+        o = engine.TensorSearch(fl, strict=True, max_depth=d,
+                                **SUP_CAPS).run()
+        refs[d] = key(o)
+    ls = LaneSearch(fl, n_lanes=LANE_L, strict=True, **LANE_CAPS)
+    res, mixed = lane_run(torch, mods, ls, [
+        LaneJob(f"mix{i}", max_depth=d) for i, d in enumerate(LANE_MIXED)])
+    add(mixed)
+    check(not res.errors and res.swaps >= 2
+          and mixed["jobs"] == {f"mix{i}": refs[d]
+                                for i, d in enumerate(LANE_MIXED)},
+          f"lanes mixed: {mixed}, solo {refs}")
+    del ls, res
+
+    # ---- a poisoned lane (strict table pressure) evicted, its lane-mate
+    # equal to its solo run.
+    lab1 = prune_done(make_clientserver_protocol(n_clients=2, w=2))
+    try:
+        engine.TensorSearch(lab1, strict=True, **LANE_EVICT_CAPS).run()
+        check(False, "lanes evict: the solo full-space run did not raise")
+    except engine.CapacityOverflow:
+        pass
+    ref3 = key(engine.TensorSearch(lab1, strict=True, max_depth=3,
+                                   **LANE_EVICT_CAPS).run())
+    ls = LaneSearch(lab1, n_lanes=2, strict=True, **LANE_EVICT_CAPS)
+    res, evict = lane_run(torch, mods, ls, [LaneJob("big"),
+                                            LaneJob("small", max_depth=3)])
+    add(evict)
+    check(list(res.errors) == ["big"]
+          and "CapacityOverflow" in res.errors["big"]
+          and evict["jobs"] == {"small": ref3},
+          f"lanes evict: {evict}, solo {ref3}")
+    return mixed, evict, refs
+
+
+# The service phase's jobs: each of two tenants submits two pingpong jobs
+# and one lab 1 client/server job.  Both drains run SERVICE_WORKERS worker
+# at a time: the solo drain one warden child per job, the CLI's drain one
+# lane batch child per batch.
+SERVICE_JOBS = (
+    ("dslabs_tpu_torch.tpu.protocols.pingpong:make_exhaustive_pingpong",
+     {"workload_size": 2}),
+    ("dslabs_tpu_torch.tpu.protocols.pingpong:make_exhaustive_pingpong",
+     {"workload_size": 2}),
+    ("dslabs_tpu_torch.tpu.protocols.clientserver:"
+     "make_clientserver_protocol", {"n_clients": 2, "w": 2}),
+)
+# The CLI's submit sets only the chunk: the caps are the service's
+# defaults (frontier_cap 2^14, visited_cap 2^20) for every job, so that all
+# jobs of one factory share a lane signature.
+SERVICE_CAPS = dict(chunk=64)
+SERVICE_LANES = 4
+SERVICE_QUOTA = 3
+SERVICE_WORKERS = 1
+# Arguments the CLI's drain gets (none: its jobs run on the card).
+SERVICE_CLI_ARGS = ()
+
+
+def phase_service(torch, mods):
+    """The checking service on the card (module docstring)."""
+    from dslabs_tpu_torch.service.server import CheckServer
+    from dslabs_tpu_torch.tpu import tracing
+
+    t_phase = time.time()
+    secs = {}
+
+    def server(root, **kw):
+        return CheckServer(root, admission=True, quota=SERVICE_QUOTA,
+                           elastic=False, memo=False, **kw)
+
+    def submit(srv, jobs):
+        for tenant, (factory, kw) in jobs:
+            r = srv.submit(factory, tenant=tenant, factory_kwargs=kw,
+                           **SERVICE_CAPS)
+            check(r.get("accepted"), f"service submit: {r}")
+
+    def cli(*argv):
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m", "dslabs_tpu_torch.service",
+                            *argv], capture_output=True, text=True,
+                           cwd=ROOT, timeout=600)
+        secs[f"cli_{argv[0]}"] = time.time() - t0
+        check(p.returncode == 0, f"service CLI {argv[0]}: rc "
+              f"{p.returncode}: {p.stderr[-1500:]}")
+        return json.loads(p.stdout.strip().splitlines()[-1])
+
+    jobs = [(t, j) for t in ("alice", "bob") for j in SERVICE_JOBS]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        roots = {m: os.path.join(tmp, m) for m in ("solo", "lanes")}
+
+        def solo_side():
+            # One warden child per job.
+            t0 = time.time()
+            srv = server(roots["solo"], workers=SERVICE_WORKERS, lanes=0)
+            submit(srv, jobs)
+            secs["solo_submit"] = time.time() - t0
+            t0 = time.time()
+            summary = srv.drain(max_secs=600)
+            srv.close()
+            secs["solo_drain"] = time.time() - t0
+            return summary
+
+        def lanes_side():
+            # The same jobs, the last one submitted through the CLI, the
+            # backlog drained in lane batches by the CLI.
+            t0 = time.time()
+            srv = server(roots["lanes"])
+            submit(srv, jobs[:-1])
+            srv.close()
+            tenant, (factory, kw) = jobs[-1]
+            sub = cli("submit", "--root", roots["lanes"], "--tenant",
+                      tenant, "--factory", factory, "--kwargs",
+                      json.dumps(kw), "--chunk", str(SERVICE_CAPS["chunk"]))
+            secs["lanes_submit"] = time.time() - t0
+            st = cli("status", "--root", roots["lanes"])
+            summary = cli("drain", "--root", roots["lanes"], "--lanes",
+                          str(SERVICE_LANES), "--quota", str(SERVICE_QUOTA),
+                          "--workers", str(SERVICE_WORKERS), "--full",
+                          *SERVICE_CLI_ARGS)
+            check(sub["accepted"]
+                  and st["queue"]["queue_depth"] == len(jobs),
+                  f"service CLI submit {sub}, status {st}")
+            return summary
+
+        # The two servers are independent (own roots, own children): they
+        # run side by side, as two tenants' front ends would.
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            f_solo, f_lane = pool.submit(solo_side), pool.submit(lanes_side)
+            solo, lane = f_solo.result(), f_lane.result()
+        key = ("tenant", "end", "unique", "explored", "depth")
+        verdicts = {m: sorted(tuple(r.get(k) for k in key)
+                              for r in d["results"])
+                    for m, d in (("solo", solo), ("lanes", lane))}
+        check(solo["failed"] == lane["failed"] == 0
+              and len(solo["results"]) == len(lane["results"]) == len(jobs)
+              and verdicts["solo"] == verdicts["lanes"]
+              and all(r["platform"] == "cuda"
+                      for d in (solo, lane) for r in d["results"]),
+              f"service verdicts: {verdicts}, solo {solo['results']}, "
+              f"lanes {lane['results']}")
+        costs = {}
+        for m in ("solo", "lanes"):
+            recs, torn = tracing.read_flight_lax(
+                os.path.join(roots[m], tracing.COSTS_NAME))
+            check(torn == 0, f"service {m} COSTS torn")
+            costs[m] = tracing.aggregate_costs(recs)
+        for t in ("alice", "bob"):
+            check(all(costs["solo"][t][k] == costs["lanes"][t][k]
+                      for k in ("explored", "unique")),
+                  f"service COSTS {t}: {costs}")
+        ratio = lane["dispatches_per_job"] / solo["dispatches_per_job"]
+        check(ratio <= 0.5, f"service dispatches per job: lanes "
+              f"{lane['dispatches_per_job']}, solo "
+              f"{solo['dispatches_per_job']}")
+        shares = {}
+        for r in lane["results"]:
+            shares.setdefault(r["lane_batch"], []).append(r["lane_share"])
+        check(all(abs(sum(v) - 1.0) < 1e-4 for v in shares.values())
+              and lane["lanes"]["jobs_in_lanes"] == len(jobs)
+              and lane["lanes"]["evicted"] == 0,
+              f"service lane shares {shares}, lanes {lane['lanes']}")
+        status = json.load(open(os.path.join(roots["lanes"],
+                                             "SERVER_STATUS.json")))
+        check(status["lanes"] == lane["lanes"],
+              f"SERVER_STATUS lanes {status['lanes']} vs drain "
+              f"{lane['lanes']}")
+        job_id = lane["results"][0]["job_id"]
+        tr = tracing.assemble(roots["lanes"], job=job_id)
+        nodes = tr["jobs"][0]["nodes"] if tr["jobs"] else []
+        check(tr["mode"] == "service"
+              and any(n["kind"] == "lane_batch" and n.get("shared")
+                      for n in nodes),
+              f"service trace of {job_id}: {[n['kind'] for n in nodes]}")
+
+    def brief(d):
+        return {k: d[k] for k in ("wall_secs", "dispatches_per_job",
+                                  "device_secs", "verdicts_per_min",
+                                  "fairness_index", "lanes")}
+
+    emit({"phase": "service", "secs": time.time() - t_phase,
+          "verdicts": verdicts["solo"], "solo": brief(solo),
+          "lanes": brief(lane), "dispatches_per_job_ratio": ratio,
+          "lane_shares": shares, "costs": costs, "step_secs": secs})
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -3408,15 +3862,28 @@ def phase_search(torch, mods, max_secs: float):
     return launches
 
 
+def bytecode_cache() -> None:
+    """Keep compiled bytecode in the checkout (BYTECODE_CACHE) for this
+    process and every child it starts.  The card's host sets
+    PYTHONDONTWRITEBYTECODE and its torch has no ``__pycache__``, so each
+    fresh process compiled torch's sources anew; this process writes the
+    cache while it imports torch, and its children read it."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = BYTECODE_CACHE
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = BYTECODE_CACHE
+
+
 def main() -> int:
+    if not os.path.isdir(os.path.join(ROOT, "dslabs_tpu_torch")):
+        print("chip_smoke: run from a checkout (dslabs_tpu_torch/ missing)",
+              file=sys.stderr)
+        return 1
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(ROOT, "dslabs_tpu_torch")):
-        print("chip_smoke: run from a checkout (dslabs_tpu_torch/ missing)",
-              file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from dslabs_tpu_torch.tpu import _build, engine, kernels, visited
@@ -3462,6 +3929,8 @@ def main() -> int:
     sup_launches = run(phase_supervisor)
     tel_launches = run(phase_telemetry, False)
     ana_launches = run(phase_analysis)
+    lane_launches = run(phase_lanes)
+    run(phase_service)
     launches = run(phase_search, SEARCH_MAX_SECS)
 
     replaces = {
@@ -3476,7 +3945,7 @@ def main() -> int:
          "launches": (launches[k] + swarm_launches[k] + lab_launches[k]
                       + scen_launches[k] + spill_launches[k]
                       + sup_launches[k] + tel_launches[k]
-                      + ana_launches[k]),
+                      + ana_launches[k] + lane_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
@@ -3484,7 +3953,8 @@ def main() -> int:
                               "spill": spill_launches[k],
                               "supervisor": sup_launches[k],
                               "telemetry": tel_launches[k],
-                              "analysis": ana_launches[k]},
+                              "analysis": ana_launches[k],
+                              "lanes": lane_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

@@ -581,9 +581,9 @@ def build_audit_engines(device=None, with_swarm: bool = True,
     another: the pingpong hand twin's ``TensorSearch``, the compiled
     ``paxos_spec(3)`` with ``symmetry=True`` (so that the packing and
     canonicalize sites register), the pingpong spill variant, and the
-    one-device ``SwarmSearch``, on small caps.  The reference's set also
-    holds ``ShardedTensorSearch`` and ``LaneSearch``; they come with the
-    sharded and lanes slices of the port."""
+    one-device ``SwarmSearch`` and a two-lane pingpong ``LaneSearch``, on
+    small caps.  The reference's set also holds ``ShardedTensorSearch``;
+    it comes with the sharded slice of the port."""
     from dslabs_tpu_torch.tpu._build import resolve_device
     from dslabs_tpu_torch.tpu.engine import TensorSearch
     from dslabs_tpu_torch.tpu.protocols.pingpong import \
@@ -608,4 +608,9 @@ def build_audit_engines(device=None, with_swarm: bool = True,
         engines.append(SwarmSearch(proto, walkers_per_device=8,
                                    max_steps=8, max_rounds=2,
                                    visited_cap=1 << 10, device=device))
+    from dslabs_tpu_torch.tpu.lanes import LaneSearch
+
+    engines.append(LaneSearch(proto, n_lanes=2, chunk=64,
+                              frontier_cap=1 << 8, visited_cap=1 << 10,
+                              device=device))
     return engines

@@ -255,6 +255,13 @@ class SearchOutcome:
     # The causal trace this verdict belongs to (tpu/tracing.py), stamped
     # from the attached telemetry recorder.  None outside any trace.
     trace_id: Optional[str] = None
+    # Batched job lanes (tpu/lanes.py): the lane this verdict ran in, the
+    # batch width, and this lane's share of the batch's shared device
+    # seconds (the shares of a batch sum to 1, so the cost meter bills a
+    # shared dispatch once).  None outside a lane batch.
+    lane: Optional[int] = None
+    lane_width: Optional[int] = None
+    lane_share: Optional[float] = None
 
     @property
     def dropped_states(self) -> int:
@@ -1154,29 +1161,33 @@ class TensorSearch:
         return succ, ok, over
 
     @staticmethod
-    def _compact_ids(valid_ev: torch.Tensor, budget: int, offset: int = 0):
+    def _compact_ids(valid_ev: torch.Tensor, budget: int, offset: int = 0,
+                     per_row: bool = False):
         """[C, G] validity grid -> ([C, budget] indices into G, -1 = empty
         slot; remaining count).  ``offset`` selects the window of valid
         events by rank [offset, offset + budget); ``remaining`` counts
-        valid events past it."""
+        valid events past it, summed over the chunk, or per row ([C])
+        with ``per_row`` (the lane step's, ``tpu/lanes.py``)."""
         c, g = valid_ev.shape
         dev = valid_ev.device
         if budget >= g:
             ids = torch.arange(g, dtype=torch.int64, device=dev).expand(c, g)
             keep = valid_ev if offset == 0 else torch.zeros_like(valid_ev)
             return (torch.where(keep, ids, -1),
-                    torch.zeros((), dtype=torch.int64, device=dev))
+                    torch.zeros((c,) if per_row else (), dtype=torch.int64,
+                                device=dev))
         pos = torch.cumsum(valid_ev.to(torch.int64), 1) - 1
         inwin = valid_ev & (pos >= offset) & (pos < offset + budget)
         dest = torch.where(inwin, pos - offset, budget)
         ids = torch.full((c, budget + 1), -1, dtype=torch.int64, device=dev)
         ids.scatter_(1, dest, torch.arange(g, device=dev).expand(c, g))
-        remaining = (valid_ev & (pos >= budget + offset)).sum()
+        past = valid_ev & (pos >= budget + offset)
+        remaining = past.sum(1) if per_row else past.sum()
         return ids[:, :budget], remaining
 
     def _event_tables(self, chunk_rows: torch.Tensor,
                       chunk_valid: torch.Tensor, ev_pass: int = 0,
-                      masks=None):
+                      masks=None, per_row: bool = False):
         """[C, lanes] chunk -> (msg_ids [C, Bm] net-slot indices, tmr_ids
         [C, Bt] timer grid indices, flt_ids [C, Bf] fault-segment indices
         or None without a fault model, ev_remaining): each state's valid
@@ -1186,7 +1197,7 @@ class TensorSearch:
         plus the enabled fault events) packed into per-kind pair slots.
         ``ev_remaining`` counts the message and timer events past the
         window; the fault segment is never windowed, so only pass 0 has
-        fault slots."""
+        fault slots; ``per_row`` counts it per chunk row ([C])."""
         p = self.p
         c = chunk_valid.shape[0]
         cs = self.unflatten_rows(chunk_rows)
@@ -1230,10 +1241,10 @@ class TensorSearch:
                 self._ev_flt, ev_pass * self._ev_flt)
         msg_ids, m_rem = self._compact_ids(
             msg_ok & chunk_valid[:, None], self._ev_msg,
-            ev_pass * self._ev_msg)
+            ev_pass * self._ev_msg, per_row)
         tmr_ids, t_rem = self._compact_ids(
             tmask.reshape(c, -1) & chunk_valid[:, None], self._ev_tmr,
-            ev_pass * self._ev_tmr)
+            ev_pass * self._ev_tmr, per_row)
         return msg_ids, tmr_ids, flt_ids, m_rem + t_rem
 
     def _expand_kind(self, cs: dict, ids: torch.Tensor, raw):
@@ -1256,7 +1267,8 @@ class TensorSearch:
     @read_only
     def _expand_chunk(self, chunk_rows: torch.Tensor,
                       chunk_valid: torch.Tensor, ev_pass: int = 0,
-                      masks=None, dedup: Optional[bool] = None):
+                      masks=None, dedup: Optional[bool] = None,
+                      per_row: bool = False):
         """[C, lanes] chunk rows -> (rows [C*B, lanes], valids [C*B],
         fp [C*B, 4] int32 keys, unique [C*B], overflow scalar,
         ev_remaining scalar, event_ids [C, B], flags dict), all on the
@@ -1270,11 +1282,16 @@ class TensorSearch:
         :meth:`set_runtime_masks`).  ``dedup`` (default: the
         constructor's ``in_chunk_dedup``) marks only the first occurrence
         of each key among the valid rows unique; without it every valid
-        row is."""
+        row is.
+
+        ``per_row`` (the lane step's, ``tpu/lanes.py``, which reduces per
+        lane) returns the overflow as each successor row's masked count
+        ([C*B] int32) and ``ev_remaining`` per chunk row ([C]) in place of
+        the chunk's sums."""
         p = self.p
         c = chunk_valid.shape[0]
         msg_ids, tmr_ids, flt_ids, ev_rem = self._event_tables(
-            chunk_rows, chunk_valid, ev_pass, masks)
+            chunk_rows, chunk_valid, ev_pass, masks, per_row)
         cs = self.unflatten_rows(chunk_rows)
         parts = [self._expand_kind(cs, msg_ids, self._msg_step_raw),
                  self._expand_kind(cs, tmr_ids, self._tmr_step_raw)]
@@ -1304,7 +1321,9 @@ class TensorSearch:
 
         rows, valids, overs = inter(0), inter(1), inter(2)
         event_ids = torch.cat(ev_segs, dim=1)
-        overflow = (overs * valids.to(torch.int32)).sum()
+        overflow = overs * valids.to(torch.int32)
+        if not per_row:
+            overflow = overflow.sum()
         # Kernel 1 on CUDA rows, its plain version on CPU rows; under
         # symmetry it hashes the canonical rows.
         fp = kernels.fingerprint_rows(self._canon_rows(rows))
@@ -2280,11 +2299,18 @@ class TensorSearch:
         """Resolve the first terminal flag (checkState order).  The flag
         rows are the one non-scalar readback, paid once per run."""
         rows = self._dispatch("device.flags", to_host, carry["flag_rows"])
+        return self._terminal_from_rows(rows, flag_counts, explored, vis_n,
+                                        depth, time.time() - t0, vis_over)
+
+    def _terminal_from_rows(self, rows, flag_counts, explored, vis_n,
+                            depth, elapsed, vis_over) -> SearchOutcome:
+        """The verdict of the first fired flag in checkState order
+        (exception, invariants, goals), from the host copy of its flag
+        rows; the lane loop calls this on one lane's rows."""
         for fi, fname in enumerate(self._flag_names):
             if flag_counts[fi] <= 0:
                 continue
             st = self._host_state(rows[fi][None])
-            elapsed = time.time() - t0
             if fname == "exc":
                 return SearchOutcome(
                     "EXCEPTION_THROWN", explored, vis_n, depth, elapsed,

@@ -67,7 +67,7 @@ Deliberate differences from the reference: the ``DSLABS_PROFILE*``,
 module constants here; the profiler window is ``torch.profiler``, not
 ``jax.profiler``; :data:`DISPATCH_SITES` lists the port's own tags with
 the audit fields (``in_place`` for the reference's ``donated``, and
-``syncs``; the sharded and lanes sites come with their slices); a
+``syncs``; the sharded sites come with their slice); a
 span's ``scale`` is always 1.0 (the port's watchdog has no per-site
 deadline scales); per-device lanes have one entry (one card).  The
 module imports the stdlib only; torch is imported where the profiler
@@ -154,6 +154,27 @@ DISPATCH_SITES = {
                        program=False, syncs=1),        # the round stats
     "swarm.flags": dict(hot=False, in_place=False, multi=False,
                         program=False, syncs=6),       # six capture arrays
+    # Batched job lanes (tpu/lanes.py): one superstep per level advances
+    # every resident lane (its budget depends on the configuration, like
+    # device.step's: one sync per chunk step packed, the torch.nonzero
+    # before the pack, and one per window pass with a finite ev_budget);
+    # the promote swaps the stacked buffers; the init, inject and restore
+    # rebuild lanes in place (the restore: the dump's keys and rows
+    # uploaded and the rebuilt table's counts read, three).
+    "lanes.init": dict(hot=False, in_place=False, multi=False,
+                       program=True, syncs=0),
+    "lanes.superstep": dict(hot=True, in_place=True, multi=False,
+                            program=True, syncs=None),
+    "lanes.sync": dict(hot=False, in_place=False, multi=False,
+                       program=False, syncs=1),        # the lane stats
+    "lanes.promote": dict(hot=False, in_place=True, multi=False,
+                          program=True, syncs=0),
+    "lanes.inject": dict(hot=False, in_place=True, multi=False,
+                         program=True, syncs=0),
+    "lanes.restore": dict(hot=False, in_place=True, multi=False,
+                          program=True, syncs=3),
+    "lanes.flags": dict(hot=False, in_place=False, multi=False,
+                        program=False, syncs=1),       # one lane's rows
     # Audit-only: kernel 2 alone, over one chunk step's keys; the pack
     # and unpack of frontier rows and the symmetry canonicalize pass,
     # which run inside the step (registered by engines that pack or
@@ -1268,6 +1289,13 @@ def render_watch(path: str, now: Optional[float] = None) -> str:
             if st.get(block):
                 out.append(f"{block}: " + " ".join(
                     f"{k}={v}" for k, v in sorted(st[block].items())))
+        # A lane-batch child (tpu/lanes.py): one line per resident lane.
+        for lrec in st.get("lanes") or ():
+            out.append(f"job lane {lrec.get('lane')}: "
+                       f"{lrec.get('job_id')} depth {lrec.get('depth')} "
+                       f"unique {lrec.get('unique')} "
+                       f"explored {lrec.get('explored')} "
+                       f"frontier {lrec.get('frontier')}")
         ls = st.get("last_span")
         if ls:
             out.append(f"last span: {ls.get('tag')} i={ls.get('i')} "

@@ -25,10 +25,9 @@ telemetry module is imported lazily, as the lower layer).  Two halves:
   device seconds by site, dispatch counts, the compile / search split,
   retries, all read from files that already exist.
 
-A service root (a directory with ``journal.jsonl``) needs the checking
-service's journal replay, which the port does not have yet: ``assemble``
-raises ``NotImplementedError`` there, naming the lanes-and-service
-slice.
+A service root (a directory with ``journal.jsonl``, ``service/``) is
+assembled through the service's journal replay: one tree per job, and a
+lane job's tree carries its batch's shared spans, marked ``shared``.
 """
 
 from __future__ import annotations
@@ -469,21 +468,180 @@ def _segment_nodes(seg: dict, parent: str, prefix: str, nodes: List[dict],
     return {"compile_secs": compile_secs, "search_secs": search_secs}
 
 
+def _assemble_job(root: str, rec: dict, journal: List[dict]) -> dict:
+    """One journal job record + its run dir -> the causal tree."""
+    job = rec["job"]
+    job_id = job.get("job_id")
+    trace_id = job.get("trace_id")
+    submitted = float(job.get("submitted_at") or 0.0) or None
+    starts = [r for r in journal
+              if r.get("t") == "start" and r.get("job_id") == job_id]
+    finish = next((r for r in journal
+                   if r.get("t") in ("done", "failed")
+                   and r.get("job_id") == job_id), None)
+    admission = next((r for r in journal
+                      if r.get("t") == "admission"
+                      and trace_id
+                      and r.get("trace_id") == trace_id), None)
+    nodes: List[dict] = [{
+        "span_id": trace_id or job_id, "parent": None,
+        "kind": "submit", "name": f"submit {job_id}",
+        "tenant": job.get("tenant"), "t0": submitted,
+        "t1": submitted}]
+    root_id = nodes[0]["span_id"]
+    first_start = (float(starts[0]["ts"])
+                   if starts and starts[0].get("ts") is not None
+                   else None)
+    queue_wait = (first_start - submitted
+                  if first_start is not None and submitted is not None
+                  else None)
+    nodes.append({"span_id": f"{job_id}:queue", "parent": root_id,
+                  "kind": "queue", "name": "queue-wait",
+                  "t0": submitted, "t1": first_start,
+                  "wall": queue_wait})
+    adm_secs = 0.0
+    if admission is not None:
+        adm_secs = float(admission.get("secs", 0.0) or 0.0)
+        adm_ts = admission.get("ts")
+        nodes.append({
+            "span_id": f"{job_id}:admission", "parent": root_id,
+            "kind": "admission", "name": "admission",
+            "t0": (float(adm_ts) - adm_secs)
+            if adm_ts is not None else None,
+            "t1": float(adm_ts) if adm_ts is not None else None,
+            "wall": adm_secs,
+            "skipped": bool(admission.get("skipped")),
+            "cached": bool(admission.get("cached")),
+            "findings": admission.get("findings", 0)})
+    # Attempt spans: one per journal `start`; its id is DERIVED
+    # (attempt_span_id) so the child meta's parent_span links back.
+    attempt_ids = {}
+    for k, s in enumerate(starts):
+        att = int(s.get("attempt", k + 1) or (k + 1))
+        aid = attempt_span_id(job_id, att)
+        attempt_ids[aid] = True
+        t0 = float(s["ts"]) if s.get("ts") is not None else None
+        if k + 1 < len(starts):
+            t1 = (float(starts[k + 1]["ts"])
+                  if starts[k + 1].get("ts") is not None else None)
+        else:
+            t1 = (float(finish["ts"])
+                  if finish is not None and finish.get("ts") is not None
+                  else None)
+        nodes.append({"span_id": aid, "parent": root_id,
+                      "kind": "attempt", "name": f"attempt {att}",
+                      "attempt": att, "t0": t0, "t1": t1})
+    # The run dir's flight log, segmented per child.
+    flight = os.path.join(root, "jobs", job_id or "", "flight.jsonl")
+    records, torn = read_flight_lax(flight)
+    compile_secs = 0.0
+    search_secs = 0.0
+    in_flight = None
+    known = set(attempt_ids) | {root_id}
+    for si, seg in enumerate(segment_flight(records)):
+        parent = next(iter(attempt_ids), root_id)
+        ph = _segment_nodes(seg, parent, f"{job_id}:s{si}", nodes,
+                            known=known)
+        compile_secs += ph["compile_secs"]
+        search_secs += ph["search_secs"]
+        if seg["in_flight"] is not None:
+            in_flight = dict(seg["in_flight"],
+                             segment=si,
+                             hint=seg["meta"].get("hint"))
+    # Lane-batch attribution (tpu/lanes.py): a job that ran
+    # in a batched lane has no flight log of its own — the journal's
+    # ``lane_batch`` events name the resident jobs and the batch run
+    # dir, and the batch's SHARED flight log is attributed to every
+    # resident job's causal tree (marked shared, so a reader knows the
+    # spans were amortised across lanes, not exclusive).
+    for ev in journal:
+        if ev.get("t") != "lane_batch" or not ev.get("run_dir"):
+            continue
+        if job_id not in (ev.get("jobs") or []):
+            continue
+        bid = ev.get("batch") or os.path.basename(ev["run_dir"])
+        brecords, btorn = read_flight_lax(
+            os.path.join(ev["run_dir"], "flight.jsonl"))
+        torn += btorn
+        parent = next(iter(attempt_ids), root_id)
+        lane_root = f"{job_id}:lane:{bid}"
+        nodes.append({"span_id": lane_root, "parent": parent,
+                      "kind": "lane_batch",
+                      "name": f"lane batch {bid} (shared)",
+                      "shared": True,
+                      "lanes": len(ev.get("jobs") or ()),
+                      "t0": ev.get("ts"), "t1": None})
+        known.add(lane_root)
+        for si, seg in enumerate(segment_flight(brecords)):
+            ph = _segment_nodes(seg, lane_root, f"{job_id}:lb{si}",
+                                nodes, known=known)
+            compile_secs += ph["compile_secs"]
+            search_secs += ph["search_secs"]
+            if seg["in_flight"] is not None and in_flight is None:
+                in_flight = dict(seg["in_flight"], segment=si,
+                                 hint=seg["meta"].get("hint"),
+                                 shared=True)
+    status = rec.get("status")
+    verdict = rec.get("verdict") or rec.get("failure")
+    total = None
+    if finish is not None and finish.get("ts") is not None \
+            and submitted is not None:
+        total = float(finish["ts"]) - submitted
+    return {
+        "job_id": job_id, "tenant": job.get("tenant"),
+        "trace_id": trace_id, "status": status,
+        "submitted_at": submitted,
+        "attempts": len(starts),
+        "phases": {
+            "queue_wait_secs": round(queue_wait, 3)
+            if queue_wait is not None else None,
+            "admission_secs": round(adm_secs, 3),
+            "compile_secs": round(compile_secs, 3),
+            "search_secs": round(search_secs, 3),
+            "total_secs": round(total, 3) if total is not None else None,
+        },
+        "nodes": nodes, "in_flight": in_flight, "verdict": verdict,
+        "torn_lines": torn, "flight_log": flight
+        if os.path.exists(flight) else None,
+    }
+
+
 def assemble(path: str, job: Optional[str] = None) -> dict:
-    """Stitch the causal trace of a run dir (or a flight log) from disk
-    alone: one tree rooted at the trace id, one ``run`` node per child
-    segment of the flight log, with its levels, recovery events, outcome
-    and in-flight dispatch.  Every reader is torn-tolerant.  A service
-    root (a directory holding ``journal.jsonl``) raises
-    ``NotImplementedError``: it needs the service's journal replay."""
+    """Stitch the causal trace from disk alone.  ``path`` is a service
+    root (a directory holding ``journal.jsonl``: every job becomes one
+    tree, submit -> queue-wait -> admission -> attempts -> the child runs
+    of its run dir and the shared spans of its lane batch; ``job`` keeps
+    one) or a plain run dir or flight log (one tree rooted at the trace
+    id, one ``run`` node per child segment of the flight log, with its
+    levels, recovery events, outcome and in-flight dispatch).  Every
+    reader is torn-tolerant: a mid-write SERVER_STATUS, a torn COSTS or
+    journal tail and torn flight lines are expected crash shapes."""
     from dslabs_tpu_torch.tpu import telemetry as tel_mod
 
     if _is_server_dir(path):
-        raise NotImplementedError(
-            "tracing.assemble: a service root (journal.jsonl) needs the "
-            "checking service's journal replay, which is not ported yet; "
-            "it comes with the lanes and service slice of the PyTorch "
-            "port (see ROADMAP.md)")
+        from dslabs_tpu_torch.service.queue import replay_journal
+
+        journal, _ = read_flight_lax(os.path.join(path, "journal.jsonl"))
+        submits = [r for r in journal
+                   if r.get("t") == "submit"
+                   and isinstance(r.get("job"), dict)]
+        try:
+            _, records, _ = replay_journal(
+                os.path.join(path, "journal.jsonl"))
+        except ValueError:
+            records = {}
+        jobs = []
+        for rec in submits:
+            jid = rec["job"].get("job_id")
+            if job is not None and jid != job:
+                continue
+            merged = dict(records.get(jid, {}), job=rec["job"])
+            jobs.append(_assemble_job(path, merged, journal))
+        server = load_json_tolerant(
+            os.path.join(path, "SERVER_STATUS.json"))
+        costs_recs, _ = read_flight_lax(os.path.join(path, COSTS_NAME))
+        return {"source": path, "mode": "service", "jobs": jobs,
+                "server": server, "costs": aggregate_costs(costs_recs)}
     flight = tel_mod._resolve_flight(path)
     records, torn = read_flight_lax(flight)
     nodes: List[dict] = []
@@ -583,6 +741,11 @@ def render_trace(tr: dict) -> str:
                              f"explored={n.get('explored')}")
                 if kind == "event" and n.get("detail"):
                     line += f" {n['detail']}"
+                if kind == "admission":
+                    if n.get("skipped"):
+                        line += " (skipped)"
+                    elif n.get("cached"):
+                        line += " (cached)"
                 out.append(line)
                 walk(n["span_id"], indent + 1)
 
@@ -590,6 +753,28 @@ def render_trace(tr: dict) -> str:
             out.append(f"  {_fmt_t(r.get('t0'), base)} "
                        f"{r['kind']}: {r.get('name')}")
             walk(r["span_id"], 1)
+        if j.get("verdict"):
+            v = j["verdict"]
+            out.append("  verdict: " + " ".join(
+                f"{k}={v[k]}" for k in ("end", "unique", "explored",
+                                        "depth", "kind") if k in v))
+    costs = tr.get("costs") or {}
+    if costs:
+        out.append("")
+        out.append("-- per-tenant cost ledger --")
+        out.append(f"{'tenant':12s} {'jobs':>5s} {'unique':>9s} "
+                   f"{'explored':>9s} {'dev_s':>8s} {'disp':>6s} "
+                   f"{'compile_s':>9s} {'retries':>7s} "
+                   f"{'cost/unique':>12s}")
+        for t in sorted(costs):
+            c = costs[t]
+            cpu = c.get("cost_per_unique")
+            out.append(
+                f"{t:12s} {c['jobs']:5d} {c['unique']:9d} "
+                f"{c['explored']:9d} {c['device_secs']:8.3f} "
+                f"{c['dispatches']:6.1f} {c['compile_secs']:9.3f} "
+                f"{c['retries']:7d} "
+                f"{cpu if cpu is not None else '-':>12}")
     return "\n".join(out)
 
 

@@ -107,7 +107,8 @@ _SCALAR_FIELDS = (
     "killed_dispatches", "abandoned_threads", "mesh_width", "mesh_shrinks",
     "knob_retries", "cancelled", "fault_events", "partition_events",
     "crash_events", "drop_events", "dup_events", "spilled_keys",
-    "host_tier_hits", "respilled_frontier", "platform", "trace_id")
+    "host_tier_hits", "respilled_frontier", "platform", "trace_id",
+    "lane", "lane_width", "lane_share")
 
 
 def outcome_to_dict(out) -> dict:

@@ -313,7 +313,10 @@ def test_port_imports_no_jax():
                  "viz/server.py", "viz/debugger.py", "run_tests.py",
                  "_labtests/__init__.py", "analysis/__init__.py",
                  "analysis/__main__.py", "analysis/core.py",
-                 "analysis/conformance.py", "analysis/hotpath_audit.py"):
+                 "analysis/conformance.py", "analysis/hotpath_audit.py",
+                 "tpu/lanes.py", "service/__init__.py",
+                 "service/__main__.py", "service/queue.py",
+                 "service/scheduler.py", "service/server.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):

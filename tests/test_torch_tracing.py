@@ -10,11 +10,10 @@ compare.  The port's own cases: a traced warden child with a run-dir
 recorder, SIGKILLed after a dump and resumed by the next rung's child,
 whose run dir assembles into one tree naming the dead child's in-flight
 dispatch (and which ``watch``, ``report`` and ``trace`` read); and
-``assemble`` on a service root, which raises ``NotImplementedError``.
-
-Deferred with the lanes and service slice: the service trace chain
-(submit, queue, admission, attempts), the per-tenant ledger of a
-service root and the retention sweep."""
+``assemble`` on an empty service root.  The service trace chain (submit,
+queue, admission, attempts, the shared spans of a lane batch) and the
+per-tenant ledger of a service root are held by
+``tests/test_torch_service.py`` and ``tests/test_torch_lanes.py``."""
 
 import dataclasses
 import json
@@ -252,11 +251,15 @@ def test_traced_warden_child_killed_run_dir_trace(tmp_path, monkeypatch,
 
 
 def test_assemble_service_root_raises(tmp_path):
-    """A service root needs the service's journal replay, not ported:
-    the assembler raises, naming the slice."""
+    """A service root assembles through the service's journal replay
+    (it raised before the service was ported): an empty journal is a
+    service trace with no jobs, as the reference's is."""
     (tmp_path / "journal.jsonl").write_text("")
-    with pytest.raises(NotImplementedError, match="lanes and service"):
-        tracing.assemble(str(tmp_path))
+    tr = tracing.assemble(str(tmp_path))
+    assert (tr["mode"], tr["jobs"], tr["costs"]) == ("service", [], {})
+    ref = jtracing.assemble(str(tmp_path))
+    assert (ref["mode"], ref["jobs"]) == (tr["mode"], tr["jobs"])
+    assert "(no jobs found)" in tracing.render_trace(tr)
 
 
 # --------------------------------------------------- cost meter units
