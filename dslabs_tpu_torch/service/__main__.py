@@ -9,7 +9,11 @@ backlog under the scheduler, and ``status`` renders SERVER_STATUS.json
 plus the journal summary without touching either.  Every subcommand
 prints exactly one JSON line on stdout (stderr is free-form), so the
 CLI composes with scripts.  Jobs run on the card unless ``drain`` is
-given ``--device cpu``.
+given ``--device cpu``.  The cross-job memo (``service/memo.py``, its store
+in ``<root>/memo``) is on unless ``submit`` and ``drain`` are given
+``--no-memo``, the reference's ``DSLABS_MEMO=0``: ``submit`` then runs no
+introspection child and answers no job from the verdict cache, ``drain``
+neither seeds nor archives.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--chunk", type=int, default=1 << 10)
     s.add_argument("--no-admission", action="store_true",
                    help="skip the conformance admission gate")
+    s.add_argument("--no-memo", action="store_true",
+                   help="no cross-job memo: no introspection, no "
+                        "verdict-cache answer")
 
     st = sub.add_parser("status", help="render SERVER_STATUS.json + "
                         "the journal summary")
@@ -59,6 +66,9 @@ def _parser() -> argparse.ArgumentParser:
     d.add_argument("--workers", type=int, default=None)
     d.add_argument("--max-secs", type=float, default=None)
     d.add_argument("--no-admission", action="store_true")
+    d.add_argument("--no-memo", action="store_true",
+                   help="no cross-job memo: jobs neither warm-start "
+                        "nor archive")
     d.add_argument("--lanes", type=int, default=None,
                    help="batched job lanes: pack up to N compatible "
                         "jobs into one lane batch (0/1 = off)")
@@ -77,7 +87,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from dslabs_tpu_torch.service.server import CheckServer
 
     if args.cmd == "submit":
-        srv = CheckServer(args.root, admission=not args.no_admission)
+        srv = CheckServer(args.root, admission=not args.no_admission,
+                          memo=not args.no_memo)
         try:
             res = srv.submit(
                 factory=args.factory, tenant=args.tenant,
@@ -119,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     kw = {k: getattr(args, k) for k in ("workers", "lanes", "quota")
           if getattr(args, k) is not None}
     srv = CheckServer(args.root, admission=not args.no_admission,
-                      device=args.device, **kw)
+                      memo=not args.no_memo, device=args.device, **kw)
     try:
         summary = srv.drain(max_secs=args.max_secs)
     finally:

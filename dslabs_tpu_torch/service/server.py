@@ -28,26 +28,33 @@ port's layers together:
   its ``lane_share`` of the batch's shared dispatches.
 * **Bounded backpressure** (``service/queue.py``): a full queue answers
   with a structured retry-after rejection instead of blocking.
+* **Cross-job memoization** (``service/memo.py``), on by default: an
+  identical resubmit returns its cached verdict with zero dispatches, a
+  budget-grown resubmit warm-starts from the signature's deepest
+  checkpoint, and a one-handler edit re-checks from its divergence
+  bound.  Off (``memo=False``) leaves every other path as it was: no
+  memo dir, no memo events, no introspection children.
 
 ``SERVER_STATUS.json`` (atomic tmp + replace) aggregates queue depth and
 cap, backpressure, per-tenant pending / running / completed / failed /
 rejected with their cost ledger, the fairness index and the ``lanes``
-block.  Jobs run on the card unless the server is built with
+and ``memo`` blocks.  Jobs run on the card unless the server is built with
 ``device="cpu"``.
 
 CLI: ``python -m dslabs_tpu_torch.service {submit,status,drain}``
 (``service/__main__.py``).  Running this module as ``__main__`` is the
 admission child.
 
-Deliberate differences from the reference: cross-job memoization
-(``service/memo.py``) is not ported yet, so ``memo`` defaults to off and
-``memo=True`` / ``memo_path=`` raise ``NotImplementedError``; the
-``DSLABS_SERVICE_*`` environment knobs and ``DSLABS_LANES`` /
-``DSLABS_LANE_SWAP`` are the module constants below and constructor
-arguments; the admission child leaves the card with
-``CUDA_VISIBLE_DEVICES=`` where the reference sets ``JAX_PLATFORMS=cpu``;
-``elastic`` is accepted and has no effect until the sharded rung is
-ported.
+Deliberate differences from the reference: the ``DSLABS_SERVICE_*``
+environment knobs, ``DSLABS_LANES`` / ``DSLABS_LANE_SWAP`` and
+``DSLABS_MEMO`` / ``DSLABS_MEMO_DIR`` are the module constants below
+(``memo.MEMO`` for the memo) and constructor arguments (``memo``,
+``memo_path``); a job's per-level dump archive is the warden's
+``levels_dir`` argument where the reference sets ``DSLABS_MEMO_LEVELS``
+in the child's environment; the admission and introspection children
+leave the card with ``CUDA_VISIBLE_DEVICES=`` where the reference sets
+``JAX_PLATFORMS=cpu``; ``elastic`` is accepted and has no effect until
+the sharded rung is ported.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from dslabs_tpu_torch.service import memo as memo_mod
 from dslabs_tpu_torch.service.queue import Job, ServiceQueue
 from dslabs_tpu_torch.service.scheduler import (AttemptPlan,
                                                 DeficitRoundRobin,
@@ -95,12 +103,6 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 def _zero_stats() -> dict:
     return {"submitted": 0, "completed": 0, "failed": 0, "rejected": 0,
             "verdicts": 0, "budget_spent": 0.0}
-
-
-def _memo_later() -> NotImplementedError:
-    return NotImplementedError(
-        "CheckServer: memo is not ported yet; it comes with the memo "
-        "slice of the PyTorch port (service/memo.py, see ROADMAP.md)")
 
 
 # -------------------------------------------------------------- admission
@@ -157,10 +159,12 @@ def admission_check(factory: str, factory_kwargs: Optional[dict],
 
 class CheckServer:
     """The resident server: bounded persistent queue, admission gate, DRR
-    scheduler and per-job warden fault domains.  Thread-safe; ``drain``
-    runs the backlog on ``workers`` threads (each job is its own child
-    process tree, so workers only coordinate).  ``device`` is where the
-    jobs' children run (the card unless the caller names another)."""
+    scheduler, per-job warden fault domains and the cross-job memo.
+    Thread-safe; ``drain`` runs the backlog on ``workers`` threads (each
+    job is its own child process tree, so workers only coordinate).
+    ``device`` is where the jobs' children run (the card unless the
+    caller names another).  ``memo`` (default on) keeps the memo store at
+    ``memo_path`` (default ``<root>/memo``)."""
 
     def __init__(self, root: str,
                  queue_cap: Optional[int] = None,
@@ -177,11 +181,9 @@ class CheckServer:
                  lanes: int = LANES,
                  lane_swap: bool = LANE_SWAP,
                  telemetry=None,
-                 memo: Optional[bool] = False,
+                 memo: bool = memo_mod.MEMO,
                  memo_path: Optional[str] = None,
                  device=None):
-        if memo or memo_path is not None:
-            raise _memo_later()
         # Resolved when a job runs: submitting and reading status need no
         # card.
         self._device = device
@@ -218,6 +220,16 @@ class CheckServer:
             "batches": 0, "jobs": 0, "swaps": 0, "evicted": 0,
             "occupancy_sum": 0.0, "by_signature": {}}
         self._lane_seq = 0
+        # Cross-job memoization: an identical resubmit is answered from
+        # the verdict cache, a budget-grown one warm-starts from the
+        # signature's deepest dump, a one-handler edit re-checks from its
+        # divergence bound.  Off: no memo dir, no memo events, no
+        # introspection children.
+        self.memo: Optional[memo_mod.MemoStore] = None
+        if memo:
+            self.memo = memo_mod.MemoStore(
+                memo_path or memo_mod.memo_dir(self.root))
+        self._intro_cache: Dict[tuple, dict] = {}
         self.status_path = os.path.join(self.root, SERVER_STATUS_NAME)
         self._lock = threading.Lock()
         self._running: Dict[str, int] = {}
@@ -262,10 +274,18 @@ class CheckServer:
         # record, every phase of the job's life is stamped with it, and
         # ``telemetry trace`` reassembles the causal tree from disk.
         trace_id = tracing.mint_trace_id()
+        # Memo introspection runs first, so that the admission cache keys
+        # on the structural fingerprint: admission and the memo never
+        # disagree about what a spec is.  A child off the card builds the
+        # protocol; a failed introspection is journaled and the job runs
+        # cold.
+        intro = self._introspect(factory, factory_kwargs, transform)
+        spec_fp = (intro or {}).get("spec_fp") \
+            if (intro or {}).get("ok") else None
         if self.admission:
             t_adm = time.time()
             findings, cached = self._admit(factory, factory_kwargs,
-                                           transform)
+                                           transform, fp=spec_fp)
             unwaived = [f for f in findings if not f.get("waived")]
             self.queue.log_event(
                 "admission", tenant=tenant, factory=factory,
@@ -295,6 +315,15 @@ class CheckServer:
                   budget_units=budget_units, chunk=chunk,
                   frontier_cap=frontier_cap, visited_cap=visited_cap,
                   ladder=tuple(ladder), fault=fault, trace_id=trace_id)
+        # The exact-key verdict cache: a structural, budget and knob match
+        # returns the cached verdict with zero dispatches (memo_hit
+        # journaled, cached=true, a near-zero COSTS charge).
+        if self.memo is not None and fault is None and spec_fp:
+            plan = self.memo.plan(
+                intro, strict, chunk, frontier_cap, visited_cap,
+                tuple(ladder), max_depth, max_secs)
+            if plan.mode == "hit":
+                return self._complete_memo_hit(job, st, plan)
         res = self.queue.submit(job)
         if res.get("accepted"):
             res["trace_id"] = trace_id
@@ -309,13 +338,17 @@ class CheckServer:
         self._write_status()
         return res
 
-    def _admit(self, factory, factory_kwargs,
-               transform) -> Tuple[List[dict], bool]:
+    def _admit(self, factory, factory_kwargs, transform,
+               fp: Optional[str] = None) -> Tuple[List[dict], bool]:
         """The cached admission check: ``(findings, cached)``, so the
         journal's admission event tells a paid subprocess check from a
-        cache hit."""
-        key = (factory, json.dumps(factory_kwargs or {}, sort_keys=True),
-               transform or "")
+        cache hit.  With the memo on, the cache keys on the structural
+        fingerprint ``fp`` (the memo store's identity: a rename-only
+        resubmit hits both caches); without one, on the factory, its
+        kwargs and the transform."""
+        key = (("fp", fp) if fp else
+               (factory, json.dumps(factory_kwargs or {}, sort_keys=True),
+                transform or ""))
         with self._lock:
             cached = self._admission_cache.get(key)
         if cached is not None:
@@ -326,6 +359,142 @@ class CheckServer:
         with self._lock:
             self._admission_cache[key] = findings
         return findings, False
+
+    # --------------------------------------------------------------- memo
+
+    def _introspect(self, factory, factory_kwargs,
+                    transform) -> Optional[dict]:
+        """Cached structural introspection (``service/memo.py``'s child).
+        The cache key holds the factory module file's content hash: a
+        tenant editing the module in place gets a fresh child (a fresh
+        interpreter, no stale ``sys.modules``), so an edited spec never
+        rides a stale fingerprint into the verdict cache."""
+        if self.memo is None:
+            return None
+        src = memo_mod.factory_source_hash(factory, self.extra_sys_path)
+        key = (factory,
+               json.dumps(factory_kwargs or {}, sort_keys=True,
+                          default=repr),
+               transform or "", src or "?")
+        with self._lock:
+            hit = self._intro_cache.get(key)
+        if hit is not None:
+            return hit
+        intro = memo_mod.introspect_child(
+            factory, factory_kwargs, transform,
+            extra_sys_path=self.extra_sys_path, env=self.env)
+        if not intro.get("ok"):
+            self.queue.log_event(
+                "memo", mode="introspect_failed", factory=factory,
+                error=str(intro.get("error"))[:200])
+        with self._lock:
+            self._intro_cache[key] = intro
+        return intro
+
+    def _cached_verdict(self, job: Job, plan) -> dict:
+        cached = plan.verdict or {}
+        return {
+            "job_id": job.job_id, "tenant": job.tenant,
+            "trace_id": job.trace_id,
+            "budget_units": job.budget_units,
+            "status": "done",
+            "end": cached.get("end"),
+            "unique": cached.get("unique"),
+            "explored": cached.get("explored"),
+            "depth": cached.get("depth"),
+            "engine": cached.get("engine"),
+            "predicate": cached.get("predicate"),
+            "witness": cached.get("witness"),
+            "attempts": 0, "failovers": 0, "child_restarts": 0,
+            "knob_shrinks": 0, "rung_steps": 0,
+            "resumed_from_depth": 0, "degraded": False, "deaths": [],
+            "cached": True, "run_dir": self.job_dir(job.job_id),
+            "elapsed_secs": 0.0,
+        }
+
+    def _land_memo_hit(self, job: Job, plan) -> dict:
+        """Journal and bill one verdict-cache hit: memo_hit, then done;
+        the COSTS charge bills its counters against no flight log (device
+        seconds 0), and no scheduler or warden work happens."""
+        verdict = self._cached_verdict(job, plan)
+        self.queue.log_event(
+            "memo_hit", job_id=job.job_id, tenant=job.tenant,
+            trace_id=job.trace_id, sig=plan.sig,
+            device_secs_saved=round(plan.base_device_secs, 4))
+        self.queue.mark_done(job.job_id, {
+            "end": verdict["end"], "unique": verdict["unique"],
+            "explored": verdict["explored"], "depth": verdict["depth"],
+            "attempts": 0, "degraded": False, "cached": True})
+        self._charge(verdict, self.job_dir(job.job_id))
+        self.memo.bump("hits")
+        self.memo.bump("device_secs_saved", plan.base_device_secs)
+        return verdict
+
+    def _complete_memo_hit(self, job: Job, st: dict, plan) -> dict:
+        """Land a verdict-cache hit at submit: the job enters and leaves
+        the journal in one motion (submit -> memo_hit -> done)."""
+        res = self.queue.submit(job)
+        if not res.get("accepted"):
+            self.queue.mark_rejected(job.tenant, "queue_full",
+                                     {"trace_id": job.trace_id})
+            with self._lock:
+                st["rejected"] += 1
+            self._write_status()
+            return res
+        res["trace_id"] = job.trace_id
+        verdict = self._land_memo_hit(job, plan)
+        with self._lock:
+            st["submitted"] += 1
+            st["completed"] += 1
+            st["verdicts"] += 1
+            self.results.append(verdict)
+        self._write_status()
+        res["verdict"] = verdict
+        res["memo"] = "hit"
+        return res
+
+    def _memo_plan(self, job: Job):
+        """(intro, plan) for one job at run time (safe under a restart's
+        replay: recomputed from the introspection cache or a fresh
+        child)."""
+        if self.memo is None:
+            return None, None
+        intro = self._introspect(job.factory, job.factory_kwargs,
+                                 job.transform)
+        if not intro or not intro.get("ok"):
+            return intro, None
+        plan = self.memo.plan(
+            intro, job.strict, job.chunk, job.frontier_cap,
+            job.visited_cap, tuple(job.ladder), job.max_depth,
+            job.max_secs)
+        if job.fault is not None and plan.mode == "hit":
+            # A fault experiment always runs (the injected condition is
+            # the point); warm and incremental seeding still apply.
+            return intro, None
+        return intro, plan
+
+    def _memo_archive(self, job: Job, intro: dict, verdict: dict,
+                      rd: str) -> float:
+        """Archive a finished run and record its verdict (best-effort,
+        journaled on failure); returns the run's device seconds from its
+        flight log."""
+        try:
+            dsecs = tracing.CostMeter.flight_costs(
+                os.path.join(rd, "flight.jsonl"))["device_secs"]
+        except Exception:  # noqa: BLE001 - accounting is best-effort
+            dsecs = 0.0
+        try:
+            fields = memo_mod.key_fields(
+                intro, job.strict, job.chunk, job.frontier_cap,
+                job.visited_cap, tuple(job.ladder))
+            self.memo.archive(intro, fields, verdict, rd, dsecs)
+            self.memo.record_verdict(fields, job.max_depth, job.max_secs,
+                                     verdict, dsecs)
+        except Exception as e:  # noqa: BLE001 - reuse is best-effort
+            self.queue.log_event(
+                "memo", mode="archive_failed", job_id=job.job_id,
+                error=f"{type(e).__name__}: {e}"[:200])
+        return dsecs
 
     # ------------------------------------------------------------ run job
 
@@ -370,6 +539,37 @@ class CheckServer:
         rd = self.job_dir(job.job_id)
         os.makedirs(rd, exist_ok=True)
         ckpt = os.path.join(rd, "ckpt.npz")
+        intro, mplan = self._memo_plan(job)
+        if mplan is not None and mplan.mode == "hit":
+            # A sibling job archived this exact signature between submit
+            # and run (drain order): land it as a hit.
+            return self._land_memo_hit(job, mplan)
+        seeded = False
+        if (mplan is not None and mplan.mode in ("warm", "incremental")
+                and mplan.seed_ckpt and not os.path.exists(ckpt)):
+            # Seed the job's own durable checkpoint from the archived
+            # signature state; the warden child resumes it through the
+            # checkpoint path, and a crash mid-run keeps the job's own
+            # (deeper) dump for later attempts.
+            tmp = ckpt + ".seed"
+            shutil.copyfile(mplan.seed_ckpt, tmp)
+            os.replace(tmp, ckpt)
+            seeded = True
+            self.memo.bump("warm_starts" if mplan.mode == "warm"
+                           else "incremental")
+            if mplan.mode == "incremental":
+                self.memo.bump("levels_skipped", mplan.levels_skipped)
+            self.queue.log_event(
+                "memo", mode=mplan.mode, job_id=job.job_id,
+                tenant=job.tenant, trace_id=job.trace_id,
+                sig=mplan.sig, seed_depth=mplan.seed_depth,
+                levels_skipped=mplan.levels_skipped,
+                reason=mplan.reason)
+        elif self.memo is not None:
+            self.memo.bump("misses")
+        # Per-level dumps for future incremental re-checks.
+        levels_dir = (os.path.join(rd, "levels")
+                      if self.memo is not None else None)
         plan = AttemptPlan(attempt=1, chunk=job.chunk,
                            ladder=tuple(job.ladder))
         deaths: List[dict] = []
@@ -394,13 +594,31 @@ class CheckServer:
                 # meta links back to this attempt.
                 trace_id=job.trace_id,
                 parent_span=plan.span_id(job.job_id),
-                device=self.device, **self.warden_kwargs)
+                device=self.device, levels_dir=levels_dir,
+                **self.warden_kwargs)
             try:
-                out = w.run(resume=plan.attempt > 1)
+                out = w.run(resume=plan.attempt > 1 or seeded)
             except SupervisorExhausted:
                 deaths += [{"rung": d.rung, "kind": d.kind,
                             "detail": d.detail[:200]} for d in w.deaths]
                 kind = w.deaths[-1].kind if w.deaths else "failed"
+                if seeded and any("Checkpoint" in d.get("detail", "")
+                                  for d in deaths):
+                    # A refused or torn memo seed never fails the job:
+                    # the seed is abandoned loudly and the job runs cold.
+                    for p in (ckpt, ckpt + ".prev"):
+                        try:
+                            os.remove(p)
+                        except OSError:
+                            pass
+                    seeded = False
+                    deaths = []
+                    self.queue.log_event(
+                        "memo", mode="seed_abandoned",
+                        job_id=job.job_id, trace_id=job.trace_id,
+                        detail=(w.deaths[-1].detail[:200]
+                                if w.deaths else ""))
+                    continue
                 nxt = degrade(plan, kind, self.retry)
                 if nxt is None:
                     failure = self._failure(
@@ -437,6 +655,9 @@ class CheckServer:
                 "engine": out.engine,
                 "platform": out.platform,
                 "predicate": out.predicate_name,
+                "witness": memo_mod.witness_digest(
+                    out.predicate_name, out.violating_state,
+                    out.goal_state, out.trace),
                 "attempts": plan.attempt,
                 "failovers": out.failovers,
                 "child_restarts": out.child_restarts,
@@ -455,6 +676,12 @@ class CheckServer:
                 "attempts": plan.attempt,
                 "degraded": verdict["degraded"]})
             self._charge(verdict, rd)
+            if self.memo is not None and intro and intro.get("ok"):
+                dsecs = self._memo_archive(job, intro, verdict, rd)
+                if seeded and mplan is not None:
+                    self.memo.bump(
+                        "device_secs_saved",
+                        max(0.0, mplan.base_device_secs - dsecs))
             return verdict
 
     def run_job_batch(self, jobs: List[Job]) -> List[dict]:
@@ -525,6 +752,9 @@ class CheckServer:
                 "engine": "lanes",
                 "platform": out.platform,
                 "predicate": out.predicate_name,
+                "witness": memo_mod.witness_digest(
+                    out.predicate_name, out.violating_state,
+                    out.goal_state, out.trace),
                 "attempts": 1,
                 "failovers": 0,
                 "child_restarts": out.child_restarts,
@@ -734,7 +964,9 @@ class CheckServer:
             # Lane amortisation: packing decisions and the mean
             # dispatches billed per job (share-scaled across batches).
             "lanes": self._lane_block(),
-            "memo": {"enabled": False},
+            # Cross-job reuse: hits, warm starts, incremental re-checks
+            # and the device seconds they saved.
+            "memo": self._memo_block(),
             "dispatches_per_job": totals.get("dispatches_per_job"),
             "per_tenant": per_tenant,
             "costs": self.costs.tenant_summary(),
@@ -766,6 +998,12 @@ class CheckServer:
                 "by_signature": {s: dict(v) for s, v
                                  in ls["by_signature"].items()},
             }
+
+    def _memo_block(self) -> dict:
+        """The ``memo`` block of SERVER_STATUS.json and the drain
+        summary: the store's counters, or ``{"enabled": False}``."""
+        return (self.memo.stats_block() if self.memo is not None
+                else {"enabled": False})
 
     def server_status(self) -> dict:
         qs = self.queue.summary()
@@ -799,7 +1037,7 @@ class CheckServer:
                 "tenants": tenants,
                 "fairness_index": fairness_index(self.stats),
                 "lanes": lane_block,
-                "memo": {"enabled": False},
+                "memo": self._memo_block(),
             }
 
     def _write_status(self) -> None:

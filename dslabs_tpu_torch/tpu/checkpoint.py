@@ -47,17 +47,23 @@ checkpointed run keeps beside its dump (the flight recorder, STATUS.json
 and the cost ledger of ``tpu/telemetry.py`` and ``tpu/tracing.py``), under
 the reference's names, so both packages lay a run dir out alike.
 
-Deliberate differences from the reference: the per-level archive copy
-(``DSLABS_MEMO_LEVELS``) belongs to the memo service and is not ported;
-the layout keeps the reference's ``compile_cache`` entry, but the port
-compiles nothing there (its kernels build once per checkout, in
-``tpu/_build.py``).
+Per-level archives (the memo's incremental re-checks, ``service/memo.py``):
+``save(..., levels_dir=d)`` also copies each completed dump to
+``d/level_<depth>.npz`` (:func:`_archive_level`), best-effort.
+
+Deliberate differences from the reference: the levels directory is an
+argument that every writer passes (``TensorSearch(levels_dir=)``, through
+the supervisor and the warden's child spec), where the reference reads
+``DSLABS_MEMO_LEVELS``; the layout keeps the reference's
+``compile_cache`` entry, but the port compiles nothing there (its kernels
+build once per checkout, in ``tpu/_build.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 import warnings
 import zlib
@@ -184,10 +190,13 @@ def _content_checksum(host: dict) -> np.uint32:
     return np.uint32(crc & 0xFFFFFFFF)
 
 
-def save(path: str, ckpt: SearchCheckpoint) -> None:
+def save(path: str, ckpt: SearchCheckpoint,
+         levels_dir: Optional[str] = None) -> None:
     """Atomic checksummed dump with one-deep rotation: write
     ``path + '.tmp'``, rotate an existing dump to ``path + '.prev'``,
-    then replace.  A kill at any point leaves a complete dump."""
+    then replace.  A kill at any point leaves a complete dump.  With
+    ``levels_dir`` the completed dump is also archived there
+    (:func:`_archive_level`)."""
     host = {
         "config": np.bytes_(ckpt.fingerprint.encode()),
         "depth": np.int64(ckpt.depth),
@@ -209,6 +218,24 @@ def save(path: str, ckpt: SearchCheckpoint) -> None:
     if os.path.exists(path):
         os.replace(path, path + ".prev")
     os.replace(tmp, path)
+    if levels_dir:
+        _archive_level(path, int(ckpt.depth), levels_dir)
+
+
+def _archive_level(path: str, depth: int, levels_dir: str) -> None:
+    """Copy a completed dump to ``levels_dir/level_<depth>.npz`` (tmp +
+    replace): the memo's incremental re-check resumes an edited spec from
+    the deepest level below its divergence bound.  Best-effort: the
+    archive never fails the live dump, and every consumer verifies the
+    copy's checksum and fingerprint before seeding from it."""
+    try:
+        os.makedirs(levels_dir, exist_ok=True)
+        dst = os.path.join(levels_dir, f"level_{depth}.npz")
+        tmp = dst + ".tmp"
+        shutil.copyfile(path, tmp)
+        os.replace(tmp, dst)
+    except OSError:
+        pass
 
 
 def _candidates(path: str):

@@ -677,7 +677,10 @@ class TensorSearch:
     continues from it with the straight run's counts; without a dump it
     starts from the root.  Dumps are shared with the reference: the same
     fingerprint string, the same arrays, packed frontier rows under the
-    same ``frontier_encoding`` marker.
+    same ``frontier_encoding`` marker.  ``levels_dir`` also archives each
+    completed dump there as ``level_<depth>.npz`` (the memo's incremental
+    re-checks, ``service/memo.py``; the reference's
+    ``DSLABS_MEMO_LEVELS``).
 
     ``spill`` (True or a ``tpu/spill.py`` SpillConfig; default off)
     turns a full visited table or frontier buffer into host-RAM spill:
@@ -740,7 +743,8 @@ class TensorSearch:
                  packed: Optional[bool] = None,
                  symmetry: Optional[bool] = None,
                  device=None,
-                 sanitize: Optional[str] = None):
+                 sanitize: Optional[str] = None,
+                 levels_dir: Optional[str] = None):
         if sanitize not in SANITIZE_MODES:
             raise ValueError(f"sanitize must be one of {SANITIZE_MODES}, "
                              f"got {sanitize!r}")
@@ -762,6 +766,7 @@ class TensorSearch:
                 "host-side already; run the trace pass uncapped)")
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        self.levels_dir = levels_dir
         self._resumed_from_depth = 0
         # The dispatch seam's state: the supervisor's hook (None = plain
         # calls), the portfolio lane's cancel event, and the depth of the
@@ -1606,7 +1611,8 @@ class TensorSearch:
         ck = self._make_ckpt(frontier, visited_keys, depth, explored,
                              elapsed, vis_over)
         self._ckpt_writer.kick(
-            lambda: ckpt_mod.save(self.checkpoint_path, ck))
+            lambda: ckpt_mod.save(self.checkpoint_path, ck,
+                                  levels_dir=self.levels_dir))
 
     # ------------------------------------------------------------ symmetry
 
@@ -2064,7 +2070,8 @@ class TensorSearch:
                     fingerprint=self._ckpt_fingerprint(), depth=depth,
                     explored=explored, elapsed=time.time() - t0,
                     frontier=np.concatenate(nf),
-                    visited_keys=_keys_to_rows(visited)))
+                    visited_keys=_keys_to_rows(visited)),
+                    levels_dir=self.levels_dir)
 
     def _build_dev_step(self, cap: int):
         """One wave step over frontier chunk ``j``: expand -> visited-table
@@ -2650,7 +2657,8 @@ class TensorSearch:
         occ = visited_mod.host_occupied(carry["visited"])
         ckpt_mod.save(self.checkpoint_path, self._make_ckpt(
             sp.spool_cur.concat(self.plane), sp.checkpoint_keys(occ),
-            depth, explored, elapsed, extra=sp.checkpoint_extra()))
+            depth, explored, elapsed, extra=sp.checkpoint_extra()),
+            levels_dir=self.levels_dir)
 
     def _spill_carry_from_ckpt(self, ck, cap: int):
         """Spill-mode resume: every dumped key goes into the host tier,

@@ -548,7 +548,8 @@ class LaneSearch(TensorSearch):
         ckpt_mod.save(ln.job.checkpoint_path, self._make_ckpt(
             host_copy(carry["cur"][i, :nxt_n]),
             visited_mod.host_occupied(carry["visited"][i]), ln.depth,
-            ln.last[0], time.time() - ln.t0, ln.last[2]))
+            ln.last[0], time.time() - ln.t0, ln.last[2]),
+            levels_dir=self.levels_dir)
 
     # ----------------------------------------------------------------- run
 

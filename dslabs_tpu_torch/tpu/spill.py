@@ -66,7 +66,7 @@ import numpy as np
 
 __all__ = ["SpillConfig", "SpillStats", "HostVisitedTier",
            "FrontierSpool", "SpillManager", "TIER_FORMAT", "TierMismatch",
-           "TierCorrupt", "save_tier", "load_tier",
+           "TierCorrupt", "save_tier", "load_tier", "peek_tier_meta",
            "spill_manager_for_audit"]
 
 
@@ -234,6 +234,22 @@ def save_tier(path: str, h1: np.ndarray, h2: np.ndarray,
     if os.path.exists(path):
         os.replace(path, path + ".prev")
     os.replace(tmp, path)
+
+
+def peek_tier_meta(path: str) -> Optional[dict]:
+    """The tier's meta dict without loading the key arrays, or None when
+    no readable candidate exists (a torn main file falls through to
+    ``.prev``, as :func:`load_tier` would)."""
+    for cand in (path, path + ".prev"):
+        if not os.path.exists(cand):
+            continue
+        try:
+            with np.load(cand) as z:
+                if "meta" in z.files:
+                    return json.loads(z["meta"].item().decode())
+        except Exception:  # noqa: BLE001 (torn file: try .prev)
+            continue
+    return None
 
 
 def load_tier(path: str, expect_meta: Optional[dict] = None

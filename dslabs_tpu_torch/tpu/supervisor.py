@@ -659,7 +659,8 @@ class SearchSupervisor:
                  spill=False,
                  telemetry=None,
                  elastic: bool = False,
-                 device=None):
+                 device=None,
+                 levels_dir: Optional[str] = None):
         for rung in ladder:
             if rung == "sharded":
                 raise _later("the sharded rung",
@@ -674,6 +675,9 @@ class SearchSupervisor:
         self.fault_plan = fault_plan
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        # Where each rung's dumps are also archived per level (the
+        # memo's incremental re-checks; None = not archived).
+        self.levels_dir = levels_dir
         self.strict = strict
         self.max_depth = max_depth
         self.max_secs = max_secs
@@ -760,7 +764,7 @@ class SearchSupervisor:
             use_host_visited=(rung == "host"),
             checkpoint_path=self.checkpoint_path,
             checkpoint_every=self.checkpoint_every, spill=spill,
-            device=self.device)
+            device=self.device, levels_dir=self.levels_dir)
 
     def _release(self, search, exc: BaseException) -> None:
         """Free what a failed rung holds on the card before the next one
@@ -1041,7 +1045,8 @@ class SearchSupervisor:
             frontier_cap=self.frontier_cap,
             visited_cap=self.visited_cap, ev_budget=self.ev_budget,
             aot_warmup=self.aot_warmup, telemetry=self.telemetry,
-            device=self.device, **(self.warden_kwargs or {}))
+            device=self.device, levels_dir=self.levels_dir,
+            **(self.warden_kwargs or {}))
         try:
             return warden.run(resume=resume)
         finally:

@@ -890,7 +890,8 @@ class SwarmSearch(TensorSearch):
             frontier=host_copy(carry["rows"]), visited_keys=keys,
             vis_over=int(carry["vis_over"]), extra=extra)
         self._ckpt_writer.kick(
-            lambda: ckpt_mod.save(self.checkpoint_path, ck))
+            lambda: ckpt_mod.save(self.checkpoint_path, ck,
+                                  levels_dir=self.levels_dir))
 
     def _load_swarm_ckpt(self):
         """-> (carry, rounds, elapsed), or None without a dump: the whole

@@ -27,7 +27,8 @@ telemetry module is imported lazily, as the lower layer).  Two halves:
 
 A service root (a directory with ``journal.jsonl``, ``service/``) is
 assembled through the service's journal replay: one tree per job, and a
-lane job's tree carries its batch's shared spans, marked ``shared``.
+lane job's tree carries its batch's shared spans, marked ``shared``; a
+job the memo answered or seeded carries a ``memo`` node.
 """
 
 from __future__ import annotations
@@ -513,6 +514,28 @@ def _assemble_job(root: str, rec: dict, journal: List[dict]) -> dict:
             "skipped": bool(admission.get("skipped")),
             "cached": bool(admission.get("cached")),
             "findings": admission.get("findings", 0)})
+    # Cross-job memoization (service/memo.py): a memo_hit ends the tree
+    # here (no attempts, no flight log); a warm or incremental seed is a
+    # zero-width note of why attempt 1 starts deep.
+    memo = next(
+        (r for r in journal if r.get("t") in ("memo_hit", "memo")
+         and r.get("mode") != "introspect_failed"
+         and (r.get("job_id") == job_id
+              or (trace_id and r.get("trace_id") == trace_id))), None)
+    if memo is not None:
+        m_ts = memo.get("ts")
+        hit = memo.get("t") == "memo_hit"
+        nodes.append({
+            "span_id": f"{job_id}:memo", "parent": root_id,
+            "kind": "memo",
+            "name": "memo-hit" if hit else f"memo-{memo.get('mode')}",
+            "t0": float(m_ts) if m_ts is not None else None,
+            "t1": float(m_ts) if m_ts is not None else None,
+            "mode": "hit" if hit else memo.get("mode"),
+            "sig": memo.get("sig"),
+            "seed_depth": memo.get("seed_depth"),
+            "levels_skipped": memo.get("levels_skipped"),
+            "device_secs_saved": memo.get("device_secs_saved")})
     # Attempt spans: one per journal `start`; its id is DERIVED
     # (attempt_span_id) so the child meta's parent_span links back.
     attempt_ids = {}
@@ -746,6 +769,16 @@ def render_trace(tr: dict) -> str:
                         line += " (skipped)"
                     elif n.get("cached"):
                         line += " (cached)"
+                if kind == "memo":
+                    if n.get("mode") == "hit":
+                        saved = n.get("device_secs_saved")
+                        line += (f" sig={n.get('sig')} "
+                                 f"saved~{saved}s" if saved is not None
+                                 else f" sig={n.get('sig')}")
+                    else:
+                        line += (f" seed_depth={n.get('seed_depth')} "
+                                 f"levels_skipped="
+                                 f"{n.get('levels_skipped')}")
                 out.append(line)
                 walk(n["span_id"], indent + 1)
 

@@ -237,7 +237,8 @@ class Warden:
     a durable dump).  A hang blocks the dispatch (the warden must kill),
     ``die`` is a SIGKILL of itself (an external or OOM kill), ``exit`` an
     abrupt ``os._exit``, ``raise`` a fatal in-child error reported over
-    the pipe."""
+    the pipe.  ``levels_dir`` is passed to every child's search, which
+    archives each completed dump there per level (the memo's seeds)."""
 
     def __init__(self, factory: str,
                  factory_kwargs: Optional[dict] = None,
@@ -264,7 +265,8 @@ class Warden:
                  telemetry=None,
                  trace_id: Optional[str] = None,
                  parent_span: Optional[str] = None,
-                 device=None):
+                 device=None,
+                 levels_dir: Optional[str] = None):
         from dslabs_tpu_torch.tpu._build import resolve_device
         from dslabs_tpu_torch.tpu.supervisor import _later
 
@@ -282,6 +284,8 @@ class Warden:
         self.policy = policy or RetryPolicy()
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
+        # The children's per-level dump archive (None = none).
+        self.levels_dir = levels_dir
         self.strict = strict
         self.max_depth = max_depth
         self.max_secs = max_secs
@@ -340,6 +344,7 @@ class Warden:
             "aot_warmup": self.aot_warmup,
             "checkpoint_path": self.checkpoint_path,
             "checkpoint_every": self.checkpoint_every,
+            "levels_dir": self.levels_dir,
             "policy": dataclasses.asdict(self.policy),
             "grace": {"boot": self.boot_grace, "first": self.first_grace,
                       "steady": self.steady_grace,
@@ -640,7 +645,7 @@ def _child_main() -> int:
             visited_cap=spec.get("visited_cap", 1 << 20),
             ev_budget=ev, aot_warmup=spec.get("aot_warmup", False),
             dispatch_observer=observer, telemetry=child_tel,
-            device=spec.get("device"))
+            device=spec.get("device"), levels_dir=spec.get("levels_dir"))
         out = sup.run(resume=bool(spec.get("resume")))
     except BaseException as e:  # noqa: BLE001 - reported over the pipe
         kind = "failed"

@@ -316,7 +316,8 @@ def test_port_imports_no_jax():
                  "analysis/conformance.py", "analysis/hotpath_audit.py",
                  "tpu/lanes.py", "service/__init__.py",
                  "service/__main__.py", "service/queue.py",
-                 "service/scheduler.py", "service/server.py"):
+                 "service/scheduler.py", "service/server.py",
+                 "service/memo.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):

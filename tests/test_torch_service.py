@@ -4,10 +4,11 @@ the CPU: the cases of ``tests/test_service.py``.
 The queue, the scheduler, the degrade table and the fairness index are
 held against the JAX package's on the same inputs (one journal read by
 both replays, one job list picked by both schedulers).  Servers run with
-``device="cpu"`` and the memo off (the port has no memo yet:
-``memo=True`` raises); their warden children rebuild the port's
-protocols with ``OMP_NUM_THREADS=1``.  Verdicts are held against the JAX
-package's, its server's drain included (``CheckServer(memo=False)``).
+``device="cpu"`` and the memo off (``memo=False``: these are the
+reference's memo-off cases; ``tests/test_torch_memo.py`` holds the memo);
+their warden children rebuild the port's protocols with
+``OMP_NUM_THREADS=1``.  Verdicts are held against the JAX package's, its
+server's drain included (``CheckServer(memo=False)``).
 The admission child runs the port's conformance linter off the card."""
 
 import json
@@ -53,6 +54,7 @@ def _server(root, **kw):
     kw.setdefault("env", CHILD_ENV)
     kw.setdefault("warden_kwargs", dict(GRACES))
     kw.setdefault("device", "cpu")
+    kw.setdefault("memo", False)
     return CheckServer(str(root), **kw)
 
 
@@ -286,12 +288,6 @@ def test_admission_rejects_unsound_spec_before_any_twin(tmp_path):
     srv.close()
 
 
-def test_memo_waits_for_its_slice(tmp_path):
-    for kw in ({"memo": True}, {"memo_path": str(tmp_path / "m")}):
-        with pytest.raises(NotImplementedError, match="memo slice"):
-            CheckServer(str(tmp_path / "svc"), device="cpu", **kw)
-
-
 # ------------------------------------- scheduler-level degradation
 
 def test_oom_death_costs_a_knob_shrink_relevel(tmp_path, jax_verdict):
@@ -457,7 +453,7 @@ def test_service_cli_submit_and_status(tmp_path, capsys):
     rc = main(["submit", "--root", root, "--tenant", "alice",
                "--factory", FACTORY,
                "--kwargs", json.dumps({"workload_size": 2}),
-               "--chunk", "64", "--no-admission"])
+               "--chunk", "64", "--no-admission", "--no-memo"])
     sub = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and sub["accepted"] and sub["trace_id"]
     rc = main(["status", "--root", root])
@@ -474,14 +470,14 @@ def test_service_cli_submit_status_drain(tmp_path, capsys):
     rc = main(["submit", "--root", root, "--tenant", "alice",
                "--factory", FACTORY,
                "--kwargs", json.dumps({"workload_size": 2}),
-               "--chunk", "64", "--no-admission"])
+               "--chunk", "64", "--no-admission", "--no-memo"])
     sub = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and sub["accepted"]
     rc = main(["status", "--root", root])
     st = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and st["queue"]["queue_depth"] == 1
-    rc = main(["drain", "--root", root, "--no-admission", "--workers", "1",
-               "--device", "cpu"])
+    rc = main(["drain", "--root", root, "--no-admission", "--no-memo",
+               "--workers", "1", "--device", "cpu"])
     dr = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and dr["completed"] == 1 and dr["failed"] == 0
     assert dr["results"][0]["tenant"] == "alice"
