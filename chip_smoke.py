@@ -312,11 +312,28 @@ table) once.  Each phase prints one JSON line:
            (strict, visited_cap 2^24, frontier_cap 2^20, chunk 4096, depth
            10 or SEARCH_MAX_SECS): outcome, unique states/min, peak device
            memory, bytes per state, chunk steps, and the launch count of
-           each kernel during that run (each must be > 0).
+           each kernel during that run (each must be > 0);
+  sharded  the owner-sharded engine (tpu/sharded.py) at full width: the
+           compiled packed flagship on ShardedTensorSearch at D = 1 and
+           D = 4 (chunk_per_device 4096 // D, caps 2^17 / 2^20 per shard)
+           to depth 8, each at the pins (316,096 / 1,495,288), with one
+           sharded.superstep per level, each superstep's synchronising
+           calls (sync debug mode) equal to 1 + its chunk steps, kernel 1
+           launched once per chunk step and kernel 2 D times (plus the
+           root's); per run: seconds, unique states/min beside the search
+           phase's solo rate, peak device memory, the per-shard frontier
+           occupancies and their worst imbalance; both kernels bit-exact
+           against their plain versions on inputs captured from a D = 4
+           run (kernel 1 on the chunk step's [D*C*B, 842] rows, kernel 2 on
+           a shard's table with the D*bucket received keys) with CUDA-event
+           times; a D = 4 run dumped at depth 6 and resumed at D = 2 and on
+           the solo engine to the depth-8 pins; pruned pingpong and lab 1
+           at D = 1, 2, 4 and 8 at their pins; a swarm dump cut at 8
+           walkers resumed at 4 and 16 with the uncut run's verdict.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 launches those of the search, swarm, labtests, scenarios, spill,
-supervisor, telemetry, analysis, lanes and memo phases' runs), the
+supervisor, telemetry, analysis, lanes, memo and sharded phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -339,6 +356,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # Where this run and its child processes keep compiled bytecode (listed
@@ -4145,6 +4163,242 @@ def phase_memo(torch, mods):
     return total
 
 
+# The sharded phase: the compiled packed flagship on ShardedTensorSearch
+# at D = 1 and D = 4 (chunk_per_device 4096 // D, so every chunk step
+# expands the solo step's 4,096 rows), caps per shard; the resume cut
+# (a D = 4 run to depth 7 dumps at depth 6 only); the small width matrix.
+SHARD_WIDTHS = (1, 4)
+SHARD_DEPTH = 8
+SHARD_CUT_DEPTH = 6
+SHARD_CAPS = dict(frontier_cap=1 << 17, visited_cap=1 << 20)
+SHARD_ROWS = 4096
+SHARD_MATRIX = {"pingpong": ("SPACE_EXHAUSTED", 8, 23, 5),
+                "lab1": ("SPACE_EXHAUSTED", 80, 582, 11)}
+
+
+def sharded_kernel_checks(torch, mods, proto):
+    """Both kernels at the D = 4 chunk step's shapes, bit-exact against
+    their plain versions on inputs captured from a flagship run (counted
+    apart from the main-path runs): kernel 1 on the step's [D*C*B, 842]
+    successor rows (the run's last step), kernel 2 on a shard's table with
+    the D*bucket received keys of the run's fullest batch (invalid slots
+    included), with CUDA-event times."""
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+
+    kernels, visited, engine = mods["kernels"], mods["visited"], \
+        mods["engine"]
+    D = 4
+    ts = ShardedTensorSearch(proto, make_mesh(D), max_depth=7,
+                             chunk_per_device=SHARD_ROWS // D, **SHARD_CAPS)
+    n_rows = D * ts.cpd * ts._num_events()
+    n_keys = D * ts._bucket
+    got = {}
+    fp0, ins0 = kernels.fingerprint_rows, visited.insert
+
+    def fp_cap(rows):
+        if rows.shape[0] == n_rows:
+            got["rows"] = rows.clone()
+        return fp0(rows)
+
+    def ins_cap(table, keys, valid):
+        # The fullest received batch of the run (a sync per call: this
+        # run is not a measured one).
+        n = int(valid.sum()) if keys.shape[0] == n_keys else -1
+        if n > got.get("n", 0):
+            got.update(n=n, table=table.clone(), keys=keys.clone(),
+                       valid=valid.clone())
+        return ins0(table, keys, valid)
+
+    kernels.fingerprint_rows, visited.insert = fp_cap, ins_cap
+    try:
+        ts.run()
+    finally:
+        kernels.fingerprint_rows, visited.insert = fp0, ins0
+    check({"rows", "keys"} <= set(got), f"sharded capture: {sorted(got)}")
+    rows = got.pop("rows")
+    k = kernels.fingerprint_rows(rows)
+    p = engine.row_fingerprints(rows)
+    torch.cuda.synchronize()
+    fp_err = int((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+    check(fp_err == 0, f"sharded fingerprint_rows {list(rows.shape)} "
+                       f"disagrees with its plain version ({fp_err})")
+    b_ms, b_by = bound_ms(rows.numel() * 4 + rows.shape[0] * 16,
+                          rows.numel() * FP_OPS_PER_LANE)
+    out = {"fingerprint_rows": dict(
+        shape=list(rows.shape), max_abs_err=fp_err,
+        ms=cuda_ms(torch, lambda _: kernels.fingerprint_rows(rows)),
+        plain_ms=cuda_ms(torch, lambda _: engine.row_fingerprints(rows),
+                         reps=5, warmup=1),
+        bound_ms=b_ms, bound_by=b_by)}
+    del rows, k, p
+    table, keys, valid = got["table"], got["keys"], got["valid"]
+    ta, ia, ua = visited.insert(table.clone(), keys, valid)
+    tb, ib, ub = visited.insert_plain(table.clone(), keys, valid)
+    torch.cuda.synchronize()
+    ins_err = int((ta[:-1].to(torch.int64) - tb[:-1].to(torch.int64))
+                  .abs().max())
+    check(ins_err == 0 and torch.equal(ia, ib) and torch.equal(ua, ub),
+          f"sharded visited.insert disagrees with insert_plain ({ins_err})")
+    n_valid = int(valid.sum())
+    check(0 < n_valid < n_keys, f"received keys: {n_valid} valid of "
+                                f"{n_keys}")
+    b_ms, b_by = bound_ms(n_keys * 17 + n_valid * 128
+                          + int(ia.sum()) * 16 + n_keys * 2, 0)
+    out["insert"] = dict(
+        V=table.shape[0] - 1, N=n_keys, valid=n_valid,
+        inserted=int(ia.sum()), max_abs_err=ins_err,
+        ms=cuda_ms(torch, lambda t: visited.insert(t, keys, valid),
+                   setup=lambda: table.clone()),
+        plain_ms=cuda_ms(torch, lambda t: visited.insert_plain(t, keys,
+                                                               valid),
+                         setup=lambda: table.clone(), reps=5, warmup=1),
+        bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def phase_sharded(torch, mods):
+    """The owner-sharded engine (tpu/sharded.py) on the card (module
+    docstring).  Returns the kernels' launches of the flagship runs."""
+    from dslabs_tpu_torch.tpu import telemetry as tel_mod
+    from dslabs_tpu_torch.tpu.protocols.clientserver import \
+        make_clientserver_protocol
+    from dslabs_tpu_torch.tpu.protocols.pingpong import \
+        make_pingpong_protocol
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+    from dslabs_tpu_torch.tpu.swarm import SwarmSearch
+    from tests.torch_harness_cases import pruned, violating
+
+    t_phase = time.time()
+    engine = mods["engine"]
+    proto = flagship_protocol()
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SHARD_DEPTH]
+    total = {"fingerprint_rows": 0, "insert": 0}
+    runs = {}
+    # Uncounted warm-up: the compiled handlers' constants reach the card
+    # at their first use (compiler._const), an upload that would count
+    # as a sync of the first superstep.
+    ShardedTensorSearch(proto, make_mesh(1), max_depth=1,
+                        chunk_per_device=64, frontier_cap=64,
+                        visited_cap=1 << 10).run()
+    for D in SHARD_WIDTHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ts = ShardedTensorSearch(proto, make_mesh(D), max_depth=SHARD_DEPTH,
+                                 chunk_per_device=SHARD_ROWS // D,
+                                 **SHARD_CAPS)
+        check((ts.lanes, ts.plane) == (842, 217),
+              f"sharded flagship lanes {ts.lanes}, plane {ts.plane}")
+        tags, supers = [], []
+
+        def hook(tag, fn, *args):
+            tags.append(tag)
+            if tag != "sharded.superstep":
+                return fn(*args)
+            box = {}
+            n, _ = sync_debug_count(
+                torch, lambda *a: box.setdefault("s", fn(*a)), args)
+            supers.append((n, int(box["s"][ts._stat_idx()["steps"]])))
+            return box["s"]
+
+        ts._dispatch_hook = hook
+        o, rec = timed_search(torch, mods, ts)
+        check(rec["key"] == pinned, f"sharded D={D}: {rec['key']}")
+        steps = rec["chunk_steps"]
+        want = {"fingerprint_rows": steps + 2, "insert": D * (steps + 1)}
+        check(rec["launches"] == want,
+              f"sharded D={D} launches {rec['launches']}, want {want}")
+        check(all(n == 1 + k for n, k in supers),
+              f"sharded D={D} syncs per superstep {supers}")
+        check(tags.count("sharded.superstep") == o.depth,
+              f"sharded D={D} dispatches {tags}")
+        for k in total:
+            total[k] += rec["launches"][k]
+        occ = [lv["per_device"]["frontier"] for lv in o.levels]
+        check(all(len(x) == D for x in occ), f"per_device lanes {occ}")
+        runs[f"D{D}"] = dict(
+            rec, superstep_per_level=tags.count("sharded.superstep")
+            / o.depth,
+            syncs_per_superstep=[n for n, _ in supers],
+            steps_per_superstep=[k for _, k in supers],
+            frontier_per_shard=occ,
+            frontier_imbalance_max=max(
+                tel_mod.skew_metrics(x)["imbalance"] for x in occ),
+            kernel2_per_step=rec["launches"]["insert"] / max(steps, 1))
+        del ts, o
+    kchecks = sharded_kernel_checks(torch, mods, proto)
+
+    # Flagship resume: D = 4 cut (dump at depth 6), resumed at D = 2 and
+    # on the solo engine to the depth-8 pins.
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".sharded-")
+    try:
+        path = os.path.join(tmp, "cut.npz")
+        cut = ShardedTensorSearch(
+            proto, make_mesh(4), max_depth=SHARD_CUT_DEPTH + 1,
+            checkpoint_path=path, checkpoint_every=SHARD_CUT_DEPTH,
+            chunk_per_device=SHARD_ROWS // 4, **SHARD_CAPS)
+        t = time.time()
+        cut.run()
+        cut_secs = time.time() - t
+        resumed = {}
+        for name, ts in (
+                ("D2", ShardedTensorSearch(
+                    proto, make_mesh(2), max_depth=SHARD_DEPTH,
+                    checkpoint_path=path, chunk_per_device=SHARD_ROWS // 2,
+                    **SHARD_CAPS)),
+                ("solo", engine.TensorSearch(
+                    proto, max_depth=SHARD_DEPTH, checkpoint_path=path,
+                    chunk=SHARD_ROWS, frontier_cap=1 << 20,
+                    visited_cap=1 << 22))):
+            o, rec = timed_search(torch, mods, ts, resume=True)
+            check(rec["key"] == pinned and o.resumed_from_depth
+                  == SHARD_CUT_DEPTH, f"sharded resume {name}: {rec['key']} "
+                  f"from {o.resumed_from_depth}")
+            resumed[name] = dict(secs=rec["secs"], key=rec["key"],
+                                 launches=rec["launches"])
+
+        # The small width matrix and the swarm's redistribution.
+        matrix = {}
+        for name, p in (("pingpong", pruned(make_pingpong_protocol(2))),
+                        ("lab1", pruned(make_clientserver_protocol(2, 2)))):
+            for D in (1, 2, 4, 8):
+                o = ShardedTensorSearch(p, make_mesh(D), chunk_per_device=16,
+                                        frontier_cap=1 << 9,
+                                        visited_cap=1 << 12).run()
+                key = (o.end_condition, o.unique_states, o.states_explored,
+                       o.depth)
+                check(key == SHARD_MATRIX[name], f"{name} D={D}: {key}")
+            matrix[name] = list(SHARD_MATRIX[name])
+        p = violating(make_pingpong_protocol(3))
+        seed = os.path.join(tmp, "bfs.npz")
+        engine.TensorSearch(p, chunk=64, max_depth=2, checkpoint_path=seed,
+                            checkpoint_every=1).run()
+        kw = dict(max_steps=24, steps_per_round=2, seed=3,
+                  frontier_seed=seed, visited_cap=1 << 12)
+        full = SwarmSearch(p, walkers_per_device=8, **kw).run()
+        swk = os.path.join(tmp, "swarm.npz")
+        SwarmSearch(p, walkers_per_device=8, max_rounds=1,
+                    checkpoint_path=swk, checkpoint_every=1, **kw).run()
+        swarm = {"full": full.end_condition}
+        for k in (4, 16):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                o = SwarmSearch(p, walkers_per_device=k,
+                                checkpoint_path=swk, **kw).run(resume=True)
+            check(o.end_condition == full.end_condition
+                  and o.witness is not None and o.resumed_from_depth == 1,
+                  f"swarm resumed at {k} walkers: {o.end_condition}")
+            swarm[f"K{k}"] = o.end_condition
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "sharded", "secs": time.time() - t_phase,
+          "solo_unique_per_min": mods.get("search_unique_per_min"),
+          "runs": runs, "kernels": kchecks, "cut_secs": cut_secs,
+          "resumed": resumed, "width_matrix": matrix, "swarm": swarm,
+          "launches": total})
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -4166,6 +4420,7 @@ def phase_search(torch, mods, max_secs: float):
     emit({"phase": "search", **rec,
           "explored_per_min": o.states_explored / rec["secs"] * 60,
           "max_secs": max_secs})
+    mods["search_unique_per_min"] = rec["unique_per_min"]
     return launches
 
 
@@ -4245,6 +4500,7 @@ def main() -> int:
     lane_launches = run(phase_lanes)
     memo_launches = run(phase_memo)
     launches = run(phase_search, SEARCH_MAX_SECS)
+    shard_launches = run(phase_sharded)
 
     replaces = {
         "fingerprint_rows": ("dslabs_tpu_torch/csrc/fingerprint.cu",
@@ -4259,7 +4515,7 @@ def main() -> int:
                       + scen_launches[k] + spill_launches[k]
                       + sup_launches[k] + tel_launches[k]
                       + ana_launches[k] + lane_launches[k]
-                      + memo_launches[k]),
+                      + memo_launches[k] + shard_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
@@ -4269,7 +4525,8 @@ def main() -> int:
                               "telemetry": tel_launches[k],
                               "analysis": ana_launches[k],
                               "lanes": lane_launches[k],
-                              "memo": memo_launches[k]},
+                              "memo": memo_launches[k],
+                              "sharded": shard_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

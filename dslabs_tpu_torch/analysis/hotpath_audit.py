@@ -581,9 +581,12 @@ def build_audit_engines(device=None, with_swarm: bool = True,
     another: the pingpong hand twin's ``TensorSearch``, the compiled
     ``paxos_spec(3)`` with ``symmetry=True`` (so that the packing and
     canonicalize sites register), the pingpong spill variant, and the
-    one-device ``SwarmSearch`` and a two-lane pingpong ``LaneSearch``, on
-    small caps.  The reference's set also holds ``ShardedTensorSearch``;
-    it comes with the sharded slice of the port."""
+    one-device ``SwarmSearch``, a two-lane pingpong ``LaneSearch`` and a
+    two-shard pingpong ``ShardedTensorSearch`` (the reference's set
+    holds the same), on small caps.  Rule J4's real content, a collective
+    in a site declared single-device, waits for the process-group form of
+    the sharded exchange (ROADMAP 4c): the port's shards share one card,
+    so no site here issues a collective."""
     from dslabs_tpu_torch.tpu._build import resolve_device
     from dslabs_tpu_torch.tpu.engine import TensorSearch
     from dslabs_tpu_torch.tpu.protocols.pingpong import \
@@ -613,4 +616,9 @@ def build_audit_engines(device=None, with_swarm: bool = True,
     engines.append(LaneSearch(proto, n_lanes=2, chunk=64,
                               frontier_cap=1 << 8, visited_cap=1 << 10,
                               device=device))
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+
+    engines.append(ShardedTensorSearch(
+        proto, make_mesh(2, device=device), chunk_per_device=16,
+        frontier_cap=1 << 8, visited_cap=1 << 10, max_depth=8))
     return engines

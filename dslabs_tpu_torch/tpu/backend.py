@@ -42,11 +42,14 @@ it finds ships with its minimized, replay-verified witness, confirmed
 again on the object twin; otherwise a strict BFS runs under the same
 settings, its time budget less the probe's seconds.
 
-Deliberate differences from the reference: one ``TensorSearch`` on one
-device replaces ``ShardedTensorSearch`` over a mesh (a frontier past a
-rung's ``frontier_cap`` escalates the ladder, as the reference's strict
-frontier drops do, and the host keeps the visited set, so ``visited_cap``
-bounds nothing here); and the probe's warm-up (``compile_secs``) is not
+Deliberate differences from the reference: the ladder runs one
+``TensorSearch`` where the reference runs ``ShardedTensorSearch`` over a
+mesh (a frontier past a rung's ``frontier_cap`` escalates the ladder, as
+the reference's strict frontier drops do, and the host keeps the visited
+set, so ``visited_cap`` bounds nothing here).  The port's
+``ShardedTensorSearch`` (``tpu/sharded.py``) exists and gives the solo
+engine's counts; putting ``tensor_bfs`` on it is slice 4c of the port
+(ROADMAP).  And the probe's warm-up (``compile_secs``) is not
 deducted from the BFS's budget.  As in the reference, the search and the
 probe each run under ``supervisor.install_retry``: a transient dispatch
 error retries with backoff instead of failing the lab test.

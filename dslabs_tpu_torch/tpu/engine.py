@@ -184,6 +184,9 @@ class SearchOutcome:
     # the object twin to re-check value-level invariants before it
     # trusts an exhaust verdict.
     samples: Optional[list] = None
+    # Per-level records of the sharded engine (tpu/sharded.py: depth,
+    # chunk steps, wall, counts, per-shard lanes and skew); None elsewhere.
+    levels: Optional[list] = None
     # Keys whose probe exhausted (table effectively full), treated as
     # fresh.  Strict searches raise instead.
     visited_overflow: int = 0

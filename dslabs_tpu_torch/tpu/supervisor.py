@@ -75,9 +75,11 @@ ladder's events (``rung``, ``failover``, ``capacity_retry``,
 ``knobs_shrunk``, ``lane``, ``lane_winner``); the verdict carries the
 recorder's ``trace_id``.
 
-Not in the port yet: the ``sharded`` rung and the elastic width ladder
-(``"sharded"`` in a ladder raises ``NotImplementedError``; ``elastic``
-is accepted and has nothing to expand).  ``aot_warmup=True`` loads the
+Not in the port yet: the ``sharded`` rung and the elastic width ladder.
+The engine they run, ``tpu/sharded.py``'s ``ShardedTensorSearch``, is
+ported; the rung over it is slice 4c of the port (ROADMAP), so
+``"sharded"`` in a ladder raises ``NotImplementedError`` naming 4c, and
+``elastic`` is accepted and has nothing to expand.  ``aot_warmup=True`` loads the
 built kernels before the run and reports that time on
 ``compile_secs``.  The reference's environment knobs
 (``DSLABS_ABANDONED_WARN``, ``DSLABS_ELASTIC``, ``DSLABS_KNOB_SHRINKS``)
@@ -274,8 +276,9 @@ def classify_child_death(exitcode: Optional[int],
 def expand_ladder(ladder, full_width: Optional[int] = None,
                   elastic: bool = False):
     """Expand a rung-name ladder into ``(rung, width)`` specs.  Only a
-    ``"sharded"`` rung has a width ladder, and the port has none yet, so
-    every ladder expands to itself (width None)."""
+    ``"sharded"`` rung has a width ladder, and the port's sharded rung
+    comes with slice 4c, so every ladder expands to itself (width
+    None)."""
     return [(rung, None) for rung in ladder]
 
 
@@ -664,7 +667,7 @@ class SearchSupervisor:
         for rung in ladder:
             if rung == "sharded":
                 raise _later("the sharded rung",
-                             "sharded, multi-device swarm and chaos")
+                             "4c (the sharded engine's callers)")
             if rung not in ("device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
         self.telemetry = telemetry

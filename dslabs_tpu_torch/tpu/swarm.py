@@ -61,9 +61,12 @@ dumps, frontier seeds included, are shared); the clock is checked
 between walk steps as well as between rounds; the warm-up builds the
 kernels and runs a zero-step round before the clock starts; sizes come
 from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
-fleet runs on one device, so a dump resumes only at its own walker
-count.  A mesh of more than one device comes with the multi-device
-swarm and raises ``NotImplementedError`` until then.
+fleet runs on one device.  A dump cut at another walker count
+redistributes onto this fleet (:meth:`SwarmSearch._redistribute_swarm`:
+sound, with the uncut run's verdict, not bit-exact); one at this count
+resumes bit-exact.  A mesh of more than one device (a fleet over the
+sharded engine's shards) comes with slice 4c of the port and raises
+``NotImplementedError`` until then.
 
 Telemetry (``telemetry=``, ``tpu/telemetry.py``): the warm-up is a
 ``compile`` event (the kernel library's load and the zero-step round),
@@ -392,6 +395,8 @@ def _mesh_size(mesh) -> int:
         return 1
     if isinstance(mesh, int):
         return mesh
+    if hasattr(mesh, "width"):             # a sharded.make_mesh mesh
+        return int(mesh.width)
     devices = getattr(mesh, "devices", mesh)
     return int(np.asarray(devices, dtype=object).size)
 
@@ -429,7 +434,7 @@ class SwarmSearch(TensorSearch):
                  sanitize: Optional[str] = None):
         if _mesh_size(mesh) > 1:
             raise _later("a mesh of more than one device",
-                         "multi-device swarm")
+                         "4c (multi-device swarm)")
         self.n_devices = 1
         self.walkers = int(walkers_per_device or 128)
         self.max_steps = int(max_steps or 96)
@@ -893,12 +898,39 @@ class SwarmSearch(TensorSearch):
             lambda: ckpt_mod.save(self.checkpoint_path, ck,
                                   levels_dir=self.levels_dir))
 
+    def _redistribute_swarm(self, ck, x):
+        """Rewrite a dump of another walker count into this fleet's
+        shapes: walker rows, depths, histories and streaks tile (or
+        truncate) onto the new count, walker i taking old walker i mod
+        the old count, and each walker's ``seed_idx`` is clamped into the
+        seed pool.  On one device the pool, the table's keys, the
+        counters and the generator state carry over whole (the
+        reference re-splits the pool, merges the per-device key groups
+        and maps per-device keys ``new[d] = old[d % D']``).  The
+        continuation is sound, not bit-exact."""
+        K = self.walkers
+        rows_old = np.asarray(ck.frontier, np.int32)
+        n_old = max(len(rows_old), 1)
+        warnings.warn(
+            f"{self.p.name}: swarm resume redistributes {len(rows_old)} "
+            f"walkers onto {K} walker slots "
+            f"({'tiling' if K > len(rows_old) else 'truncating'})",
+            RuntimeWarning, stacklevel=3)
+        idx = np.arange(K) % n_old
+        x = dict(x)
+        for k in ("depths", "hists", "streak"):
+            x[k] = np.asarray(x[k])[idx]
+        pool = max(int(np.asarray(x["seeds"]).shape[0]), 1)
+        x["seed_idx"] = np.minimum(np.asarray(x["seed_idx"])[idx],
+                                   pool - 1).clip(0)
+        return dataclasses.replace(ck, frontier=rows_old[idx]), x
+
     def _load_swarm_ckpt(self):
         """-> (carry, rounds, elapsed), or None without a dump: the whole
         fleet carry rebuilt from the dump, the table re-inserted from its
         keys by kernel 2 and the generator restored, so the continuation
-        is identical to the uncut run's.  One device, one walker count:
-        a dump of another fleet width is refused."""
+        is identical to the uncut run's.  A dump of another walker
+        count redistributes first (:meth:`_redistribute_swarm`)."""
         ck = self._load_ckpt()
         if ck is None:
             return None
@@ -908,11 +940,7 @@ class SwarmSearch(TensorSearch):
                 f"{self.checkpoint_path}: swarm checkpoint has no "
                 "extra__ walker arrays")
         if len(ck.frontier) != self.walkers:
-            raise ckpt_mod.CheckpointMismatch(
-                f"{self.checkpoint_path}: swarm checkpoint of "
-                f"{len(ck.frontier)} walkers, this fleet has "
-                f"{self.walkers}; redistributing walkers comes with the "
-                "multi-device swarm slice")
+            ck, x = self._redistribute_swarm(ck, x)
         dev = self.device
 
         def t(name, dtype):

@@ -67,9 +67,11 @@ Deliberate differences from the reference: the ``DSLABS_PROFILE*``,
 module constants here; the profiler window is ``torch.profiler``, not
 ``jax.profiler``; :data:`DISPATCH_SITES` lists the port's own tags with
 the audit fields (``in_place`` for the reference's ``donated``, and
-``syncs``; the sharded sites come with their slice); a
-span's ``scale`` is always 1.0 (the port's watchdog has no per-site
-deadline scales); per-device lanes have one entry (one card).  The
+``syncs``; the sharded engine's nine ``sharded.*`` sites are those of
+``tpu/sharded.py``, whose shards share one card); a span's ``scale`` is
+always 1.0 (the port's watchdog has no per-site deadline scales);
+per-device lanes have one entry per shard of the sharded engine and one
+elsewhere (one card).  The
 module imports the stdlib only; torch is imported where the profiler
 window and the memory poll need it.
 """
@@ -175,6 +177,35 @@ DISPATCH_SITES = {
                           program=True, syncs=3),
     "lanes.flags": dict(hot=False, in_place=False, multi=False,
                         program=False, syncs=1),       # one lane's rows
+    # The owner-sharded engine (tpu/sharded.py; multi: its exchange is the
+    # collective of the reference's shard_map programs).  The superstep is
+    # one level: its stats readback, and per chunk step the count before
+    # the pack (packed), the window check (finite ev_budget with ev_spill)
+    # and the abort code (spill mode), so its budget, like the legacy
+    # chunk step's (the count before the pack, the abort code), is the
+    # engine's.  The init from the root, the promote (a buffer swap or the
+    # legacy rebalance, with the delta re-encode) take none; the steal one
+    # (its plan's upload); the spill round trips are the solo engine's
+    # (the reinjection: the segment's upload, and the level base's read
+    # with delta lanes).
+    "sharded.superstep": dict(hot=True, in_place=True, multi=True,
+                              program=True, syncs=None),
+    "sharded.step": dict(hot=True, in_place=True, multi=True,
+                         program=True, syncs=None),
+    "sharded.sync": dict(hot=False, in_place=False, multi=False,
+                         program=False, syncs=1),      # the stats readback
+    "sharded.promote": dict(hot=False, in_place=True, multi=True,
+                            program=True, syncs=0),
+    "sharded.init": dict(hot=False, in_place=False, multi=True,
+                         program=True, syncs=0),
+    "sharded.steal": dict(hot=False, in_place=True, multi=True,
+                          program=True, syncs=1),
+    "sharded.spill_drain": dict(hot=False, in_place=True, multi=True,
+                                program=True, syncs=3),
+    "sharded.spill_evict": dict(hot=False, in_place=True, multi=True,
+                                program=True, syncs=1),
+    "sharded.spill_reinject": dict(hot=False, in_place=True, multi=True,
+                                   program=False, syncs=None),
     # Audit-only: kernel 2 alone, over one chunk step's keys; the pack
     # and unpack of frontier rows and the symmetry canonicalize pass,
     # which run inside the step (registered by engines that pack or

@@ -273,7 +273,7 @@ class Warden:
         for rung in ladder:
             if rung == "sharded":
                 raise _later("the sharded rung",
-                             "sharded, multi-device swarm and chaos")
+                             "4c (the sharded engine's callers)")
             if rung not in ("device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
         self.factory = factory

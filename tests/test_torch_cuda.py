@@ -150,3 +150,30 @@ def test_run_host_on_card_matches_cpu_path(kw):
                                       decode_trace(cpu_ts, cpu)):
             assert ka == kb
             np.testing.assert_array_equal(pa[-1], pb[-1])
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_sharded_through_kernels_matches_plain_path(d):
+    """``ShardedTensorSearch`` at D shards on the card equals the plain path
+    at the same width on the CPU: the counts and every level's per-shard
+    frontier occupancies; kernel 1 runs once per chunk step and kernel 2
+    D times (plus the root's)."""
+    _need_card()
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+
+    p = make_clientserver_protocol(3, 4, net_cap=32)
+    kw = dict(max_depth=12, chunk_per_device=1024 // d,
+              frontier_cap=1 << 12, visited_cap=1 << 16)
+    n0 = (kernels.LAUNCHES["fingerprint_rows"], visited.LAUNCHES["insert"])
+    s = ShardedTensorSearch(p, make_mesh(d), **kw)
+    card = s.run()
+    steps = s.chunk_steps
+    assert kernels.LAUNCHES["fingerprint_rows"] - n0[0] == steps + 2
+    assert visited.LAUNCHES["insert"] - n0[1] == d * (steps + 1)
+    plain = ShardedTensorSearch(p, make_mesh(d, device="cpu"), **kw).run()
+    key = ("DEPTH_EXHAUSTED", 1723, 17292, 12)
+    for out in (card, plain):
+        assert (out.end_condition, out.unique_states, out.states_explored,
+                out.depth) == key
+    assert [lv["per_device"]["frontier"] for lv in card.levels] == \
+        [lv["per_device"]["frontier"] for lv in plain.levels]

@@ -17,7 +17,7 @@ insert's probe rounds read their counts) and are not counted.  The clean pin:
 the port's audit set on the CPU has zero findings, with each site's sync
 count equal to its budget, and the flagships' chunk steps take one sync
 packed, none by the hand twin.  Site-set parity with the reference's
-``build_audit_engines``, the sharded tags left out by name.
+``build_audit_engines``, the sharded engine's tags included.
 The ``sanitize=`` hook, at the first run, records ``sanitizer_finding``
 events when a tag is hidden from the registry, and off is off.
 ``compare_ledger`` flags a sanitizer rise.  The deep retrace pin on the
@@ -294,8 +294,9 @@ def _engine_set():
     return H.build_audit_engines("cpu")
 
 
-@pytest.mark.parametrize("i", range(5), ids=["pingpong", "paxos_symmetry",
-                                              "spill", "swarm", "lanes"])
+@pytest.mark.parametrize("i", range(6), ids=["pingpong", "paxos_symmetry",
+                                              "spill", "swarm", "lanes",
+                                              "sharded"])
 def test_audit_set_clean_with_syncs_at_budget(i):
     search = _engine_set()[i]
     rep = {}
@@ -319,6 +320,8 @@ def test_audit_set_budgets():
         4: {"lanes.init": 0, "lanes.superstep": 0, "lanes.sync": 1,
             "lanes.promote": 0, "lanes.inject": 0, "lanes.restore": 3,
             "lanes.flags": 1, "visited.insert": 0},
+        5: {"sharded.init": 0, "sharded.superstep": 1,
+            "sharded.promote": 0, "visited.insert": 0},
     }
     for i, search in enumerate(_engine_set()):
         rep = {}
@@ -364,9 +367,9 @@ def test_throwaway_carry_is_not_the_search_s():
 
 def test_site_set_parity_with_reference():
     """The tags the port audits map one to one onto the reference's
-    ``build_audit_engines`` tags, less the sharded tags; the port also
-    audits the readbacks and host helpers the reference's registry lists
-    without a program."""
+    ``build_audit_engines`` tags, the sharded engine's included; the port
+    also audits the readbacks and host helpers the reference's registry
+    lists without a program."""
     from dslabs_tpu.analysis.jaxpr_audit import \
         build_audit_engines as ref_engines
     from dslabs_tpu.tpu.telemetry import DISPATCH_SITES as REF_SITES
@@ -374,13 +377,12 @@ def test_site_set_parity_with_reference():
     ref = set()
     for e in ref_engines(mesh_devices=2):
         ref |= set(e.dispatch_site_programs())
-    left_out = {t for t in ref if t.split(".")[0] == "sharded"}
-    assert left_out == {"sharded.init", "sharded.promote",
-                        "sharded.superstep"}
+    assert {t for t in ref if t.split(".")[0] == "sharded"} == {
+        "sharded.init", "sharded.promote", "sharded.superstep"}
     # The reference's fused swarm round is the port's walk step plus its
     # stats readback (swarm.sync, a tag of the port's own).
     rename = {"swarm.round": "swarm.step"}
-    mapped = {rename.get(t, t) for t in ref - left_out}
+    mapped = {rename.get(t, t) for t in ref}
     port = set()
     for e in _engine_set():
         port |= set(e.dispatch_site_programs())
@@ -494,19 +496,19 @@ def test_sanitize_off_imports_nothing_of_the_audit():
 
 def test_entries_override_the_registry_only_by_configuration():
     """``DISPATCH_SITES`` holds each site's contract: an engine's entry
-    sets ``syncs`` only for ``device.step`` and ``lanes.superstep`` (by
-    configuration) and the spill resets, and never ``in_place`` or
-    ``multi``; the ``sites`` CLI prints the configuration-dependent
-    budget as such."""
+    sets ``syncs`` only for ``device.step``, ``lanes.superstep`` and
+    ``sharded.superstep`` (by configuration) and the spill resets, and
+    never ``in_place`` or ``multi``; the ``sites`` CLI prints the
+    configuration-dependent budget as such."""
+    cfg = ("device.step", "lanes.superstep", "sharded.superstep")
     for e in _engine_set():
         for tag, name, entry in H.site_entries(e.dispatch_site_programs()):
             assert not {"in_place", "multi"} & set(entry), tag
             if "syncs" in entry:
-                assert (tag in ("device.step", "lanes.superstep")
-                        or name == "reset"), tag
+                assert tag in cfg or name == "reset", tag
             else:
                 assert ttel.DISPATCH_SITES[tag]["syncs"] is not None, tag
-    for tag in ("device.step", "lanes.superstep"):
+    for tag in cfg:
         line = next(ln for ln in ttel._render_registry().splitlines()
                     if ln.startswith(tag + " "))
         assert line.split()[-1] == "cfg"

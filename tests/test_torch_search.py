@@ -317,7 +317,8 @@ def test_port_imports_no_jax():
                  "tpu/lanes.py", "service/__init__.py",
                  "service/__main__.py", "service/queue.py",
                  "service/scheduler.py", "service/server.py",
-                 "service/memo.py"):
+                 "service/memo.py", "tpu/sharded.py",
+                 "tpu/mesh_exchange.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):

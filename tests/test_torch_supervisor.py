@@ -485,7 +485,7 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 
 @pytest.mark.parametrize("build,slice_name", [
     (lambda t: _tsup(t_pp(2), ladder=("sharded", "device")),
-     "sharded, multi-device swarm and chaos"),
+     "4c"),
     (lambda t: _tsup(t_pp(2), telemetry=t), None),
     (lambda t: tsup.DispatchBoundary(telemetry=t), None),
     (lambda t: __import__("dslabs_tpu_torch.tpu.warden",

@@ -312,8 +312,8 @@ def test_walker_overflow_counted_and_warned():
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(frontier_seed="bfs.npz"), None),
     (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
-    (dict(mesh=2), "multi-device swarm"),
-    (dict(mesh=["cuda:0", "cuda:1"]), "multi-device swarm"),
+    (dict(mesh=2), "4c"),
+    (dict(mesh=["cuda:0", "cuda:1"]), "4c"),
     (dict(telemetry=True), None),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
