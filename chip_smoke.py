@@ -63,7 +63,8 @@ table) once.  Each phase prints one JSON line:
            on the card and on the CPU;
   harness  lab search tests through the harness binding: the port's
            search.bfs with the tensor backend (tpu/backend.py, its lab
-           0-3 adapters, run_host underneath) on the card.  The lab 0-2
+           0-3 adapters, a one-shard ShardedTensorSearch underneath) on
+           the card.  The lab 0-2
            shapes of tests/torch_harness_cases.py beside the port's own
            object checker (same end condition, goal or violation depth,
            and count on runs that end by depth or space; the replayed
@@ -76,8 +77,8 @@ table) once.  Each phase prints one JSON line:
            workload may raise CapacityOverflow at depth 16 on the top rung
            of the capacity ladder, where the reference's tensor_bfs raises
            too.  Per search: seconds, unique states/min, peak device
-           memory, the ladder rung, and each kernel's launches (the
-           fingerprint's must be > 0);
+           memory, the ladder rung, and each kernel's launches (both must
+           be > 0: kernel 2 inserts each chunk step's keys);
   lab4     the lab 4 twins (specs_lab4: join g=1 and g=2, the part-1
            stores [1, 1], [1, 2, 1] and [[1], [2]] with master timers and
            controller, 2PC tx, multi-server groups): each twin's shape
@@ -105,7 +106,10 @@ table) once.  Each phase prints one JSON line:
            flagship and the lab 4 store [1, 1], and on 32 ids outside the
            grid against the CPU; the lock twin (m=8, k=12) twice with one
            seed: a 12-event witness replayed to progress 12, and equal
-           raw and minimized traces and counters; the lab 1 deep probe
+           raw and minimized traces and counters; the lock twin over
+           SWARM_GROUPS = 2 walker groups (mesh=ShardMesh(2)): a verified
+           12-event witness, one kernel-1 launch and one kernel-2 launch
+           per group at every walk step; the lab 1 deep probe
            (INVARIANT_VIOLATED at depth >= 18, object-verified witness) and
            lab1 test11's two dfs calls (tests/torch_harness_cases.py),
            which the lab test file never reaches, through the port's
@@ -126,10 +130,13 @@ table) once.  Each phase prints one JSON line:
            except LABTEST_FAILS (lab1 test11's CapacityOverflow at depth
            16, and four lab 4 tests no twin binds), each with the
            reference's error; lab 3's staged searches with a pin are held to
-           HARNESS_PINS; every dfs search launches both kernels.  Per lab:
-           seconds, tests passed, points, and per test its seconds and
-           each search's record (as the harness and swarm phases print
-           them); the kernels' launches over the phase (both > 0); and no
+           HARNESS_PINS; every dfs search launches both kernels, and every
+           bfs search that launches kernel 1 launches kernel 2.  Per lab:
+           seconds, tests passed, points, the trace-meta fold's host
+           seconds beside the level walls (trace_fold), and per test its
+           seconds and each search's record (as the harness and swarm
+           phases print them); the kernels' launches over the phase (both
+           > 0); and no
            module of jax or of the JAX package loaded in the process;
   scenarios symmetry reduction and the fault plane: the partitioned
            flagship (the flagship's spec under the reference's one-era
@@ -329,11 +336,31 @@ table) once.  Each phase prints one JSON line:
            times; a D = 4 run dumped at depth 6 and resumed at D = 2 and on
            the solo engine to the depth-8 pins; pruned pingpong and lab 1
            at D = 1, 2, 4 and 8 at their pins; a swarm dump cut at 8
-           walkers resumed at 4 and 16 with the uncut run's verdict.
+           walkers resumed at 4 and 16 with the uncut run's verdict;
+  elastic  the supervisor's and the warden's sharded rung and the elastic
+           width ladder (tpu/supervisor.py, tpu/warden.py) on the compiled
+           packed flagship at ShardMesh(4) (chunk_per_device 1024, the
+           sharded phase's caps) to depth 8: a fatal fault at the level-6
+           superstep degrades the rung to width 2, which resumes the
+           checkpoint re-sharded and lands the pins (316,096 / 1,495,288)
+           with mesh_shrinks 1 and one mesh_shrunk event (4 -> 2); two
+           transients inside the level-2 superstep retried in place at
+           width 4; a warden child at width 4 SIGKILLed after a durable
+           dump and its width-2 child resumed to the pins on the card
+           (these children run beside the in-process cases); both kernels
+           bit-exact against their plain versions at the width-2 rung's
+           shapes with CUDA-event times;
+  chaos    tpu/chaos.py's seeded soak (seed 1, 24 faults) on strict lab 1
+           at ShardMesh(8): the fault-free baseline at its pins (8 / 23),
+           then the chaos run on the elastic ladder with a checkpoint per
+           level, with exact parity, no dropped state, at least one mesh
+           shrink and one knob shrink, and a hang among the fired faults;
+           the fired count, sites and kinds.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 launches those of the search, swarm, labtests, scenarios, spill,
-supervisor, telemetry, analysis, lanes, memo and sharded phases' runs), the
+supervisor, telemetry, analysis, lanes, memo, sharded, elastic and chaos
+phases' runs), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -1171,8 +1198,10 @@ class HarnessRuns:
                 tensor_depth=outcome.depth,
                 rung=[f for f, _ in self.backend._LADDER].index(
                     search.frontier_cap))
-        check(rec["launches"]["fingerprint_rows"] > 0,
-              f"harness {name}: the fingerprint kernel never launched")
+        check(rec["launches"]["fingerprint_rows"] > 0
+              and rec["launches"]["insert"] > 0,
+              f"harness {name}: a kernel never launched: "
+              f"{rec['launches']}")
         self.records[name] = rec
         return res, rec
 
@@ -1665,6 +1694,10 @@ def swarm_kernel_times(torch, mods, lanes_list, gen):
     return out
 
 
+# Walker groups of the swarm phase's group run (the reference's devices).
+SWARM_GROUPS = 2
+
+
 def phase_swarm(torch, mods):
     """The swarm rollout probe on the card (module docstring): step
     parity, the lock twin and its same-seed rerun, the lab 1 deep probe
@@ -1722,6 +1755,40 @@ def phase_swarm(torch, mods):
               "swarm lock: same seed, different walks on the card")
         emit({"phase": "swarm", "part": "lock", "runs": [x[3] for x in locks],
               "same_seed_identical": True})
+
+        # ---- the lock twin over SWARM_GROUPS walker groups: per walk
+        # step one kernel-1 launch over every group's walkers and one
+        # kernel-2 launch per group, on that group's table.
+        from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+
+        sr.reset()
+        sw = SwarmSearch(H.make_lock_protocol(m=8, k=12, noise_bits=22),
+                         mesh=ShardMesh(SWARM_GROUPS), walkers_per_device=128,
+                         max_steps=240, steps_per_round=64, seed=0,
+                         visited_cap=1 << 14)
+        per_step = []
+        walk0 = sw._walk
+
+        def walk(c):
+            k0 = kernel_counts(mods)
+            walk0(c)
+            per_step.append(tuple(v - k0[k] for k, v in
+                                  kernel_counts(mods).items()))
+
+        sw._walk = walk
+        t0 = time.time()
+        out = sw.run()
+        rec = dict(secs=time.time() - t0, groups=SWARM_GROUPS,
+                   **sr.record(), launches=sr.launches(),
+                   per_step=sorted(set(per_step)))
+        add(rec["launches"])
+        w = out.witness
+        check(out.end_condition == "INVARIANT_VIOLATED"
+              and w.replay_verified and len(w.trace) == 12
+              and out.swarm["walkers"] == 128 * SWARM_GROUPS
+              and per_step and set(per_step) == {(1, SWARM_GROUPS)},
+              f"swarm groups: {rec}")
+        emit({"phase": "swarm", "part": "groups", **rec})
 
         # ---- lab dfs call sites through search.dfs on the card.
         records = {}
@@ -1920,6 +1987,52 @@ class LabTestRuns:
         return rec
 
 
+class TmetaMeter:
+    """The host's share of the lab searches' levels: inside the ``with``
+    block every ``ShardedTensorSearch._spill_tmeta`` (the fold of a
+    level's trace meta into the host fingerprint map) is timed, with the
+    map's largest size, and every run's level walls (the recorder's
+    ``wall``, which the fold is part of) are summed.  :meth:`take` returns
+    the sums since the last call."""
+
+    def __init__(self):
+        from dslabs_tpu_torch.tpu import sharded
+
+        self.cls = sharded.ShardedTensorSearch
+        self.take()
+
+    def __enter__(self):
+        cls = self.cls
+        self._fold, self._run = cls._spill_tmeta, cls.run
+        fold, run = self._fold, self._run
+
+        def timed_fold(ts, carry):
+            t = time.perf_counter()
+            fold(ts, carry)
+            self.secs += time.perf_counter() - t
+            self.calls += 1
+            self.map_max = max(self.map_max, len(ts._fp_map))
+
+        def walled_run(ts, *a, **kw):
+            out = run(ts, *a, **kw)
+            self.level_secs += sum(lv["wall"] for lv in out.levels or ())
+            return out
+
+        cls._spill_tmeta, cls.run = timed_fold, walled_run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._spill_tmeta, self.cls.run = self._fold, self._run
+
+    def take(self) -> dict:
+        rec = {} if not hasattr(self, "secs") else dict(
+            tmeta_secs=self.secs, tmeta_calls=self.calls,
+            fp_map_max=self.map_max, level_wall_secs=self.level_secs,
+            tmeta_share=self.secs / max(self.level_secs, 1e-9))
+        self.secs, self.calls, self.map_max, self.level_secs = 0.0, 0, 0, 0.0
+        return rec
+
+
 def labtest_run(torch, mods, lt, out_dir, argv):
     """One call of the port's driver (``run_tests.main(argv)``) with the
     kernel counts set to 0 just before it; its results file and its output
@@ -1954,12 +2067,14 @@ def phase_labtests(torch, mods, labs="01234"):
     total = {"fingerprint_rows": 0, "insert": 0}
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir, \
             HarnessRuns(torch, mods) as hr, SwarmRuns(torch, mods) as sr, \
-            LabTestRuns(torch, mods, hr, sr) as lt:
+            LabTestRuns(torch, mods, hr, sr) as lt, TmetaMeter() as tm:
         for lab in labs:
             sr.reset()
             del hr._runs[:]
+            tm.take()
             rc, res, launches, secs = labtest_run(
                 torch, mods, lt, out_dir, ["--lab", lab, "--no-run"])
+            host_fold = tm.take()
             for k in total:
                 total[k] += launches[k]
             tests = []
@@ -1990,6 +2105,13 @@ def phase_labtests(torch, mods, labs="01234"):
                               and s["launches"]["insert"] > 0,
                               f"labtests {t['name']}: a kernel never "
                               f"launched: {s}")
+                    else:
+                        # A bfs runs the sharded engine: a search that
+                        # expands anything inserts through kernel 2.
+                        check((s["launches"]["fingerprint_rows"] > 0)
+                              == (s["launches"]["insert"] > 0),
+                              f"labtests {t['name']}: kernel 2 never "
+                              f"launched beside kernel 1: {s}")
                 for pin, s in zip(LAB3_PINNED_CALLS.get(t["name"], ()),
                                   rec["searches"]):
                     if pin is None:
@@ -2008,7 +2130,8 @@ def phase_labtests(torch, mods, labs="01234"):
                   "rc": rc, "secs": secs, "passed": res["num_passed"],
                   "tests": res["num_tests"],
                   "points": [res["points_earned"], res["points_available"]],
-                  "launches": launches, "per_test": tests})
+                  "launches": launches, "trace_fold": host_fold,
+                  "per_test": tests})
         check(total["fingerprint_rows"] > 0 and total["insert"] > 0,
               f"labtests: a kernel never launched: {total}")
         # Lab 0's run tests: the real-time runner (runner/) on this
@@ -2799,6 +2922,9 @@ def phase_supervisor(torch, mods):
                        launches=launches, **recovery(o))
 
     def sup(depth=SUP_DEPTH, **kw):
+        # The device rung's dispatch indices below are pinned against the
+        # solo loop's sequence: the sharded rung is the elastic phase's.
+        kw.setdefault("ladder", ("device", "host"))
         return S.SearchSupervisor(flagship_protocol(), strict=True,
                                   max_depth=depth, **SUP_CAPS, **kw)
 
@@ -4176,8 +4302,8 @@ SHARD_MATRIX = {"pingpong": ("SPACE_EXHAUSTED", 8, 23, 5),
                 "lab1": ("SPACE_EXHAUSTED", 80, 582, 11)}
 
 
-def sharded_kernel_checks(torch, mods, proto):
-    """Both kernels at the D = 4 chunk step's shapes, bit-exact against
+def sharded_kernel_checks(torch, mods, proto, D: int = 4):
+    """Both kernels at the width-D chunk step's shapes, bit-exact against
     their plain versions on inputs captured from a flagship run (counted
     apart from the main-path runs): kernel 1 on the step's [D*C*B, 842]
     successor rows (the run's last step), kernel 2 on a shard's table with
@@ -4187,7 +4313,6 @@ def sharded_kernel_checks(torch, mods, proto):
 
     kernels, visited, engine = mods["kernels"], mods["visited"], \
         mods["engine"]
-    D = 4
     ts = ShardedTensorSearch(proto, make_mesh(D), max_depth=7,
                              chunk_per_device=SHARD_ROWS // D, **SHARD_CAPS)
     n_rows = D * ts.cpd * ts._num_events()
@@ -4399,6 +4524,194 @@ def phase_sharded(torch, mods):
     return total
 
 
+# The elastic phase: the compiled packed flagship on the supervisor's
+# sharded rung at ELASTIC_WIDTH shards (chunk_per_device 4096 // width,
+# the sharded phase's caps), to the depth-8 pins.  The fatal fault fires
+# at the superstep of level ELASTIC_FATAL_LEVEL (dispatch 2 * level - 1 of
+# the rung's init, (superstep, promote)* sequence), after the dumps of the
+# levels before it; the warden's first child dies at its first dispatch
+# at or past ELASTIC_KILL_AT once a dump is on disk.
+ELASTIC_WIDTH = 4
+ELASTIC_FATAL_LEVEL = 6
+ELASTIC_KILL_AT = 9
+
+
+def phase_elastic(torch, mods):
+    """The supervisor's and the warden's sharded rung and the elastic
+    width ladder on the card (module docstring).  Returns the kernels'
+    launches of the in-process supervised runs."""
+    from dslabs_tpu_torch.tpu import supervisor as S
+    from dslabs_tpu_torch.tpu.chaos import ChaosError
+    from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+    from dslabs_tpu_torch.tpu.telemetry import Telemetry
+    from dslabs_tpu_torch.tpu.warden import Warden
+
+    t_phase = time.time()
+    proto = flagship_protocol()
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SHARD_DEPTH]
+    caps = dict(chunk=SHARD_ROWS // ELASTIC_WIDTH, **SHARD_CAPS)
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def supervised(sup):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = kernel_counts(mods)
+        t0 = time.time()
+        o = sup.run()
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in kernel_counts(mods).items()}
+        for k in total:
+            total[k] += launches[k]
+        return o, dict(
+            key=[o.end_condition, o.unique_states, o.states_explored,
+                 o.depth], secs=time.time() - t0, engine=o.engine,
+            mesh_width=o.mesh_width, mesh_shrinks=o.mesh_shrinks,
+            failovers=o.failovers, retries=o.retries,
+            knob_retries=o.knob_retries,
+            resumed_from_depth=o.resumed_from_depth,
+            dropped_states=o.dropped_states, launches=launches)
+
+    recs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # ---- the warden: the width-4 child SIGKILLed after a durable
+        # dump, the width-2 child resumes and finishes.  Its children run
+        # in their own processes beside the in-process cases.
+        def warden_pair():
+            tel = Telemetry()
+            w = Warden(**WARDEN_FLAGSHIP, ladder=("sharded", "device", "host"),
+                       elastic=True, mesh_width=ELASTIC_WIDTH,
+                       max_depth=SHARD_DEPTH, telemetry=tel, **caps,
+                       checkpoint_path=os.path.join(tmp, "warden.npz"),
+                       checkpoint_every=1,
+                       fault={"kind": "die", "at": ELASTIC_KILL_AT,
+                              "spawns": [0], "after_ckpt": True})
+            t0 = time.time()
+            o = w.run()
+            shrunk = [(e["from_width"], e["to_width"]) for e in tel.events
+                      if e.get("kind") == "mesh_shrunk"]
+            return w, o, shrunk, time.time() - t0
+
+        f_pair = pool.submit(warden_pair)
+
+        # ---- a fatal fault on the width-4 rung: the width-2 rung resumes
+        # the checkpoint re-sharded and lands the pins.
+        tel = Telemetry()
+        at = 2 * ELASTIC_FATAL_LEVEL - 1
+        o, r = supervised(S.SearchSupervisor(
+            proto, ladder=("sharded", "device", "host"),
+            mesh=ShardMesh(ELASTIC_WIDTH), elastic=True, strict=True,
+            max_depth=SHARD_DEPTH, telemetry=tel,
+            fault_plan=S.FaultPlan().raise_at(at, error=ChaosError,
+                                              engine="sharded"),
+            checkpoint_path=os.path.join(tmp, "fatal.npz"),
+            checkpoint_every=1, policy=S.RetryPolicy(max_retries=0),
+            **caps))
+        shrunk = [(e["from_width"], e["to_width"]) for e in tel.events
+                  if e.get("kind") == "mesh_shrunk"]
+        spans = [x for x in tel.ring if x.get("t") == "span"
+                 and x.get("site") == "superstep"]
+        check(r["key"] == pinned and r["engine"] == "sharded"
+              and r["mesh_width"] == ELASTIC_WIDTH // 2
+              and r["mesh_shrinks"] == 1 and r["failovers"] == 1
+              and 0 < r["resumed_from_depth"] < ELASTIC_FATAL_LEVEL
+              and r["dropped_states"] == 0
+              and shrunk == [(ELASTIC_WIDTH, ELASTIC_WIDTH // 2)]
+              and all(v > 0 for v in r["launches"].values()),
+              f"elastic fatal: {r}, shrunk {shrunk}")
+        recs["fatal"] = dict(at=at, shrunk=shrunk,
+                             superstep_scales=sorted({x["scale"]
+                                                      for x in spans}),
+                             **r)
+
+        # ---- two transients inside the level-2 superstep: retried in
+        # place on the full mesh.
+        o, r = supervised(S.SearchSupervisor(
+            proto, ladder=("sharded", "device", "host"),
+            mesh=ShardMesh(ELASTIC_WIDTH), strict=True,
+            max_depth=SHARD_DEPTH,
+            fault_plan=S.FaultPlan().raise_at(3, count=2),
+            policy=S.RetryPolicy(backoff_base=0.01), **caps))
+        check(r["key"] == pinned and r["engine"] == "sharded"
+              and r["retries"] == 2 and r["failovers"] == 0
+              and r["mesh_width"] == ELASTIC_WIDTH,
+              f"elastic superstep transient: {r}")
+        recs["transient"] = r
+
+        # ---- both kernels at the width-2 rung's shapes.
+        kchecks = sharded_kernel_checks(torch, mods, proto,
+                                        D=ELASTIC_WIDTH // 2)
+
+        w, o, shrunk, secs = f_pair.result()
+        key = [o.end_condition, o.unique_states, o.states_explored, o.depth]
+        check(key == pinned and o.engine == "sharded"
+              and o.mesh_width == ELASTIC_WIDTH // 2
+              and o.mesh_shrinks == 1 and o.child_restarts == 1
+              and o.resumed_from_depth > 0 and o.dropped_states == 0
+              and [d.kind for d in w.deaths] == ["oom"]
+              and shrunk == [(ELASTIC_WIDTH, ELASTIC_WIDTH // 2)]
+              and o.platform == "cuda",
+              f"elastic warden: {key} {o.engine} width {o.mesh_width} "
+              f"deaths {[d.kind for d in w.deaths]} shrunk {shrunk}")
+        recs["warden"] = dict(
+            key=key, secs=secs, mesh_width=o.mesh_width,
+            mesh_shrinks=o.mesh_shrinks, child_restarts=o.child_restarts,
+            resumed_from_depth=o.resumed_from_depth,
+            deaths=[d.kind for d in w.deaths], platform=o.platform)
+    emit({"phase": "elastic", "secs": time.time() - t_phase,
+          "width": ELASTIC_WIDTH, "runs": recs, "kernels": kchecks,
+          "launches": total})
+    return total
+
+
+# The chaos phase: tpu/chaos.py's soak on strict lab1 (one client, two
+# commands, done pruned) at CHAOS_WIDTH shards, its CLI's shapes, with
+# the fault-free counts pinned from the JAX ShardedTensorSearch at
+# make_mesh(8) on the CPU (tests/test_torch_chaos.py holds them there).
+CHAOS_WIDTH = 8
+CHAOS_PIN = ("SPACE_EXHAUSTED", 8, 23)
+
+
+def phase_chaos(torch, mods):
+    """The seeded chaos soak on the card (module docstring).  Returns the
+    kernels' launches of its two runs (the baseline and the chaos run)."""
+    from dslabs_tpu_torch.tpu import chaos
+    from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+
+    t_phase = time.time()
+    spec = chaos.ChaosSpec(seed=1, faults=24)
+    torch.cuda.synchronize()
+    before = kernel_counts(mods)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        report = chaos.soak(
+            chaos._protocol("lab1"), spec=spec,
+            supervisor_kwargs=dict(mesh=ShardMesh(CHAOS_WIDTH), chunk=64,
+                                   frontier_cap=1 << 9, visited_cap=1 << 12),
+            checkpoint_path=os.path.join(tmp, "soak.npz"),
+            min_fired=20, min_sites=3)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in kernel_counts(mods).items()}
+    base = report["base"]
+    c = report["chaos"]
+    check(report["parity"] and (base["verdict"], base["unique"],
+                                base["explored"]) == CHAOS_PIN
+          and c["dropped_states"] == 0 and c["mesh_shrinks"] >= 1
+          and c["knob_retries"] >= 1 and "hang" in report["kinds_fired"]
+          and report["platform"] == "cuda"
+          and all(v > 0 for v in launches.values()),
+          f"chaos soak: {report}, launches {launches}")
+    emit({"phase": "chaos", "secs": time.time() - t_phase,
+          "width": CHAOS_WIDTH, "fired": report["fired"],
+          "scheduled": report["scheduled"],
+          "sites_fired": report["sites_fired"],
+          "kinds_fired": report["kinds_fired"], "parity": report["parity"],
+          "base": base, "chaos": c, "wall_secs": report["wall_secs"],
+          "launches": launches})
+    return launches
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -4501,6 +4814,8 @@ def main() -> int:
     memo_launches = run(phase_memo)
     launches = run(phase_search, SEARCH_MAX_SECS)
     shard_launches = run(phase_sharded)
+    elastic_launches = run(phase_elastic)
+    chaos_launches = run(phase_chaos)
 
     replaces = {
         "fingerprint_rows": ("dslabs_tpu_torch/csrc/fingerprint.cu",
@@ -4515,7 +4830,8 @@ def main() -> int:
                       + scen_launches[k] + spill_launches[k]
                       + sup_launches[k] + tel_launches[k]
                       + ana_launches[k] + lane_launches[k]
-                      + memo_launches[k] + shard_launches[k]),
+                      + memo_launches[k] + shard_launches[k]
+                      + elastic_launches[k] + chaos_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
@@ -4526,7 +4842,9 @@ def main() -> int:
                               "analysis": ana_launches[k],
                               "lanes": lane_launches[k],
                               "memo": memo_launches[k],
-                              "sharded": shard_launches[k]},
+                              "sharded": shard_launches[k],
+                              "elastic": elastic_launches[k],
+                              "chaos": chaos_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

@@ -585,8 +585,8 @@ def build_audit_engines(device=None, with_swarm: bool = True,
     two-shard pingpong ``ShardedTensorSearch`` (the reference's set
     holds the same), on small caps.  Rule J4's real content, a collective
     in a site declared single-device, waits for the process-group form of
-    the sharded exchange (ROADMAP 4c): the port's shards share one card,
-    so no site here issues a collective."""
+    the sharded exchange (ROADMAP Queue A): the port's shards and swarm
+    groups share one card, so no site here issues a collective."""
     from dslabs_tpu_torch.tpu._build import resolve_device
     from dslabs_tpu_torch.tpu.engine import TensorSearch
     from dslabs_tpu_torch.tpu.protocols.pingpong import \

@@ -53,8 +53,10 @@ environment knobs, ``DSLABS_LANES`` / ``DSLABS_LANE_SWAP`` and
 ``levels_dir`` argument where the reference sets ``DSLABS_MEMO_LEVELS``
 in the child's environment; the admission and introspection children
 leave the card with ``CUDA_VISIBLE_DEVICES=`` where the reference sets
-``JAX_PLATFORMS=cpu``; ``elastic`` is accepted and has no effect until
-the sharded rung is ported.
+``JAX_PLATFORMS=cpu``.  ``elastic`` (default on) is passed to each
+solo job's warden, as in the reference: a job whose ladder holds the
+``sharded`` rung degrades its mesh by halves.  Lane batches run the
+device rung only, so ``LaneBatchWarden`` has no ladder to expand.
 """
 
 from __future__ import annotations
@@ -595,7 +597,7 @@ class CheckServer:
                 trace_id=job.trace_id,
                 parent_span=plan.span_id(job.job_id),
                 device=self.device, levels_dir=levels_dir,
-                **self.warden_kwargs)
+                elastic=self.elastic, **self.warden_kwargs)
             try:
                 out = w.run(resume=plan.attempt > 1 or seeded)
             except SupervisorExhausted:

@@ -27,9 +27,13 @@ Pipeline per call:
    vector, both runtime mask arrays of the engine; every invariant, goal
    and prune ``StatePredicate`` is translated to a batched lane predicate
    through its ``tkey`` (combinators translate structurally).
-4. **Run**: ``TensorSearch`` on one device, ``strict=True`` and
-   ``record_trace=True``, so the trace-recording loop ``run_host`` runs
-   it; a capacity ladder retries ``CapacityOverflow`` with larger caps.
+4. **Run**: ``ShardedTensorSearch`` (``tpu/sharded.py``) over
+   ``make_mesh(None)``, ``strict=True`` and ``record_trace=True``: one
+   superstep dispatch per level, the visited set in each shard's device
+   table; a capacity ladder retries ``CapacityOverflow`` (a strict
+   frontier or routing drop, a table past 75 %) with larger caps
+   (frontier 2^14 / 2^17 / 2^19 rows and visited 2^19 / 2^22 / 2^24 slots
+   per shard).
 5. **Results**: end conditions map onto the object ``EndCondition`` (the
    object checker treats the depth limit as a prune, so a tensor
    DEPTH_EXHAUSTED reports SPACE_EXHAUSTED); terminal states are replayed
@@ -42,17 +46,13 @@ it finds ships with its minimized, replay-verified witness, confirmed
 again on the object twin; otherwise a strict BFS runs under the same
 settings, its time budget less the probe's seconds.
 
-Deliberate differences from the reference: the ladder runs one
-``TensorSearch`` where the reference runs ``ShardedTensorSearch`` over a
-mesh (a frontier past a rung's ``frontier_cap`` escalates the ladder, as
-the reference's strict frontier drops do, and the host keeps the visited
-set, so ``visited_cap`` bounds nothing here).  The port's
-``ShardedTensorSearch`` (``tpu/sharded.py``) exists and gives the solo
-engine's counts; putting ``tensor_bfs`` on it is slice 4c of the port
-(ROADMAP).  And the probe's warm-up (``compile_secs``) is not
-deducted from the BFS's budget.  As in the reference, the search and the
-probe each run under ``supervisor.install_retry``: a transient dispatch
-error retries with backoff instead of failing the lab test.
+Deliberate differences from the reference: the mesh is
+``make_mesh(None)``, one shard per card (1 on one H100, 1 on the CPU),
+where the reference's spans every visible device; and the probe's
+warm-up (``compile_secs``) is not deducted from the BFS's budget.  As in
+the reference, the search and the probe each run under
+``supervisor.install_retry``: a transient dispatch error retries with
+backoff instead of failing the lab test.
 """
 
 from __future__ import annotations
@@ -370,11 +370,13 @@ _LADDER = [(1 << 14, 1 << 19), (1 << 17, 1 << 22), (1 << 19, 1 << 24)]
 
 
 def _run_tensor(binding: TwinBinding, settings, state, device, chunk=512):
-    from dslabs_tpu_torch.tpu.engine import CapacityOverflow, TensorSearch
+    from dslabs_tpu_torch.tpu.engine import CapacityOverflow
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
     from dslabs_tpu_torch.tpu.supervisor import install_retry
     from dslabs_tpu_torch.utils.flags import GlobalSettings
 
     net_cap, timer_cap = binding.initial_caps()
+    mesh = make_mesh(None, device)
     last: Optional[Exception] = None
     # Before build_protocol: a binding may fix settings-dependent
     # modelling flags there, and the first attempt must see them.
@@ -383,9 +385,9 @@ def _run_tensor(binding: TwinBinding, settings, state, device, chunk=512):
         protocol, marr, tarr = _bind_protocol(
             binding, settings, net_cap << attempt,
             timer_cap + 2 * attempt)
-        search = TensorSearch(
-            protocol, chunk=chunk, frontier_cap=f_cap, visited_cap=v_cap,
-            strict=True, record_trace=True, device=device)
+        search = ShardedTensorSearch(
+            protocol, mesh, chunk_per_device=chunk, frontier_cap=f_cap,
+            visited_cap=v_cap, strict=True, record_trace=True)
         # Transient-dispatch retry (tpu/supervisor.py): a transient device
         # error mid-search retries with backoff instead of failing the lab
         # test; verdict flow is untouched (CapacityOverflow passes
@@ -417,13 +419,6 @@ def _run_tensor(binding: TwinBinding, settings, state, device, chunk=512):
             else:
                 search.max_secs = None
             outcome = search.run(initial=root)
-            if outcome.end_condition == "CAPACITY_EXHAUSTED":
-                # A strict search whose frontier outgrew this rung has
-                # not exhausted anything: escalate, as the reference's
-                # strict frontier drops do.
-                raise CapacityOverflow(
-                    f"{protocol.name}: frontier past frontier_cap={f_cap} "
-                    f"at depth {outcome.depth}")
             return search, outcome, history
         except CapacityOverflow as e:
             last = e

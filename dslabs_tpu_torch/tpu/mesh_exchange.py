@@ -23,9 +23,13 @@ a change to the engine.
     each shard would see them after the gather (the stacked tensor
     already is that).
 
+* :func:`as_mesh` turns the ``mesh`` argument of the port's callers
+  (``SearchSupervisor``, ``SwarmSearch``) into a :class:`ShardMesh`.
+
 Deliberate difference from the reference: the shards share one card, so
 the exchange moves no bytes between devices; an ``all_to_all`` costs
-the copy of a transpose.
+the copy of a transpose.  A mesh over several distinct devices needs
+the process-group form of this interface, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from dslabs_tpu_torch.tpu._build import resolve_device
 
-__all__ = ["ShardMesh", "LocalExchange"]
+__all__ = ["ShardMesh", "LocalExchange", "as_mesh", "card_count"]
 
 
 class ShardMesh:
@@ -50,6 +54,35 @@ class ShardMesh:
 
     def __repr__(self) -> str:
         return f"ShardMesh(width={self.width}, device={self.device})"
+
+
+def card_count(device=None) -> int:
+    """The width a mesh of ``None`` shards means on ``device``: the number
+    of cards when it is a card, 1 on the CPU."""
+    dev = resolve_device(device)
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def as_mesh(mesh, device=None) -> ShardMesh:
+    """A caller's ``mesh`` argument as a :class:`ShardMesh`: None (one
+    shard), a shard count, a :class:`ShardMesh`, or a sequence of devices
+    that all name one device (one shard each).  A sequence naming two
+    distinct devices raises: a mesh over several cards needs the
+    process-group exchange."""
+    if isinstance(mesh, ShardMesh):
+        return mesh
+    if mesh is None:
+        return ShardMesh(1, device)
+    if isinstance(mesh, int):
+        return ShardMesh(mesh, device)
+    devs = [torch.device(d) for d in mesh]
+    if len(set(devs)) > 1:
+        raise NotImplementedError(
+            f"a mesh over the distinct devices {sorted(map(str, set(devs)))}"
+            " is not ported yet; it comes with the process-group form of "
+            "mesh_exchange (torch.distributed), the process-group slice of "
+            "the PyTorch port (see ROADMAP.md)")
+    return ShardMesh(len(devs), devs[0] if devs else device)
 
 
 class LocalExchange:

@@ -55,7 +55,10 @@ device.
 Dispatch tags: ``sharded.init`` (from the root, or a dump),
 ``sharded.superstep``, ``sharded.step`` and ``sharded.sync`` (legacy
 driver), ``sharded.promote``, ``sharded.steal``, ``sharded.spill_drain``,
-``sharded.spill_evict``, ``sharded.spill_reinject``.
+``sharded.spill_evict``, ``sharded.spill_reinject``.  Before each level's
+superstep dispatches the engine publishes ``_dispatch_deadline_scales =
+{"superstep": max(1, min(budget, 2 * chunks))}``, which the supervisor's
+watchdog and the telemetry spans read.
 
 Deliberate differences from the reference: the D shards share one
 device; the exchange is a transpose; kernel 2 runs once per shard; the
@@ -88,7 +91,8 @@ from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          TensorSearch, _lex_order,
                                          flatten_state, host_copy,
                                          read_only, to_host)
-from dslabs_tpu_torch.tpu.mesh_exchange import LocalExchange, ShardMesh
+from dslabs_tpu_torch.tpu.mesh_exchange import (LocalExchange, ShardMesh,
+                                                card_count)
 
 __all__ = ["ShardedTensorSearch", "make_mesh", "CARRY_PARTITION_RULES",
            "match_partition_rules", "OVERFLOW_FACTOR"]
@@ -140,9 +144,10 @@ def match_partition_rules(rules, names, axis=0) -> dict:
 
 
 def make_mesh(n_devices: Optional[int] = None, device=None) -> ShardMesh:
-    """A mesh of ``n_devices`` shards (default 1) on the card, or on the
-    device the caller names."""
-    return ShardMesh(1 if n_devices is None else n_devices, device)
+    """A mesh of ``n_devices`` shards on the card, or on the device the
+    caller names; ``None`` means the number of cards (1 on the CPU)."""
+    return ShardMesh(card_count(device) if n_devices is None
+                     else n_devices, device)
 
 
 def _first_of_each_key_seg(fp: torch.Tensor, valids: torch.Tensor,
@@ -1057,8 +1062,10 @@ class ShardedTensorSearch(TensorSearch):
             vis_total = self._spill.unique(vis_total)
         if overflow:
             raise CapacityOverflow(
-                f"{self.p.name}: {overflow} semantic drops at depth "
-                f"{depth} (net_cap/timer_cap overflowed; raise the caps)")
+                f"{self.p.name}: net_cap={self.p.net_cap}, timer_cap="
+                f"{self.p.timer_cap}, or max_live_sends="
+                f"{self.p.max_live_sends} overflowed at depth {depth} "
+                f"({overflow} semantic drops); raise the caps")
         if drops and self.strict:
             raise CapacityOverflow(
                 f"{self.p.name}: {drops} capacity drops at depth {depth} "
@@ -1120,10 +1127,12 @@ class ShardedTensorSearch(TensorSearch):
         children = list(map(tuple, rows[:, :4].tolist()))
         parents = list(map(tuple, rows[:, 4:8].tolist()))
         events = rows[:, 8].tolist()
-        new = dict(zip(reversed(children),
-                       zip(reversed(parents), reversed(events))))
-        new.update(self._fp_map)
-        self._fp_map = new
+        # In place, in row order: an entry already in the map, or an
+        # earlier row of this level, wins (the map is not copied).
+        fp_map = self._fp_map
+        for child, parent, event in zip(children, parents, events):
+            if child not in fp_map:
+                fp_map[child] = (parent, event)
         samples = []
         for i in sorted({0, len(rows) // 2, len(rows) - 1}):
             tr = self._walk_fp_chain(parents[i], int(events[i]))
@@ -1641,6 +1650,12 @@ class ShardedTensorSearch(TensorSearch):
         budget = ((1 << 30) if self.max_secs is None
                   else max(1, self._superstep_chunks))
         n_chunks = self._n_chunks(max_n)
+        # The watchdog (tpu/supervisor.py) stretches a superstep's
+        # deadline by the chunk steps it is expected to run (2x for the
+        # event window's re-passes); every other site keeps the
+        # one-dispatch deadline.
+        self._dispatch_deadline_scales = {
+            "superstep": float(max(1, min(budget, 2 * n_chunks)))}
         idx = self._stat_idx()
         chunks = 0
         while True:

@@ -38,14 +38,27 @@ reference's spine:
   outlast a real wedge.  The warden (``tpu/warden.py``) can: it SIGKILLs
   the child process.
 * **Engine failover ladder.**  :class:`SearchSupervisor` runs the search
-  on the first healthy rung of ``device -> host`` (the host loop is the
-  parity oracle; both rungs give the same verdicts), each rung resuming
-  from the shared checkpoint (``tpu/checkpoint.py``) when one exists.
+  on the first healthy rung of ``sharded -> device -> host`` (the
+  owner-sharded engine of ``tpu/sharded.py`` over a ``ShardMesh``, the
+  solo device loop, and the host loop that is the parity oracle; every
+  rung gives the same verdicts), each rung resuming from the shared
+  checkpoint (``tpu/checkpoint.py``) when one exists.
   Before a failover or a re-level the failed rung's carry is released
   and the CUDA cache emptied, so the next rung does not run out of memory
   for the wrong reason.  Semantic errors (``CapacityOverflow``,
   ``CheckpointMismatch``) propagate unchanged unless ``spill="ladder"``
   asks for the capacity ladder.
+* **Elastic width ladder.**  With ``elastic`` set, a ``sharded`` rung
+  over D shards expands into ``sharded(D) -> sharded(D/2) -> ... ->
+  sharded(2)`` (:func:`expand_ladder`): a burned mesh rung costs half
+  its shards, not all of them, and the narrower rung resumes the
+  checkpoint re-sharded to its owner map (``mesh_shrunk`` events,
+  ``mesh_shrinks`` and ``mesh_width`` on the outcome).
+* **Deadline scales.**  An engine may publish
+  ``_dispatch_deadline_scales`` (``{site: factor}``); the watchdog reads
+  it live and stretches its steady-state deadline at that site by the
+  factor (the sharded engine's superstep runs a whole level's chunk
+  steps in one dispatch).
 * **Deterministic fault injection.**  A :class:`FaultPlan` installed at
   the same boundary makes every recovery path exercisable on the CPU.
 * **Portfolio mode** runs the swarm explorer (``tpu/swarm.py``) as a
@@ -75,15 +88,14 @@ ladder's events (``rung``, ``failover``, ``capacity_retry``,
 ``knobs_shrunk``, ``lane``, ``lane_winner``); the verdict carries the
 recorder's ``trace_id``.
 
-Not in the port yet: the ``sharded`` rung and the elastic width ladder.
-The engine they run, ``tpu/sharded.py``'s ``ShardedTensorSearch``, is
-ported; the rung over it is slice 4c of the port (ROADMAP), so
-``"sharded"`` in a ladder raises ``NotImplementedError`` naming 4c, and
-``elastic`` is accepted and has nothing to expand.  ``aot_warmup=True`` loads the
-built kernels before the run and reports that time on
-``compile_secs``.  The reference's environment knobs
-(``DSLABS_ABANDONED_WARN``, ``DSLABS_ELASTIC``, ``DSLABS_KNOB_SHRINKS``)
-are constants or arguments here.
+The sharded rung's full width is its ``ShardMesh``'s, or the number of
+cards (1 on one H100, 1 on the CPU) when no mesh is given; its D shards
+share one card (``tpu/mesh_exchange.py``), and a mesh over several
+distinct devices raises until the process-group exchange is ported.
+``aot_warmup=True`` loads the built kernels before the run and reports
+that time on ``compile_secs``.  The reference's environment knobs
+(``DSLABS_ABANDONED_WARN``, ``DSLABS_ELASTIC``, ``DSLABS_KNOB_SHRINKS``,
+``DSLABS_SUPERSTEP_CHUNKS``) are constants or arguments here.
 """
 
 from __future__ import annotations
@@ -116,12 +128,9 @@ __all__ = ["TransientDeviceError", "DispatchTimeout", "EngineFailure",
 ABANDONED_WARN_THRESHOLD = 2
 # In-place knob-shrink re-levels an OOM-shaped failure gets per rung.
 MAX_KNOB_SHRINKS = 2
-
-
-def _later(option: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"SearchSupervisor: {option} is not ported yet; it comes with the "
-        f"{slice_name} slice of the PyTorch port (see ROADMAP.md)")
+# Chunk steps per superstep dispatch of the sharded rung under a time
+# budget; each knob-shrink re-level halves it with the chunk.
+SUPERSTEP_CHUNKS = 16
 
 
 class TransientDeviceError(RuntimeError):
@@ -275,11 +284,21 @@ def classify_child_death(exitcode: Optional[int],
 
 def expand_ladder(ladder, full_width: Optional[int] = None,
                   elastic: bool = False):
-    """Expand a rung-name ladder into ``(rung, width)`` specs.  Only a
-    ``"sharded"`` rung has a width ladder, and the port's sharded rung
-    comes with slice 4c, so every ladder expands to itself (width
-    None)."""
-    return [(rung, None) for rung in ladder]
+    """Expand a rung-name ladder into ``(rung, width)`` specs.  With
+    ``elastic`` set, every ``"sharded"`` entry becomes the width ladder
+    ``sharded(D) -> sharded(D/2) -> ... -> sharded(2)`` (width None = the
+    full mesh), so a failing mesh degrades by halves.  The engine name
+    stays ``"sharded"`` at every width: fault plans, retry budgets and
+    dispatch tags keep one vocabulary."""
+    specs = []
+    for rung in ladder:
+        specs.append((rung, None))
+        if rung == "sharded" and elastic and (full_width or 0) > 2:
+            w = int(full_width)
+            while w > 2:
+                w = max(2, w // 2)
+                specs.append(("sharded", w))
+    return specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,6 +440,7 @@ class DispatchBoundary:
         # unavoidable leak), counted so the degradation is visible.
         self.abandoned: List[threading.Thread] = []
         self._depth_src = None
+        self._scales_src = None
         self._seen_tags: set = set()
 
     def abandoned_alive(self) -> int:
@@ -443,6 +463,11 @@ class DispatchBoundary:
         ref = weakref.ref(search)
         self._depth_src = (
             lambda: int(getattr(ref(), "_current_depth", 0)))
+        # Per-site deadline scales, read live: the sharded engine
+        # publishes its superstep's expected chunk steps before each
+        # level.
+        self._scales_src = (
+            lambda: getattr(ref(), "_dispatch_deadline_scales", None))
         search._dispatch_boundary = self
         # A (re)installed search may be a fresh engine (a re-level's
         # smaller chunk): its first dispatch at each tag earns the first
@@ -473,8 +498,11 @@ class DispatchBoundary:
             rule = (self.plan.match(engine, idx, site, sidx)
                     if self.plan else None)
             if rule is not None and self.telemetry is not None:
-                self.telemetry.event("fault_inject", engine=engine,
-                                     site=site, index=idx, fault=rule.kind)
+                # A chaos plan (tpu/chaos.py) marks its injections.
+                self.telemetry.event(
+                    "chaos_inject" if getattr(self.plan, "chaos", False)
+                    else "fault_inject",
+                    engine=engine, site=site, index=idx, fault=rule.kind)
             ran = False
             try:
                 if self.observer is not None:
@@ -526,16 +554,27 @@ class DispatchBoundary:
         # Seeded jitter: desynchronises retry storms, reproducibly.
         return base * (1.0 + p.jitter * (2.0 * self._rng.random() - 1.0))
 
+    def _deadline_scale(self, tag: str) -> float:
+        """The installed search's published deadline scale of ``tag``'s
+        site (1.0 when it publishes none)."""
+        scales = self._scales_src() if self._scales_src is not None \
+            else None
+        if not scales:
+            return 1.0
+        return float(scales.get(tag.split(".", 1)[-1], 1.0))
+
     def _watchdog_call(self, tag: str, fn, args, rule):
         """Run one dispatch on a watchdog thread, on the caller's current
         CUDA stream (streams are chosen per thread), and abandon it at
         the deadline.  The first dispatch at each tag gets
-        ``RetryPolicy.first_deadline``.  An injected hang waits
-        interruptibly and checks for abandonment before touching the
-        real dispatch, so an abandoned fault thread exits cleanly."""
+        ``RetryPolicy.first_deadline``; a site with a published deadline
+        scale stretches the steady-state deadline by it.  An injected
+        hang waits interruptibly and checks for abandonment before
+        touching the real dispatch, so an abandoned fault thread exits
+        cleanly."""
         release = threading.Event()
         box: List[Tuple[str, object]] = []
-        steady = self.policy.deadline_secs
+        steady = self.policy.deadline_secs * self._deadline_scale(tag)
         deadline = (steady if tag in self._seen_tags
                     else max(self.policy.first_deadline(), steady))
         self._seen_tags.add(tag)
@@ -623,22 +662,29 @@ class SearchSupervisor:
     """Run a tensor search with retry, watchdog, checkpointing and the
     engine failover ladder.
 
-    ``ladder`` names the rungs to try in order (default ``("device",
-    "host")``); each rung is built from the shared protocol and limits on
-    ``device`` (the card unless the caller names another), has the
-    boundary installed, and resumes from the last checkpoint when a
-    ``checkpoint_path`` holds a dump of its configuration.  A rung that
-    fails past recovery (fatal error, exhausted retries, wedged or torn
-    dispatch) is released and the next rung takes over; an OOM-shaped
-    failure first re-levels the rung in place with a halved chunk (up to
-    :data:`MAX_KNOB_SHRINKS` times).  The returned ``SearchOutcome`` carries
-    ``retries`` / ``failovers`` / ``engine`` / ``knob_retries`` /
-    ``resumed_from_depth``, so no degradation is silent.  ``telemetry``
+    ``ladder`` names the rungs to try in order (default ``("sharded",
+    "device", "host")``); each rung is built from the shared protocol and
+    limits on ``device`` (the card unless the caller names another; the
+    mesh's device when only ``mesh`` is given), has the boundary
+    installed, and resumes from the last checkpoint when a
+    ``checkpoint_path`` holds a dump of its configuration.  The sharded
+    rung runs ``ShardedTensorSearch`` over ``mesh`` (a ``ShardMesh``;
+    default: one shard per card) with ``chunk`` rows per shard, and with
+    ``elastic`` it degrades by halves (:func:`expand_ladder`).  A rung
+    that fails past recovery (fatal error, exhausted retries, wedged or
+    torn dispatch) is released and the next rung takes over; an
+    OOM-shaped failure first re-levels the rung in place with a halved
+    chunk (and, on the sharded rung, a halved superstep budget), up to
+    :data:`MAX_KNOB_SHRINKS` times.  The returned ``SearchOutcome``
+    carries ``retries`` / ``failovers`` / ``engine`` / ``mesh_width`` /
+    ``mesh_shrinks`` / ``knob_retries`` / ``resumed_from_depth``, so no
+    degradation is silent.  ``telemetry``
     (a ``tpu/telemetry.py`` recorder) is attached to every rung and
     receives the ladder's events."""
 
     def __init__(self, protocol,
-                 ladder: Tuple[str, ...] = ("device", "host"),
+                 ladder: Tuple[str, ...] = ("sharded", "device", "host"),
+                 mesh=None,
                  policy: Optional[RetryPolicy] = None,
                  fault_plan: Optional[FaultPlan] = None,
                  checkpoint_path: Optional[str] = None,
@@ -664,16 +710,19 @@ class SearchSupervisor:
                  elastic: bool = False,
                  device=None,
                  levels_dir: Optional[str] = None):
+        from dslabs_tpu_torch.tpu.mesh_exchange import as_mesh
+
         for rung in ladder:
-            if rung == "sharded":
-                raise _later("the sharded rung",
-                             "4c (the sharded engine's callers)")
-            if rung not in ("device", "host"):
+            if rung not in ("sharded", "device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
         self.telemetry = telemetry
         self.protocol = protocol
         self.ladder = tuple(ladder)
-        self.device = resolve_device(device)
+        if mesh is not None:
+            mesh = as_mesh(mesh, device)
+        self.mesh = mesh
+        self.device = (mesh.device if device is None and mesh is not None
+                       else resolve_device(device))
         self.policy = policy or RetryPolicy()
         self.fault_plan = fault_plan
         self.checkpoint_path = checkpoint_path
@@ -718,9 +767,9 @@ class SearchSupervisor:
             raise ValueError(
                 "portfolio=True and process_isolation=True are "
                 "mutually exclusive (the swarm lane runs in-process)")
-        # ``elastic`` is accepted: without a sharded rung there is no
-        # width to halve.
+        self.elastic = bool(elastic)
         self.knob_retries = 0
+        self.mesh_shrinks = 0
         self.boundary: Optional[DispatchBoundary] = None
         self.failures: List[EngineFailure] = []
         # The search that produced the last verdict (its device is the
@@ -740,28 +789,70 @@ class SearchSupervisor:
             return None
         return self.spill
 
-    def _build(self, rung: str, spill=None, shrink: int = 0):
-        if spill is None and shrink == 0:
+    def _full_width(self) -> int:
+        """The undegraded mesh width: the configured mesh's, else the
+        number of cards (1 on the CPU)."""
+        if self.mesh is not None:
+            return self.mesh.width
+        from dslabs_tpu_torch.tpu.mesh_exchange import card_count
+
+        return card_count(self.device)
+
+    def _mesh_for(self, width: Optional[int]):
+        """The mesh a sharded rung runs on: the configured (or full) mesh
+        for ``width=None``, else a narrower one on the same device, the
+        elastic ladder's step down (its engine is cached by width)."""
+        from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+
+        if width is None and self.mesh is not None:
+            return self.mesh
+        return ShardMesh(width or self._full_width(), self.device)
+
+    def _build(self, rung: str, spill=None, width: Optional[int] = None,
+               shrink: int = 0):
+        # The plain full-width rungs key by name (callers index
+        # ``_engines["sharded"]``); spill variants by host tier size,
+        # narrower or knob-shrunk variants by (width, shrink).
+        if spill is None and width is None and shrink == 0:
             key = rung
+        elif width is None and shrink == 0:
+            key = (rung, getattr(spill, "host_cap", True))
         else:
-            key = (rung, getattr(spill, "host_cap", spill is not None),
-                   shrink)
+            key = (rung, getattr(spill, "host_cap", None), width, shrink)
         cached = self._engines.get(key)
         if cached is not None:
             cached.max_depth = self.max_depth
             cached.max_secs = self.max_secs
             return cached
-        self._engines[key] = s = self._build_fresh(rung, spill, shrink)
+        self._engines[key] = s = self._build_fresh(rung, spill, width,
+                                                   shrink)
         return s
 
-    def _build_fresh(self, rung: str, spill=None, shrink: int = 0):
+    def _build_fresh(self, rung: str, spill=None,
+                     width: Optional[int] = None, shrink: int = 0):
         from dslabs_tpu_torch.tpu.engine import TensorSearch
 
         # Each knob-shrink re-level halves the chunk (the live device
-        # memory per chunk step), so an OOM retry runs strictly lighter.
+        # memory per chunk step) and the superstep budget, so an OOM
+        # retry runs strictly lighter.
+        chunk = max(1, self.chunk >> shrink)
+        if rung == "sharded":
+            from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch
+
+            return ShardedTensorSearch(
+                self.protocol, self._mesh_for(width),
+                chunk_per_device=chunk,
+                superstep_chunks=max(1, SUPERSTEP_CHUNKS >> shrink),
+                frontier_cap=self.frontier_cap,
+                visited_cap=self.visited_cap, max_depth=self.max_depth,
+                max_secs=self.max_secs, strict=self.strict,
+                ev_budget=self.ev_budget,
+                checkpoint_path=self.checkpoint_path,
+                checkpoint_every=self.checkpoint_every, spill=spill,
+                levels_dir=self.levels_dir)
         return TensorSearch(
             self.protocol, frontier_cap=self.frontier_cap,
-            chunk=max(1, self.chunk >> shrink), max_depth=self.max_depth,
+            chunk=chunk, max_depth=self.max_depth,
             max_secs=self.max_secs, ev_budget=self.ev_budget,
             visited_cap=self.visited_cap, strict=self.strict,
             use_host_visited=(rung == "host"),
@@ -826,14 +917,30 @@ class SearchSupervisor:
                                          telemetry=tel)
         self.failures = []
         self.knob_retries = 0
+        self.mesh_shrinks = 0
         warm = self._warm_up()
-        for i, (rung, _width) in enumerate(expand_ladder(self.ladder)):
+        specs = expand_ladder(
+            self.ladder, self._full_width() if self.elastic else None,
+            self.elastic)
+        prev_width = None
+        for i, (rung, width) in enumerate(specs):
+            eff_width = 1
+            if rung == "sharded":
+                eff_width = width or self._full_width()
+                if prev_width is not None and eff_width < prev_width:
+                    # A burned mesh rung degrades by halves, resuming the
+                    # checkpoint re-sharded to the smaller owner map.
+                    self.mesh_shrinks += 1
+                    if tel is not None:
+                        tel.event("mesh_shrunk", from_width=prev_width,
+                                  to_width=eff_width)
+                prev_width = eff_width
             shrink = 0
             out = None
             search = None
             while True:
                 search = self._build(rung, self._engine_spill(),
-                                     shrink=shrink)
+                                     width=width, shrink=shrink)
                 self.boundary.install(search, engine=rung)
                 self.boundary.reset_budget(rung)
                 search._cancel_event = cancel
@@ -842,7 +949,8 @@ class SearchSupervisor:
                              and search.has_resumable_checkpoint())
                 if tel is not None:
                     tel.event("rung", engine=rung, index=i,
-                              resume=bool(do_resume), width=1, shrink=shrink)
+                              resume=bool(do_resume), width=eff_width,
+                              shrink=shrink)
                 try:
                     out = search.run(check_initial=check_initial,
                                      initial=initial, resume=do_resume)
@@ -859,25 +967,27 @@ class SearchSupervisor:
                             tel.event("knobs_shrunk", engine=rung,
                                       shrink=shrink,
                                       chunk=max(1, self.chunk >> shrink),
-                                      width=1, error=str(e.cause)[:200])
+                                      width=eff_width,
+                                      error=str(e.cause)[:200])
                         continue
                     self.failures.append(e)
                     if tel is not None:
                         tel.event("failover", engine=rung, failure=e.kind,
-                                  width=1, error=str(e.cause)[:200])
+                                  width=eff_width, error=str(e.cause)[:200])
                 except CapacityOverflow as e:
                     if self.spill != "ladder":
                         raise
                     self._release(search, e)
                     self.failures.append(EngineFailure(rung, "capacity", e))
-                    out = self._capacity_retry(rung, shrink, initial,
+                    out = self._capacity_retry(rung, width, shrink, initial,
                                                check_initial, cancel)
                     search = self._last_capacity_search or search
                 break
             if out is None:
                 continue
             out.engine = rung
-            out.mesh_width = 1
+            out.mesh_width = eff_width
+            out.mesh_shrinks = self.mesh_shrinks
             out.knob_retries = self.knob_retries
             out.retries = self.boundary.retries
             out.failovers = len(self.failures)
@@ -892,7 +1002,8 @@ class SearchSupervisor:
             return out
         raise SupervisorExhausted(self.failures)
 
-    def _capacity_retry(self, rung, shrink, initial, check_initial, cancel):
+    def _capacity_retry(self, rung, width, shrink, initial, check_initial,
+                        cancel):
         """The capacity ladder's recovery arm: the overflowed rung is
         rebuilt with the host-RAM spill tier and resumes from the
         checkpoint; a second overflow escalates to an 8x host tier.
@@ -906,7 +1017,7 @@ class SearchSupervisor:
                 else spill_mod.SpillConfig())
         for cfg in (base, dataclasses.replace(
                 base, host_cap=base.host_cap * 8)):
-            search = self._build(rung, cfg, shrink=shrink)
+            search = self._build(rung, cfg, width=width, shrink=shrink)
             self.boundary.install(search, engine=rung)
             search._cancel_event = cancel
             search._telemetry = self.telemetry
@@ -938,6 +1049,7 @@ class SearchSupervisor:
         kw.setdefault("max_secs", self.max_secs)
         kw.setdefault("ev_budget", self.ev_budget)
         kw.setdefault("device", self.device)
+        kw.setdefault("mesh", self.mesh)
         if self.checkpoint_path:
             # Swarm rounds checkpoint beside the BFS dump (their
             # fingerprints differ: neither resumes the other's).
@@ -1036,6 +1148,9 @@ class SearchSupervisor:
                 "process_isolation=True requires protocol_factory="
                 "'module:callable' (+ factory_kwargs): a live protocol "
                 "object cannot cross the spawn boundary")
+        wkw = dict(self.warden_kwargs or {})
+        wkw.setdefault("elastic", self.elastic)
+        wkw.setdefault("mesh_width", self._full_width())
         warden = Warden(
             factory=self.protocol_factory,
             factory_kwargs=self.factory_kwargs,
@@ -1048,8 +1163,7 @@ class SearchSupervisor:
             frontier_cap=self.frontier_cap,
             visited_cap=self.visited_cap, ev_budget=self.ev_budget,
             aot_warmup=self.aot_warmup, telemetry=self.telemetry,
-            device=self.device, levels_dir=self.levels_dir,
-            **(self.warden_kwargs or {}))
+            device=self.device, levels_dir=self.levels_dir, **wkw)
         try:
             return warden.run(resume=resume)
         finally:

@@ -1,18 +1,28 @@
-"""Swarm explorer on one device: diversified random-walk fleets with shared
-dedup and minimized, replay-verified witnesses.
+"""Swarm explorer: diversified random-walk fleets over D walker groups on
+one device, with per-group dedup and minimized, replay-verified
+witnesses.
 
-Counterpart of ``dslabs_tpu/tpu/swarm.py`` on one card.  The checker's
+Counterpart of ``dslabs_tpu/tpu/swarm.py``.  The checker's
 power comes from a BFS + random-DFS portfolio: the BFS proves shallow
 exhaustiveness, and random deep probes reach the deep, narrow violations
 a BFS cannot reach inside a budget.  This module is the second half.
 
-* **Walk steps.**  A fleet of ``walkers_per_device`` walkers keeps state
-  rows, depths and per-walker event histories on the device.  One walk
+* **Groups.**  ``mesh`` (a ``ShardMesh``, a group count, or None for
+  one group) sets D, the reference's device count: the fleet is D
+  groups of ``walkers_per_device`` walkers, and every carry tensor holds
+  the D * K walkers group by group.  Each group has its own visited
+  table (``[D, V + 1, 4]``), seed pool, counters and first-hit captures,
+  as each reference device does; the reference's ``psum`` / ``pmax`` /
+  ``all_gather`` over devices are the exchange's (``tpu/
+  mesh_exchange.py``) over the group dimension.
+* **Walk steps.**  A fleet of D * K walkers keeps state rows, depths and
+  per-walker event histories on the device.  One walk
   step builds each walker's event table, picks one event per walker,
   steps every walker at once (``TensorSearch._step_batch``), raises the
   terminal flags in checkState order (exception, invariants, goals),
-  fingerprints and inserts the advanced rows into the visited table
-  (both kernels), captures the first hit of each flag and restarts the
+  fingerprints the advanced rows (kernel 1, once over the D * K rows)
+  and inserts each group's into its own table (kernel 2, once per
+  group), captures each group's first hit of each flag and restarts the
   walkers that ended.  A round is up to ``steps_per_round`` steps; it
   stops after the step in which a flag first fires.
 
@@ -21,12 +31,13 @@ a BFS cannot reach inside a budget.  This module is the second half.
   message/timer affinity of alternating sign, so the fleet covers
   timer-heavy and message-heavy schedules.  The pick is a Gumbel-max
   draw over float32 logits ``affinity * kind / temperature`` of the
-  valid events, from a ``torch.Generator`` on the search's device seeded
-  by ``seed``; a walker with no valid event steps on id 0 and does not
-  advance.
+  valid events, from one ``torch.Generator`` on the search's device
+  seeded by ``seed`` (for every group); a walker with no valid event
+  steps on id 0 and does not advance.
 
-* **Shared dedup.**  Advanced successors insert their 128-bit keys into
-  one table (``tpu/visited.py``): ``unique`` counts fresh inserts, and
+* **Group dedup.**  Advanced successors insert their 128-bit keys into
+  their group's table (``tpu/visited.py``): ``unique`` counts fresh
+  inserts summed over the groups, and
   ``revisit_patience`` restarts a walker whose last N steps all landed
   on visited states.  A full table degrades as in the BFS engines
   (unresolved keys count as fresh and are surfaced; strict swarms
@@ -42,9 +53,10 @@ a BFS cannot reach inside a budget.  This module is the second half.
 
 * **Frontier seeding.**  ``frontier_seed`` names a BFS checkpoint
   (``tpu/checkpoint.py``): the walkers restart from its frontier rows
-  (a random pool row per restart) instead of the root, and its visited
-  keys pre-seed the table through kernel 2, so the fleet probes past the
-  region the BFS covered.  A witness replays from its walker's seed row.
+  (split contiguously over the groups; a random row of its group's pool
+  per restart) instead of the root, and its visited keys pre-seed every
+  group's table through kernel 2, so the fleet probes past the region
+  the BFS covered.  A witness replays from its walker's seed row.
 
 * **Round checkpoints.**  With ``checkpoint_path`` and
   ``checkpoint_every`` = k, every k-th round dumps the fleet (walker
@@ -54,33 +66,35 @@ a BFS cannot reach inside a budget.  This module is the second half.
 
 Deliberate differences from the reference: the walks draw from torch's
 generator, not ``jax.random``, so they differ from the JAX walks (the
-same seed on the same device gives the same walks), and a swarm dump
-stores the generator's state and carries a ``:torch`` fingerprint
+same seed on the same device gives the same walks); one generator
+serves every group, where the reference folds a key per device; a swarm
+dump stores the generator's state and carries a ``:torch`` fingerprint
 marker, so that neither package resumes the other's swarm dump (BFS
 dumps, frontier seeds included, are shared); the clock is checked
 between walk steps as well as between rounds; the warm-up builds the
 kernels and runs a zero-step round before the clock starts; sizes come
 from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
-fleet runs on one device.  A dump cut at another walker count
-redistributes onto this fleet (:meth:`SwarmSearch._redistribute_swarm`:
-sound, with the uncut run's verdict, not bit-exact); one at this count
-resumes bit-exact.  A mesh of more than one device (a fleet over the
-sharded engine's shards) comes with slice 4c of the port and raises
-``NotImplementedError`` until then.
+D groups share one card.  A dump cut at another group or walker count
+redistributes onto this fleet (:meth:`SwarmSearch._redistribute_swarm`,
+the reference's: sound, with the uncut run's verdict, not bit-exact);
+one at this shape resumes bit-exact.  A mesh naming two distinct
+devices raises ``NotImplementedError``: it needs the process-group
+exchange, which is not ported yet.
 
 Telemetry (``telemetry=``, ``tpu/telemetry.py``): the warm-up is a
 ``compile`` event (the kernel library's load and the zero-step round),
 each round a level record of engine ``swarm`` (explored, unique,
-restarts, deepest, a one-lane ``per_device`` block and its skew, the
-card's peak allocated bytes) built from the round's stats readback, and
-the verdict an outcome record; the dispatches are spans.
+restarts, deepest, a ``per_device`` block with one lane per group and
+its skew, the card's peak allocated bytes) built from the round's stats
+readback, and the verdict an outcome record; the dispatches are spans.
 
 Dispatch seam (``TensorSearch._dispatch``, installed by the search
 supervisor): the fleet's init (from the root or a round dump) is
 ``swarm.init``; each walk step, with its one-scalar first-hit read, is
 ``swarm.step`` (the reference's ``swarm.round`` is one fused program of
-a round's steps; here a round is a host loop of walk steps, so no site
-needs a stretched watchdog deadline); the round's stats readback is
+a round's steps and publishes a deadline scale of ``steps_per_round``;
+here a round is a host loop of walk steps, so every site's scale is
+1.0 and none is published); the round's stats readback is
 ``swarm.sync``; the first-hit capture readback is ``swarm.flags``.  The
 readbacks are read-only; init and the walk step write the fleet carry.
 A cancelled swarm (portfolio mode) stops at its next round boundary.
@@ -109,9 +123,9 @@ from dslabs_tpu_torch.tpu import visited as visited_mod
 from dslabs_tpu_torch.tpu import telemetry as tel_mod
 from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          SearchOutcome, TensorProtocol,
-                                         TensorSearch, _later,
-                                         flatten_state, host_copy,
-                                         read_only)
+                                         TensorSearch, flatten_state,
+                                         host_copy, read_only)
+from dslabs_tpu_torch.tpu.mesh_exchange import LocalExchange, as_mesh
 
 __all__ = ["SwarmSearch", "Witness", "minimize_event_trace",
            "replay_events", "build_witness"]
@@ -379,36 +393,41 @@ def build_witness(search: TensorSearch, root_row, raw_trace: List[int],
 
 # ------------------------------------------------------------ the swarm
 
+def _split_pool(rows: np.ndarray, D: int, fallback: np.ndarray):
+    """``rows`` [R, lanes] split contiguously into D seed pools -> (pools
+    [D, P, lanes] zero-padded, live rows per pool [D]); a pool with no
+    share holds the one row ``fallback``, never nothing."""
+    per = max(1, -(-len(rows) // D))
+    seeds = np.zeros((D, per, rows.shape[1]), np.int32)
+    seeds_n = np.zeros((D,), np.int64)
+    for d in range(D):
+        part = rows[d * per:(d + 1) * per]
+        if not len(part):
+            part = fallback[None]
+        seeds[d, :len(part)] = part
+        seeds_n[d] = len(part)
+    return seeds, seeds_n
+
+
 @read_only
 def _hit_captures(carry: dict) -> tuple:
-    """The first-hit capture arrays on the host: counts, rows, histories,
-    depths, seed indices and the seed pool."""
+    """The first-hit capture arrays on the host, one entry per group:
+    counts, rows, histories, depths, seed indices and the seed pools."""
     return tuple(host_copy(carry[k]) for k in (
         "hit_cnt", "hit_rows", "hit_hist", "hit_depth", "hit_seed",
         "seeds"))
 
 
-def _mesh_size(mesh) -> int:
-    """Devices of a ``mesh`` argument: None, a device count, a sequence
-    of devices, or an object with a ``devices`` array."""
-    if mesh is None:
-        return 1
-    if isinstance(mesh, int):
-        return mesh
-    if hasattr(mesh, "width"):             # a sharded.make_mesh mesh
-        return int(mesh.width)
-    devices = getattr(mesh, "devices", mesh)
-    return int(np.asarray(devices, dtype=object).size)
-
-
 class SwarmSearch(TensorSearch):
-    """Diversified random-walk fleet on one device (module docstring).
+    """Diversified random-walk fleet of D groups (module docstring).
     ``run()`` returns the standard :class:`SearchOutcome`:
     INVARIANT_VIOLATED / EXCEPTION_THROWN / GOAL_FOUND with a verified
     :class:`Witness`, else TIME_EXHAUSTED with the fleet statistics on
     ``outcome.swarm``; exhaustive verdicts stay BFS-only.  ``sanitize``
     is ``TensorSearch``'s: the hot-path audit of the swarm's four sites
-    when the first run starts."""
+    when the first run starts.  ``mesh`` is a ``ShardMesh``, a group
+    count or None (one group); the fleet runs on the mesh's device when
+    ``device`` is not given."""
 
     def __init__(self, protocol: TensorProtocol, mesh=None,
                  walkers_per_device: Optional[int] = None,
@@ -432,10 +451,11 @@ class SwarmSearch(TensorSearch):
                  telemetry=None,
                  device=None,
                  sanitize: Optional[str] = None):
-        if _mesh_size(mesh) > 1:
-            raise _later("a mesh of more than one device",
-                         "4c (multi-device swarm)")
-        self.n_devices = 1
+        self.mesh = as_mesh(mesh, device)
+        if device is None:
+            device = self.mesh.device
+        self.exchange = LocalExchange(self.mesh)
+        self.n_devices = self.mesh.width
         self.walkers = int(walkers_per_device or 128)
         self.max_steps = int(max_steps or 96)
         self.min_steps = int(min_steps if min_steps is not None
@@ -452,14 +472,19 @@ class SwarmSearch(TensorSearch):
         self.frontier_seed = frontier_seed
         self.minimize = minimize
         self.replay_verify = replay_verify
-        super().__init__(protocol, frontier_cap=max(self.walkers, 2),
-                         chunk=self.walkers, max_secs=max_secs,
+        super().__init__(protocol,
+                         frontier_cap=max(self.n_devices * self.walkers, 2),
+                         chunk=self.n_devices * self.walkers,
+                         max_secs=max_secs,
                          ev_budget=ev_budget, visited_cap=visited_cap,
                          strict=strict, checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every,
                          telemetry=telemetry, device=device,
                          sanitize=sanitize)
         self.compile_secs = 0.0
+        # Each of the D * K walkers' group.
+        self._group = torch.arange(self.n_devices, device=self.device
+                                   ).repeat_interleave(self.walkers)
         # Walk steps, and the host seconds of the rounds that ran them,
         # over every run of this search.
         self.walk_steps = 0
@@ -499,21 +524,36 @@ class SwarmSearch(TensorSearch):
         affin = (affin * self.kind_affinity).astype(np.float32)
         return bounds, temps, affin
 
-    def _seed_pool(self, state) -> Tuple[torch.Tensor, np.ndarray]:
-        """-> (seeds [P, lanes] restart rows, preseed keys [M, 4] uint32).
+    def _seed_pool(self, state) -> Tuple[torch.Tensor, np.ndarray,
+                                         np.ndarray]:
+        """-> (seeds [D, P, lanes] restart rows, seeds_n [D] live rows per
+        group, preseed keys [M, 4] uint32).
 
-        Root mode: the pool is the one root row and no key is
+        Root mode: every group's pool is the one root row and no key is
         pre-seeded.  Frontier mode (``frontier_seed`` = a BFS
-        checkpoint): the dumped frontier rows (decoded when packed) are
-        the pool, and the dump's visited keys pre-seed the table, so the
-        walkers probe past the region the BFS covered."""
+        checkpoint): the dumped frontier rows (decoded when packed) split
+        contiguously over the groups (a group with no share falls back to
+        the root), and the dump's visited keys pre-seed every group's
+        table, so the walkers probe past the region the BFS covered."""
+        D = self.n_devices
         root = flatten_state(state)
         if not self.frontier_seed:
-            return root, np.zeros((0, 4), np.uint32)
+            return (root[None].expand(D, -1, -1).contiguous(),
+                    np.ones((D,), np.int64), np.zeros((0, 4), np.uint32))
         ck = self._load_bfs_seed(self.frontier_seed)
-        rows = (torch.as_tensor(ck.frontier, device=self.device)
-                if len(ck.frontier) else root)
-        return rows, np.asarray(ck.visited_keys, np.uint32)
+        R = len(ck.frontier)
+        per = max(1, -(-R // D))
+        live = [min(per, max(0, R - d * per)) for d in range(D)]
+        seeds = torch.zeros((D * per, self.lanes), dtype=torch.int32,
+                            device=self.device)
+        if R:
+            seeds[:R] = torch.as_tensor(ck.frontier, device=self.device)
+        seeds = seeds.view(D, per, self.lanes)
+        for d in range(D):
+            if not live[d]:
+                seeds[d, 0] = root[0]
+        return (seeds, np.maximum(np.asarray(live, np.int64), 1),
+                np.asarray(ck.visited_keys, np.uint32))
 
     def _load_bfs_seed(self, path: str):
         """A BFS dump for frontier seeding: any strict or beam,
@@ -542,85 +582,108 @@ class SwarmSearch(TensorSearch):
                  "vis_over", "deepest")
 
     def _fleet_carry(self, rows, depths, hists, streak, seed_idx, seeds,
-                     keys: np.ndarray, counters) -> dict:
-        """The fleet carry on the device around the given walker arrays,
-        with the table built from ``keys`` [M, 4] by kernel 2 (the
-        pre-seeded BFS keys, or a swarm dump's table) and the hit
-        captures empty."""
-        S, V = self.max_steps, self.visited_cap
+                     seeds_n, keys: np.ndarray, vdev, counters) -> dict:
+        """The fleet carry on the device around the given walker arrays
+        (``[D * K, ...]``, group by group), with group d's table built
+        from its ``vdev[d]`` consecutive keys of ``keys`` [M, 4] by
+        kernel 2 (the pre-seeded BFS keys, every group the same, or a
+        swarm dump's per-group tables), the counters from ``counters``
+        [7, D] and the hit captures empty.  ``rows`` and ``seed_idx`` None
+        place each group's walkers round-robin over its pool."""
+        D, S, V = self.n_devices, self.max_steps, self.visited_cap
         dev = self.device
         nf = len(self._flag_names)
         bounds, temps, affin = self._schedules()
-        table, n_ins, n_unres = visited_mod.build_table(
-            V, torch.from_numpy(np.ascontiguousarray(keys).view(np.int32)),
-            dev)
+        table = torch.full((D, V + 1, 4), visited_mod.EMPTY,
+                           dtype=torch.int32, device=dev)
+        keys_d = torch.from_numpy(np.ascontiguousarray(
+            keys, np.uint32).view(np.int32)).to(device=dev).reshape(-1, 4)
+        offs = np.concatenate([[0], np.cumsum(vdev)]).astype(np.int64)
+        counts = []
+        for d in range(D):
+            part = keys_d[offs[d]:offs[d + 1]]
+            _, ins, unres = visited_mod.insert(
+                table[d], part, torch.ones((part.shape[0],),
+                                           dtype=torch.bool, device=dev))
+            counts += [ins.sum(), unres.sum()]
+        n_ins, n_unres = (int(x) for x in
+                          torch.stack(counts).view(D, 2).sum(0).cpu())
         if n_unres:
             raise CapacityOverflow(
-                f"{self.p.name}: visited_cap={V} too small to seed the "
-                f"swarm table with {len(keys)} keys ({n_unres} "
+                f"{self.p.name}: visited_cap={V} per group too small to "
+                f"seed the swarm tables with {len(keys)} keys ({n_unres} "
                 "unresolved); raise visited_cap")
-        # Keys the table held before the first walk step.
+        # Keys the tables held before the first walk step.
         self.preseeded_keys = n_ins
-        # The host-made arrays go up in two uploads: the depth bounds with
-        # the counters (int64), the temperatures with the affinities
-        # (float32); the counters are views of the first.
+        # The host-made arrays go up in two uploads: the depth bounds,
+        # the live pool sizes and the counters (int64), the temperatures
+        # with the affinities (float32); the counters are views of the
+        # first.
         k = len(bounds)
         ints = torch.as_tensor(np.concatenate(
-            [bounds.astype(np.int64), np.asarray(counters, np.int64)]),
-            device=dev)
+            [bounds.astype(np.int64), np.asarray(seeds_n, np.int64),
+             np.asarray(counters, np.int64).reshape(-1)]), device=dev)
         flts = torch.as_tensor(np.stack([temps, affin]), device=dev)
+        if seed_idx is None:
+            seed_idx = (torch.arange(self.walkers, device=dev).repeat(D)
+                        % ints[k:k + D][self._group])
+            rows = seeds[self._group, seed_idx].clone()
         carry = {
             "rows": rows, "depths": depths, "hists": hists,
             "streak": streak, "seed_idx": seed_idx, "seeds": seeds,
+            "seeds_n": ints[k:k + D],
             "bounds": ints[:k], "temps": flts[0], "affin": flts[1],
             "visited": table,
-            "hit_cnt": torch.zeros((nf,), dtype=torch.int64, device=dev),
-            "hit_rows": torch.zeros((nf, self.lanes), dtype=torch.int32,
+            "hit_cnt": torch.zeros((D, nf), dtype=torch.int64, device=dev),
+            "hit_rows": torch.zeros((D, nf, self.lanes), dtype=torch.int32,
                                     device=dev),
-            "hit_hist": torch.full((nf, S), -1, dtype=torch.int32,
+            "hit_hist": torch.full((D, nf, S), -1, dtype=torch.int32,
                                    device=dev),
-            "hit_depth": torch.zeros((nf,), dtype=torch.int64, device=dev),
-            "hit_seed": torch.zeros((nf,), dtype=torch.int64, device=dev),
+            "hit_depth": torch.zeros((D, nf), dtype=torch.int64,
+                                     device=dev),
+            "hit_seed": torch.zeros((D, nf), dtype=torch.int64, device=dev),
         }
+        base = k + D
         for i, name in enumerate(self._COUNTERS):
-            carry[name] = ints[k + i]
+            carry[name] = ints[base + i * D:base + (i + 1) * D]
         return carry
 
     def _init_carry(self, state) -> dict:
-        """The fleet carry on the device: the walkers placed round-robin
-        over the seed pool, empty histories, the table pre-seeded with
-        the BFS keys in frontier mode (empty in root mode), and zero
-        counters."""
-        K, S = self.walkers, self.max_steps
+        """The fleet carry on the device: each group's walkers placed
+        round-robin over its seed pool, empty histories, every table
+        pre-seeded with the BFS keys in frontier mode (empty in root
+        mode), and zero counters."""
+        D, K, S = self.n_devices, self.walkers, self.max_steps
+        N = D * K
         dev = self.device
-        seeds, keys = self._seed_pool(state)
-        idx0 = torch.arange(K, device=dev) % seeds.shape[0]
+        seeds, seeds_n, keys = self._seed_pool(state)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self.seed)
         return self._fleet_carry(
-            seeds[idx0].clone(),
-            torch.zeros((K,), dtype=torch.int64, device=dev),
-            torch.full((K, S), -1, dtype=torch.int32, device=dev),
-            torch.zeros((K,), dtype=torch.int64, device=dev),
-            idx0, seeds, keys, [0] * len(self._COUNTERS))
+            None, torch.zeros((N,), dtype=torch.int64, device=dev),
+            torch.full((N, S), -1, dtype=torch.int32, device=dev),
+            torch.zeros((N,), dtype=torch.int64, device=dev),
+            None, seeds, seeds_n, np.tile(keys, (D, 1)), [len(keys)] * D,
+            np.zeros((len(self._COUNTERS), D), np.int64))
 
     # --------------------------------------------------------- walk step
 
     def _walk(self, c: dict) -> None:
-        """One walk step of every walker, updating the carry ``c`` in
-        place on the device with no host sync."""
+        """One walk step of every walker of every group, updating the
+        carry ``c`` in place on the device with no host sync."""
         p = self.p
-        K, S = self.walkers, self.max_steps
+        D, K, S = self.n_devices, self.walkers, self.max_steps
+        N = D * K
         dev = self.device
         rows, depths, hists = c["rows"], c["depths"], c["hists"]
         msg_ids, tmr_ids, flt_ids, _rem = self._event_tables(
-            rows, torch.ones((K,), dtype=torch.bool, device=dev),
+            rows, torch.ones((N,), dtype=torch.bool, device=dev),
             masks=self._rt_masks)
         segs = [msg_ids, torch.where(tmr_ids >= 0, tmr_ids + p.net_cap, -1)]
         if flt_ids is not None:
             base = p.net_cap + p.n_nodes * p.timer_cap
             segs.append(torch.where(flt_ids >= 0, flt_ids + base, -1))
-        ids = torch.cat(segs, dim=1)                            # [K, B]
+        ids = torch.cat(segs, dim=1)                            # [N, B]
         ok = ids >= 0
         # Diversified pick: kind-affinity bias over the valid events,
         # scaled by each walker's temperature (cold = committed to its
@@ -649,8 +712,8 @@ class SwarmSearch(TensorSearch):
             hit_list.append(advance & ~fn(sstate))
         for fn in p.goals.values():
             hit_list.append(advance & fn(sstate))
-        hits = torch.stack(hit_list)                            # [nf, K]
-        pruned = torch.zeros((K,), dtype=torch.bool, device=dev)
+        hits = torch.stack(hit_list)                            # [nf, N]
+        pruned = torch.zeros((N,), dtype=torch.bool, device=dev)
         for fn in p.prunes.values():
             pruned = pruned | fn(sstate)
 
@@ -661,52 +724,64 @@ class SwarmSearch(TensorSearch):
         hists2 = torch.where(at, ev.to(torch.int32)[:, None], hists)
         depths2 = depths + advance.to(torch.int64)
 
-        # Shared dedup: advanced successors' keys into the table
-        # (unresolved = table full = treated as fresh, counted).
+        # Group dedup: each group's advanced successors' keys into its
+        # own table (unresolved = table full = treated as fresh, counted).
         fp = kernels.fingerprint_rows(succ)
-        _, ins, unres = visited_mod.insert(c["visited"], fp, advance)
+        flags = [visited_mod.insert(c["visited"][d], fp[d * K:(d + 1) * K],
+                                    advance[d * K:(d + 1) * K])[1:]
+                 for d in range(D)]
+        ins = torch.cat([f[0] for f in flags])
+        unres = torch.cat([f[1] for f in flags])
         revisit = advance & ~ins & ~unres
         streak2 = torch.where(revisit, c["streak"] + 1, 0)
         if self.revisit_patience > 0:
             rv_restart = streak2 >= self.revisit_patience
         else:
-            rv_restart = torch.zeros((K,), dtype=torch.bool, device=dev)
+            rv_restart = torch.zeros((N,), dtype=torch.bool, device=dev)
 
-        # First hit of each flag (one walker's full history), from the
-        # pre-restart arrays.
-        cnts = hits.sum(dim=1)
-        idxs = torch.argmax(hits.to(torch.int32), dim=1)
+        # Each group's first hit of each flag (one walker's full
+        # history), from the pre-restart arrays.
+        gh = hits.view(-1, D, K).transpose(0, 1)                # [D, nf, K]
+        cnts = gh.sum(dim=2)
+        idxs = (torch.argmax(gh.to(torch.int32), dim=2)
+                + torch.arange(D, device=dev)[:, None] * K)     # [D, nf]
         freshf = (c["hit_cnt"] == 0) & (cnts > 0)
-        c["hit_rows"] = torch.where(freshf[:, None], succ[idxs],
+        c["hit_rows"] = torch.where(freshf[..., None], succ[idxs],
                                     c["hit_rows"])
-        c["hit_hist"] = torch.where(freshf[:, None], hists2[idxs],
+        c["hit_hist"] = torch.where(freshf[..., None], hists2[idxs],
                                     c["hit_hist"])
         c["hit_depth"] = torch.where(freshf, depths2[idxs], c["hit_depth"])
         c["hit_seed"] = torch.where(freshf, c["seed_idx"][idxs],
                                     c["hit_seed"])
 
         # Restarts: dead end / truncated step / prune / depth bound /
-        # revisit patience -> a seed row from the pool (drawn at random
-        # in frontier mode; root mode's one-row pool draws nothing, so
-        # its walks do not change with the pool).
+        # revisit patience -> a seed row from the walker's group pool
+        # (drawn at random in frontier mode; root mode's one-row pools
+        # draw nothing, so its walks do not change with the pool).
         restart = ~advance | pruned | (depths2 >= c["bounds"]) | rv_restart
-        n_seeds = c["seeds"].shape[0]
+        group = self._group
+        n_seeds = c["seeds"].shape[1]
         if n_seeds > 1:
-            ridx = torch.randint(0, n_seeds, (K,), generator=self._gen,
-                                 device=dev)
+            ridx = torch.randint(0, n_seeds, (N,), generator=self._gen,
+                                 device=dev) % c["seeds_n"][group]
             c["seed_idx"] = torch.where(restart, ridx, c["seed_idx"])
-        c["rows"] = torch.where(restart[:, None], c["seeds"][c["seed_idx"]],
-                                succ)
+        c["rows"] = torch.where(restart[:, None],
+                                c["seeds"][group, c["seed_idx"]], succ)
         c["depths"] = torch.where(restart, 0, depths2)
         c["hists"] = torch.where(restart[:, None], -1, hists2)
         c["streak"] = torch.where(restart, 0, streak2)
-        c["explored"] += advance.sum()
-        c["fresh"] += ins.sum()
-        c["revisit"] += revisit.sum()
-        c["restarts"] += restart.sum()
-        c["over"] += over.sum()
-        c["vis_over"] += unres.sum()
-        c["deepest"] = torch.maximum(c["deepest"], depths2.max())
+
+        def per_group(x):
+            return x.view(D, K).sum(dim=1)
+
+        c["explored"] += per_group(advance)
+        c["fresh"] += per_group(ins)
+        c["revisit"] += per_group(revisit)
+        c["restarts"] += per_group(restart)
+        c["over"] += per_group(over)
+        c["vis_over"] += per_group(unres)
+        c["deepest"] = torch.maximum(c["deepest"],
+                                     depths2.view(D, K).amax(dim=1))
         c["hit_cnt"] += cnts
         self.walk_steps += 1
 
@@ -729,17 +804,27 @@ class SwarmSearch(TensorSearch):
         return self._dispatch("swarm.sync", self._round_stats, carry, k)
 
     def _walk_and_check(self, carry: dict) -> bool:
-        """One walk step, then whether any flag has fired (the step's one
-        scalar read)."""
+        """One walk step, then whether any group's flag has fired (the
+        step's one scalar read; the reference's ``psum`` of the hit
+        counts)."""
         self._walk(carry)
-        return bool((carry["hit_cnt"] > 0).any())
+        return bool(self.exchange.psum(carry["hit_cnt"]).any())
 
     @read_only
     def _round_stats(self, carry: dict, k: int) -> np.ndarray:
-        """The round's stats vector: the counters, ``k``, the flag
-        counts (one readback)."""
-        s = torch.cat([torch.stack([carry[n] for n in self._COUNTERS]),
-                       carry["hit_cnt"]]).cpu().numpy()
+        """The round's stats vector (one readback): the counters summed
+        over the groups (``deepest`` their maximum), ``k``, the flag
+        counts summed over the groups, and last the per-group lanes
+        [explored x D, fresh x D, restarts x D, deepest x D]."""
+        ex = self.exchange
+        per = [carry[n] for n in self._COUNTERS]
+        core = torch.stack([ex.psum(x) for x in per[:-1]]
+                           + [ex.pmax(per[-1])])
+        lanes = ex.all_gather(torch.stack(
+            [carry[n] for n in ("explored", "fresh", "restarts",
+                                "deepest")], dim=1))           # [D, 4]
+        s = torch.cat([core, ex.psum(carry["hit_cnt"]),
+                       lanes.T.reshape(-1)]).cpu().numpy()
         n = len(self._COUNTERS)
         return np.concatenate([s[:n], np.asarray([k], np.int64), s[n:]])
 
@@ -791,7 +876,7 @@ class SwarmSearch(TensorSearch):
             # dispatches.
             tel.event("compile", engine="swarm",
                       secs=round(time.time() - t_c, 4), aot=True)
-        prev_explored = 0
+        prev_explored = [0] * self.n_devices
         t0 = time.time() - prev_elapsed
         deadline = None if self.max_secs is None else t0 + self.max_secs
         stats = None
@@ -818,10 +903,10 @@ class SwarmSearch(TensorSearch):
                 self._warned_visited = True
                 warnings.warn(
                     f"{self.p.name}: swarm visited table ~{fill:.0%} full "
-                    f"({int(stats[1])} fresh inserts vs {self.visited_cap} "
-                    f"slots) at round {rounds}: capacity pressure; raise "
-                    "visited_cap before overflow degrades dedup",
-                    RuntimeWarning, stacklevel=2)
+                    f"({int(stats[1])} fresh inserts vs {self.n_devices}x"
+                    f"{self.visited_cap} slots) at round {rounds}: "
+                    "capacity pressure; raise visited_cap before overflow "
+                    "degrades dedup", RuntimeWarning, stacklevel=2)
             # Terminal flags before the strict capacity guards: a
             # violation found this round is a valid verdict even if the
             # table filled alongside it.
@@ -830,8 +915,8 @@ class SwarmSearch(TensorSearch):
             if self.strict and vis_over:
                 raise CapacityOverflow(
                     f"{self.p.name}: swarm visited table full ({vis_over} "
-                    f"unresolved keys, cap {self.visited_cap}); raise "
-                    "visited_cap or run strict=False")
+                    f"unresolved keys, cap {self.visited_cap}/group); "
+                    "raise visited_cap or run strict=False")
             if self.strict and over:
                 raise CapacityOverflow(
                     f"{self.p.name}: {over} walker steps truncated by "
@@ -840,26 +925,27 @@ class SwarmSearch(TensorSearch):
                 self._save_swarm_ckpt(carry, rounds, time.time() - t0)
 
     def _feed_round(self, tel, stats, rounds: int, t_round: float,
-                    prev_explored: int) -> int:
-        """One round's level record from its stats readback (one lane:
-        the fleet runs on one device).  Returns the round's explored
-        count, the next round's baseline."""
-        explored, fresh = int(stats[0]), int(stats[1])
-        restarts, deepest = int(stats[3]), int(stats[6])
-        delta = [explored - prev_explored]
+                    prev_explored: List[int]) -> List[int]:
+        """One round's level record from its stats readback, with one
+        ``per_device`` lane per group (the stats vector's tail).  Returns
+        the groups' explored counts, the next round's baselines."""
+        D = self.n_devices
+        pd = [int(x) for x in stats[len(stats) - 4 * D:]]
+        delta = [e - q for e, q in zip(pd[:D], prev_explored)]
         rec = {"depth": rounds, "wall": round(time.time() - t_round, 4),
-               "explored": explored, "unique": fresh, "next_frontier": 0,
-               "deepest": deepest, "restarts": restarts,
-               "per_device": {"explored": delta, "unique": [fresh],
-                              "restarts": [restarts],
-                              "deepest": [deepest]},
+               "explored": int(stats[0]), "unique": int(stats[1]),
+               "next_frontier": 0, "deepest": int(stats[6]),
+               "restarts": int(stats[3]),
+               "per_device": {"explored": delta, "unique": pd[D:2 * D],
+                              "restarts": pd[2 * D:3 * D],
+                              "deepest": pd[3 * D:]},
                "skew": {"explored": tel_mod.skew_metrics(delta),
-                        "unique": tel_mod.skew_metrics([fresh])}}
+                        "unique": tel_mod.skew_metrics(pd[D:2 * D])}}
         hbm = tel_mod.device_memory_stats([self.device])
         if hbm is not None:
             rec["hbm_peak"] = hbm
         tel.on_level("swarm", rec)
-        return explored
+        return pd[:D]
 
     # ------------------------------------------------------- checkpoints
 
@@ -876,61 +962,96 @@ class SwarmSearch(TensorSearch):
 
     def _save_swarm_ckpt(self, carry, rounds: int, elapsed: float) -> None:
         """Host copies of the fleet at a round boundary (walker rows,
-        depths, histories, streaks, seed indices, the seed pool, the
-        generator state, the table's occupied lines and the counters),
-        written in the background."""
-        keys = visited_mod.host_occupied(carry["visited"])
+        depths, histories, streaks, seed indices, the seed pools
+        ``[D * P, lanes]`` and their live sizes, the generator state,
+        each group's occupied table lines with their counts ``vdev`` and
+        the counters ``[7, D]``), written in the background."""
+        table = host_copy(carry["visited"])
+        groups = [visited_mod.host_occupied(t) for t in table]
+        keys = np.concatenate(groups)
         extra = {k: host_copy(carry[k]) for k in (
-            "depths", "hists", "streak", "seed_idx", "seeds")}
+            "depths", "hists", "streak", "seed_idx", "seeds_n")}
+        counters = host_copy(torch.stack([carry[k]
+                                          for k in self._COUNTERS]))
         extra.update({
-            "seeds_n": np.asarray([carry["seeds"].shape[0]], np.int64),
+            "seeds": host_copy(carry["seeds"]).reshape(-1, self.lanes),
             "gen_state": self._gen.get_state().numpy(),
-            "vdev": np.asarray([len(keys)], np.int64),
-            "counters": np.asarray([int(carry[k]) for k in
-                                    self._COUNTERS], np.int64)[:, None],
+            "vdev": np.asarray([len(g) for g in groups], np.int64),
+            "counters": counters,
         })
         ck = ckpt_mod.SearchCheckpoint(
             fingerprint=self._ckpt_fingerprint(), depth=rounds,
-            explored=int(carry["explored"]), elapsed=elapsed,
+            explored=int(counters[0].sum()), elapsed=elapsed,
             frontier=host_copy(carry["rows"]), visited_keys=keys,
-            vis_over=int(carry["vis_over"]), extra=extra)
+            vis_over=int(counters[5].sum()), extra=extra)
         self._ckpt_writer.kick(
             lambda: ckpt_mod.save(self.checkpoint_path, ck,
                                   levels_dir=self.levels_dir))
 
     def _redistribute_swarm(self, ck, x):
-        """Rewrite a dump of another walker count into this fleet's
-        shapes: walker rows, depths, histories and streaks tile (or
-        truncate) onto the new count, walker i taking old walker i mod
-        the old count, and each walker's ``seed_idx`` is clamped into the
-        seed pool.  On one device the pool, the table's keys, the
-        counters and the generator state carry over whole (the
-        reference re-splits the pool, merges the per-device key groups
-        and maps per-device keys ``new[d] = old[d % D']``).  The
+        """Rewrite a dump of a (D', K') fleet into this fleet's (D, K)
+        shapes, as the reference does: walker rows, depths, histories and
+        streaks tile (or truncate) onto the D * K walkers, walker i taking
+        old walker i mod D' * K'; the seed pools' live rows re-split
+        contiguously over the groups and each walker's ``seed_idx`` is
+        clamped into its new group's pool; the old groups' table keys
+        merge round-robin onto the new groups (a key in two merged groups
+        resolves in the insert); the counters re-aggregate onto group 0
+        (sums, the maximum for ``deepest``), so the round stats read the
+        same totals.  The generator state carries over whole.  The
         continuation is sound, not bit-exact."""
-        K = self.walkers
+        D, K = self.n_devices, self.walkers
+        vdev_old = np.asarray(x["vdev"], np.int64).reshape(-1)
+        d_old = max(len(vdev_old), 1)
         rows_old = np.asarray(ck.frontier, np.int32)
         n_old = max(len(rows_old), 1)
+        m = D * K
         warnings.warn(
             f"{self.p.name}: swarm resume redistributes {len(rows_old)} "
-            f"walkers onto {K} walker slots "
-            f"({'tiling' if K > len(rows_old) else 'truncating'})",
+            f"walkers from a {d_old}-group dump onto {D}x{K}={m} walker "
+            f"slots ({'tiling' if m > len(rows_old) else 'truncating'})",
             RuntimeWarning, stacklevel=3)
-        idx = np.arange(K) % n_old
+        idx = np.arange(m) % n_old
         x = dict(x)
         for k in ("depths", "hists", "streak"):
             x[k] = np.asarray(x[k])[idx]
-        pool = max(int(np.asarray(x["seeds"]).shape[0]), 1)
+        seeds_old = np.asarray(x["seeds"], np.int32)
+        sn_old = np.asarray(x["seeds_n"], np.int64).reshape(-1)
+        p_old = max(seeds_old.shape[0] // d_old, 1)
+        live = [seeds_old[d * p_old:d * p_old + int(sn_old[d])]
+                for d in range(d_old) if int(sn_old[d]) > 0]
+        live = np.concatenate(live) if live else rows_old[:1]
+        seeds, seeds_n = _split_pool(live, D, live[0])
+        x["seeds"] = seeds.reshape(-1, self.lanes)
+        x["seeds_n"] = seeds_n
+        owner = np.arange(m) // K
         x["seed_idx"] = np.minimum(np.asarray(x["seed_idx"])[idx],
-                                   pool - 1).clip(0)
-        return dataclasses.replace(ck, frontier=rows_old[idx]), x
+                                   seeds_n[owner] - 1).clip(0)
+        offs = np.concatenate([[0], np.cumsum(vdev_old)]).astype(np.int64)
+        merged = [[] for _ in range(D)]
+        for g in range(len(vdev_old)):
+            merged[g % D].append(ck.visited_keys[offs[g]:offs[g + 1]])
+        groups = [np.concatenate(gs) if gs else np.zeros((0, 4), np.uint32)
+                  for gs in merged]
+        x["vdev"] = np.asarray([len(g) for g in groups], np.int64)
+        c_old = np.asarray(x["counters"], np.int64).reshape(
+            len(self._COUNTERS), d_old)
+        totals = c_old.sum(axis=1)
+        totals[-1] = c_old[-1].max(initial=0)
+        c_new = np.zeros((len(self._COUNTERS), D), np.int64)
+        c_new[:, 0] = totals
+        x["counters"] = c_new
+        return dataclasses.replace(
+            ck, frontier=rows_old[idx],
+            visited_keys=np.concatenate(groups).astype(np.uint32)), x
 
     def _load_swarm_ckpt(self):
         """-> (carry, rounds, elapsed), or None without a dump: the whole
-        fleet carry rebuilt from the dump, the table re-inserted from its
-        keys by kernel 2 and the generator restored, so the continuation
-        is identical to the uncut run's.  A dump of another walker
-        count redistributes first (:meth:`_redistribute_swarm`)."""
+        fleet carry rebuilt from the dump, each group's table re-inserted
+        from its keys by kernel 2 and the generator restored, so the
+        continuation is identical to the uncut run's.  A dump of another
+        group or walker count redistributes first
+        (:meth:`_redistribute_swarm`)."""
         ck = self._load_ckpt()
         if ck is None:
             return None
@@ -939,7 +1060,9 @@ class SwarmSearch(TensorSearch):
             raise ckpt_mod.CheckpointCorrupt(
                 f"{self.checkpoint_path}: swarm checkpoint has no "
                 "extra__ walker arrays")
-        if len(ck.frontier) != self.walkers:
+        D = self.n_devices
+        if (len(np.asarray(x["vdev"]).reshape(-1)) != D
+                or len(ck.frontier) != D * self.walkers):
             ck, x = self._redistribute_swarm(ck, x)
         dev = self.device
 
@@ -950,12 +1073,15 @@ class SwarmSearch(TensorSearch):
         self._gen = torch.Generator(device=dev)
         self._gen.set_state(torch.as_tensor(
             np.asarray(x["gen_state"], np.uint8)))
+        seeds_n = np.asarray(x["seeds_n"], np.int64).reshape(-1)
         carry = self._fleet_carry(
             torch.as_tensor(ck.frontier, device=dev),
             t("depths", torch.int64), t("hists", torch.int32),
             t("streak", torch.int64), t("seed_idx", torch.int64),
-            t("seeds", torch.int32), ck.visited_keys,
-            np.asarray(x["counters"], np.int64).reshape(-1))
+            t("seeds", torch.int32).reshape(D, -1, self.lanes), seeds_n,
+            ck.visited_keys, np.asarray(x["vdev"], np.int64).reshape(-1),
+            np.asarray(x["counters"], np.int64).reshape(
+                len(self._COUNTERS), D))
         return carry, ck.depth, ck.elapsed
 
     def _stats_dict(self, stats, rounds: int, elapsed: float) -> dict:
@@ -1011,14 +1137,16 @@ class SwarmSearch(TensorSearch):
         elapsed = time.time() - t0
         sd = self._stats_dict(stats, rounds, elapsed)
         for fi, fname in enumerate(self._flag_names):
-            if not cnts[fi]:
+            groups = np.nonzero(cnts[:, fi])[0]
+            if not len(groups):
                 continue
-            raw = [int(e) for e in hist[fi][:int(depth[fi])]]
+            d = int(groups[0])
+            raw = [int(e) for e in hist[d, fi][:int(depth[d, fi])]]
             # The root the witness replays from (tpu/trace.py contract):
             # the walker's seed state, a frontier row under seeding.
-            seed_row = pool[int(seed_i[fi])]
+            seed_row = pool[d, int(seed_i[d, fi])]
             self._trace_root = self._host_state(seed_row[None])
-            st = self._host_state(rows[fi][None])
+            st = self._host_state(rows[d, fi][None])
             if fname == "exc":
                 end, pname = "EXCEPTION_THROWN", None
                 code = int(st["exc"][0])
@@ -1031,7 +1159,8 @@ class SwarmSearch(TensorSearch):
                                 minimize=self.minimize,
                                 verify=self.replay_verify)
             out = SearchOutcome(
-                end, sd["explored"], sd["unique"], int(depth[fi]), elapsed,
+                end, sd["explored"], sd["unique"], int(depth[d, fi]),
+                elapsed,
                 violating_state=(st if end != "GOAL_FOUND" else None),
                 goal_state=(st if end == "GOAL_FOUND" else None),
                 predicate_name=pname, exception_code=code,

@@ -69,11 +69,12 @@ module constants here; the profiler window is ``torch.profiler``, not
 the audit fields (``in_place`` for the reference's ``donated``, and
 ``syncs``; the sharded engine's nine ``sharded.*`` sites are those of
 ``tpu/sharded.py``, whose shards share one card); a span's ``scale`` is
-always 1.0 (the port's watchdog has no per-site deadline scales);
-per-device lanes have one entry per shard of the sharded engine and one
-elsewhere (one card).  The
-module imports the stdlib only; torch is imported where the profiler
-window and the memory poll need it.
+its site's published deadline scale, as in the reference (the sharded
+superstep's; the swarm's walk step is one step and publishes none, so
+its spans read 1.0); per-device lanes have one entry per shard of the
+sharded engine, one per walker group of the swarm, and one elsewhere
+(one card).  The module imports the stdlib only; torch is imported where
+the profiler window and the memory poll need it.
 """
 
 from __future__ import annotations
@@ -613,6 +614,8 @@ class Telemetry:
         depth = int(getattr(search, "_current_depth", 0) or 0)
         boundary = getattr(search, "_dispatch_boundary", None)
         r0 = boundary.retries if boundary is not None else 0
+        scales = getattr(search, "_dispatch_deadline_scales", None) or {}
+        scale = float(scales.get(site, 1.0))
         dev = getattr(getattr(search, "device", None), "type", "cpu")
         with self._lock:
             idx = self._counts.get(engine, 0)
@@ -641,7 +644,7 @@ class Telemetry:
             span = {"t": "span", "ts": self._ts(), "tag": tag,
                     "engine": engine, "site": site, "i": idx,
                     "depth": depth, "wall": round(wall, 6),
-                    "retries": retries, "scale": 1.0,
+                    "retries": retries, "scale": scale,
                     "outcome": outcome}
             if self.trace_id:
                 span["trace"] = self.trace_id

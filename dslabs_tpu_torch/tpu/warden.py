@@ -14,7 +14,8 @@ runs each rung in a process of its own instead:
   closures that cannot cross a spawn boundary), for example
   ``dslabs_tpu_torch.tpu.protocols.pingpong:make_pingpong_protocol``,
   and runs a single-rung :class:`SearchSupervisor` on the spec's
-  ``device``.
+  ``device``; a ``sharded`` child builds its ``ShardMesh`` from the
+  spec's ``mesh_width``.
 * **Heartbeats from the dispatch seam.**  The child installs a dispatch
   observer at ``TensorSearch._dispatch`` and writes one JSON line per
   dispatch attempt: tag, dispatch index, live BFS depth and the last
@@ -37,6 +38,14 @@ runs each rung in a process of its own instead:
   ``Warden.last_platform`` and on the outcome's ``platform`` and
   ``engine``.  A first child keeps the caller's device.  A ladder that wants its resume on the card lists
   the ``device`` rung twice: ``("device", "device", "host")``.
+* **Elastic width ladder.**  With ``elastic`` set the warden expands
+  the ladder as the in-process supervisor does
+  (``supervisor.expand_ladder``): a dead ``sharded`` child at width D is
+  replaced by one at D/2, down to 2, each resuming the checkpoint
+  re-sharded to its owner map; the outcome carries ``mesh_shrinks`` and
+  ``mesh_width``, and a recorder gets a ``mesh_shrunk`` event per step.
+  The full width is the ``mesh_width`` argument (default: the number of
+  cards, 1 on the CPU), where the reference counts its devices.
 * **Same verdicts.**  ``SearchSupervisor(process_isolation=True)`` rides
   this class; outcomes keep the recovery accounting plus
   ``child_restarts`` and ``killed_dispatches``.
@@ -72,7 +81,8 @@ from dslabs_tpu_torch.tpu import tracing as tracing_mod
 from dslabs_tpu_torch.tpu.supervisor import (CHILD_RC_FAILED, EngineFailure,
                                              RetryPolicy,
                                              SupervisorExhausted,
-                                             classify_child_death)
+                                             classify_child_death,
+                                             expand_ladder)
 
 __all__ = ["Warden", "LineWatch", "classify_death", "outcome_to_dict",
            "outcome_from_dict", "CHILD_RC_FAILED"]
@@ -229,7 +239,9 @@ class Warden:
     deaths, and resume the next rung from the durable checkpoint.
 
     ``device`` (the card unless the caller names another) is where every
-    rung but the last runs; the last runs on the CPU.  ``fault`` injects
+    rung but the last runs; the last runs on the CPU.  A ``sharded`` rung
+    runs ``mesh_width`` shards (default: the number of cards), halved per
+    dead child with ``elastic``.  ``fault`` injects
     a deterministic child-side fault: ``{"kind": "hang"|"die"|"exit"|
     "raise", "at": k}`` fires at dispatch index ``k`` of the first rung
     it matches (optional ``"engine"`` restricts the rung, ``"spawns":
@@ -243,7 +255,7 @@ class Warden:
     def __init__(self, factory: str,
                  factory_kwargs: Optional[dict] = None,
                  transform: Optional[str] = None,
-                 ladder: Tuple[str, ...] = ("device", "host"),
+                 ladder: Tuple[str, ...] = ("sharded", "device", "host"),
                  policy: Optional[RetryPolicy] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 0,
@@ -266,21 +278,22 @@ class Warden:
                  trace_id: Optional[str] = None,
                  parent_span: Optional[str] = None,
                  device=None,
-                 levels_dir: Optional[str] = None):
+                 levels_dir: Optional[str] = None,
+                 elastic: bool = False,
+                 mesh_width: Optional[int] = None):
         from dslabs_tpu_torch.tpu._build import resolve_device
-        from dslabs_tpu_torch.tpu.supervisor import _later
+        from dslabs_tpu_torch.tpu.mesh_exchange import card_count
 
         for rung in ladder:
-            if rung == "sharded":
-                raise _later("the sharded rung",
-                             "4c (the sharded engine's callers)")
-            if rung not in ("device", "host"):
+            if rung not in ("sharded", "device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
         self.factory = factory
         self.factory_kwargs = factory_kwargs or {}
         self.transform = transform
         self.ladder = tuple(ladder)
         self.device = str(resolve_device(device))
+        self.elastic = bool(elastic)
+        self.mesh_width = int(mesh_width or card_count(self.device))
         self.policy = policy or RetryPolicy()
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
@@ -314,23 +327,29 @@ class Warden:
         self.failures: List[EngineFailure] = []
         self.deaths: List[ChildDeath] = []
         self.killed_dispatches = 0
+        self.mesh_shrinks = 0
+        # The expanded ladder: one child per (rung, width).
+        self._specs = expand_ladder(self.ladder, self.mesh_width,
+                                    self.elastic)
         # The platform the winning child ran on ("cuda" or "cpu").
         self.last_platform: Optional[str] = None
 
     # ------------------------------------------------------------- child io
 
-    def _spec(self, rung: str, resume: bool) -> dict:
+    def _spec(self, rung: str, resume: bool,
+              width: Optional[int] = None) -> dict:
         # A child that replaces a dead one on the last rung runs off the
         # card: when the card itself is the broken part, the final rung
         # must not touch it.  A first child keeps the caller's device,
         # whatever the ladder's length.
         force_cpu = (bool(self.deaths)
-                     and len(self.deaths) == len(self.ladder) - 1)
+                     and len(self.deaths) == len(self._specs) - 1)
         return {
             "factory": self.factory,
             "factory_kwargs": self.factory_kwargs,
             "transform": self.transform,
             "rung": rung,
+            "mesh_width": width,
             "resume": resume,
             "strict": self.strict,
             "max_depth": self.max_depth,
@@ -371,11 +390,13 @@ class Warden:
                                                self.parent_span))
         return env
 
-    def _run_child(self, rung: str, resume: bool) -> dict:
-        """Spawn and supervise one rung child.  Returns the child's
-        ``result`` message, or a death dict ``{"t": "death", "kind",
-        "detail", "exitcode", "last_hb"}``."""
-        spec = self._spec(rung, resume)
+    def _run_child(self, rung: str, resume: bool,
+                   width: Optional[int] = None) -> dict:
+        """Spawn and supervise one rung child (``width`` shards on a
+        sharded rung).  Returns the child's ``result`` message, or a
+        death dict ``{"t": "death", "kind", "detail", "exitcode",
+        "last_hb"}``."""
+        spec = self._spec(rung, resume, width)
         proc = subprocess.Popen(
             [sys.executable, "-m", "dslabs_tpu_torch.tpu.warden"],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -484,8 +505,21 @@ class Warden:
         self.failures = []
         self.deaths = []
         self.killed_dispatches = 0
-        for i, rung in enumerate(self.ladder):
-            res = self._run_child(rung, resume=(resume or i > 0))
+        self.mesh_shrinks = 0
+        prev_width = None
+        for i, (rung, width) in enumerate(self._specs):
+            eff = None
+            if rung == "sharded":
+                eff = width or self.mesh_width
+                if prev_width is not None and eff < prev_width:
+                    self.mesh_shrinks += 1
+                    if self.telemetry is not None:
+                        self.telemetry.event("mesh_shrunk",
+                                             from_width=prev_width,
+                                             to_width=eff)
+                prev_width = eff
+            res = self._run_child(rung, resume=(resume or i > 0),
+                                  width=eff)
             if res.get("t") == "result":
                 out = outcome_from_dict(res["outcome"])
                 self.last_platform = res.get("platform")
@@ -494,6 +528,9 @@ class Warden:
                 out.failovers = len(self.failures)
                 out.child_restarts = i
                 out.killed_dispatches = self.killed_dispatches
+                out.mesh_shrinks = self.mesh_shrinks
+                if eff is not None:
+                    out.mesh_width = eff
                 return out
             death = ChildDeath(rung=rung, kind=res["kind"],
                                exitcode=res.get("exitcode"),
@@ -632,9 +669,16 @@ def _child_main() -> int:
                 ckpt_path, engine_hint=f"warden-child:{rung}")
         except Exception:  # noqa: BLE001 - observability is optional
             child_tel = None
+    # A sharded child builds its mesh at the spec's width and resumes the
+    # checkpoint re-sharded to that owner map.
+    mesh = None
+    if rung == "sharded" and spec.get("mesh_width"):
+        from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+
+        mesh = ShardMesh(int(spec["mesh_width"]), spec.get("device"))
     try:
         sup = SearchSupervisor(
-            proto, ladder=(rung,), policy=policy,
+            proto, ladder=(rung,), mesh=mesh, policy=policy,
             checkpoint_path=ckpt_path,
             checkpoint_every=spec.get("checkpoint_every", 0),
             strict=spec.get("strict", True),

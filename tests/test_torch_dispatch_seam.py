@@ -187,6 +187,7 @@ def _torn_step(monkeypatch, at: int, error):
 
 
 def _ckpt_sup(tmp_path, **kw):
+    kw.setdefault("ladder", ("device", "host"))
     return tsup.SearchSupervisor(
         _pruned(t_pp(2)), chunk=16, frontier_cap=1 << 8,
         visited_cap=1 << 10, checkpoint_path=str(tmp_path / "ck.npz"),

@@ -3,8 +3,9 @@ supervisor.py``), against the JAX package's on the CPU.
 
 Each single-device case of ``tests/test_supervisor.py`` runs on the port
 with ``ladder=("device", "host")`` (the reference's cases start on the
-``sharded`` rung, which the port has not yet) and on the JAX supervisor
-with the same ladder, protocol, policy and an equivalent plan: end
+``sharded`` rung; this file pins the single-device indices, and the
+sharded rung's cases are in tests/test_torch_elastic.py) and on the JAX
+supervisor with the same ladder, protocol, policy and an equivalent plan: end
 condition, unique and explored counts, the rung that answered, failovers
 and, where a case pins them, retries and the resumed depth are held
 equal.  A plan's dispatch indices are each package's own (the JAX device
@@ -67,6 +68,7 @@ def _pruned(p):
 
 
 def _tsup(proto, **kw):
+    kw.setdefault("ladder", ("device", "host"))
     for k, v in PP_KW.items():
         kw.setdefault(k, v)
     return tsup.SearchSupervisor(proto, device="cpu", **kw)
@@ -484,8 +486,9 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 
 
 @pytest.mark.parametrize("build,slice_name", [
-    (lambda t: _tsup(t_pp(2), ladder=("sharded", "device")),
-     "4c"),
+    (lambda t: _tsup(t_pp(2), ladder=("sharded", "device"),
+                     mesh=["cpu", "cuda:0"]),
+     "process-group"),
     (lambda t: _tsup(t_pp(2), telemetry=t), None),
     (lambda t: tsup.DispatchBoundary(telemetry=t), None),
     (lambda t: __import__("dslabs_tpu_torch.tpu.warden",
@@ -494,9 +497,10 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 ], ids=["sharded_rung", "supervisor_telemetry", "boundary_telemetry",
         "warden_telemetry"])
 def test_unported_options_raise_naming_their_slice(build, slice_name):
-    """The sharded rung raises, naming its slice; ``telemetry=``, which
-    the telemetry and tracing slice ported, builds and keeps the
-    recorder."""
+    """A sharded rung over a mesh of two distinct devices raises, naming
+    the process-group slice (a mesh of shards on one device runs:
+    tests/test_torch_elastic.py); ``telemetry=``, which the telemetry and
+    tracing slice ported, builds and keeps the recorder."""
     from dslabs_tpu_torch.tpu.telemetry import Telemetry
 
     tel = Telemetry()

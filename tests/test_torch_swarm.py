@@ -312,14 +312,16 @@ def test_walker_overflow_counted_and_warned():
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(frontier_seed="bfs.npz"), None),
     (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
-    (dict(mesh=2), "4c"),
-    (dict(mesh=["cuda:0", "cuda:1"]), "4c"),
+    (dict(mesh=["cpu", "cuda:0"]), "process-group"),
+    (dict(mesh=["cuda:0", "cuda:1"]), "process-group"),
     (dict(telemetry=True), None),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
 def test_unported_options_raise_naming_their_slice(kw, slice_name,
                                                    tmp_path):
-    """Options of later slices raise, naming the slice; the options the
+    """Options of later slices raise, naming the slice: a mesh over two
+    distinct devices needs the process-group exchange (a mesh of groups
+    on one device runs: tests/test_torch_swarm_mesh.py); the options the
     spill + checkpoint slice ported (``frontier_seed``, round
     checkpoints) and ``telemetry`` (the telemetry and tracing slice: one
     round record) build and run."""
@@ -364,15 +366,16 @@ def _bfs_dump(proto, tmp_path, depth=2, name="bfs.npz"):
 
 def _seed_check(pth, proto, seeded):
     """The seeded fleet's pool is the dump's frontier and its table holds
-    exactly the dump's keys before the first step."""
+    exactly the dump's keys before the first step (the fleet is one
+    group: its pool and table are group 0's)."""
     ck = tck.load(pth, tck.config_fingerprint(proto, True))
     sw = _swarm(proto, frontier_seed=pth, max_rounds=0)
     state = sw._initial_or(None)
     carry = sw._init_carry(state)
     assert sw.preseeded_keys == len(ck.visited_keys) > 1
-    np.testing.assert_array_equal(carry["seeds"].numpy(), ck.frontier)
+    np.testing.assert_array_equal(carry["seeds"][0].numpy(), ck.frontier)
     np.testing.assert_array_equal(
-        np.sort(visited_mod.host_occupied(carry["visited"]), axis=0),
+        np.sort(visited_mod.host_occupied(carry["visited"][0]), axis=0),
         np.sort(ck.visited_keys, axis=0))
     assert seeded.end_condition == "TIME_EXHAUSTED"
     assert seeded.swarm["vis_over"] == 0 and seeded.unique_states > 0
