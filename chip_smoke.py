@@ -355,12 +355,36 @@ table) once.  Each phase prints one JSON line:
            then the chaos run on the elastic ladder with a checkpoint per
            level, with exact parity, no dropped state, at least one mesh
            shrink and one knob shrink, and a hang among the fired faults;
-           the fired count, sites and kinds.
+           the fired count, sites and kinds;
+  ranks    the sharded engine over ranks (tpu/ranks.py, the process-group
+           exchange of tpu/mesh_exchange.py): two gloo ranks sharing
+           cuda:0 run the compiled packed flagship at width 2
+           (chunk_per_device 2048, the sharded phase's caps) to depth 8,
+           whose rank-0 outcome must hold the pins (316,096 / 1,495,288)
+           and the per-shard frontier and explored lanes of every level
+           of the LocalExchange run at D = 2, whose captured inputs hold
+           both kernels bit-exact against their plain versions at a
+           rank's shapes (kernel 1 on one shard's [192,512, 842] rows,
+           kernel 2 on one shard's received keys), with CUDA-event
+           times; per rank its chunk steps,
+           launches of both kernels (kernel 2 once per chunk step and
+           once at the root, kernel 1 once per chunk step and twice at
+           the root), peak device memory and seconds, and the bytes and
+           collectives each level exchanged; the hot-path audit of the
+           engine's sites on both ranks (gloo stages card tensors through
+           the host), every sharded site's syncs at its budget; the
+           ranks' depth-6 dump (the state a run cut there leaves)
+           resumed in-process at width 1 to the pins; rank 1 raising a
+           fatal error at the level-5 superstep, after which the elastic
+           supervisor's next rung (the device loop) resumes the ranks'
+           last dump to the pins, with the rungs it stepped; and NCCL
+           ranks across the cards to the pins where the machine has two
+           or more (else a line that says NCCL did not run on one card).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 launches those of the search, swarm, labtests, scenarios, spill,
 supervisor, telemetry, analysis, lanes, memo, sharded, elastic and chaos
-phases' runs), the
+phases' runs, and the ranks' own counts of the ranks phase), the
 card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Any mismatch or error exits non-zero
 before the last line.  Without CUDA, or without the package beside it,
@@ -4302,19 +4326,25 @@ SHARD_MATRIX = {"pingpong": ("SPACE_EXHAUSTED", 8, 23, 5),
                 "lab1": ("SPACE_EXHAUSTED", 80, 582, 11)}
 
 
-def sharded_kernel_checks(torch, mods, proto, D: int = 4):
+def sharded_kernel_checks(torch, mods, proto, D: int = 4, ts=None,
+                          one_shard: bool = False):
     """Both kernels at the width-D chunk step's shapes, bit-exact against
     their plain versions on inputs captured from a flagship run (counted
     apart from the main-path runs): kernel 1 on the step's [D*C*B, 842]
-    successor rows (the run's last step), kernel 2 on a shard's table with
+    successor rows (the run's last step; with ``one_shard`` the first
+    shard's [C*B, 842], a rank's shape), kernel 2 on a shard's table with
     the D*bucket received keys of the run's fullest batch (invalid slots
-    included), with CUDA-event times."""
+    included), with CUDA-event times.  ``ts`` is the run to capture from
+    (default: a new one to depth 7); its outcome is left on
+    ``mods["captured_outcome"]``."""
     from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
 
     kernels, visited, engine = mods["kernels"], mods["visited"], \
         mods["engine"]
-    ts = ShardedTensorSearch(proto, make_mesh(D), max_depth=7,
-                             chunk_per_device=SHARD_ROWS // D, **SHARD_CAPS)
+    if ts is None:
+        ts = ShardedTensorSearch(proto, make_mesh(D), max_depth=7,
+                                 chunk_per_device=SHARD_ROWS // D,
+                                 **SHARD_CAPS)
     n_rows = D * ts.cpd * ts._num_events()
     n_keys = D * ts._bucket
     got = {}
@@ -4336,11 +4366,13 @@ def sharded_kernel_checks(torch, mods, proto, D: int = 4):
 
     kernels.fingerprint_rows, visited.insert = fp_cap, ins_cap
     try:
-        ts.run()
+        mods["captured_outcome"] = ts.run()
     finally:
         kernels.fingerprint_rows, visited.insert = fp0, ins0
     check({"rows", "keys"} <= set(got), f"sharded capture: {sorted(got)}")
     rows = got.pop("rows")
+    if one_shard:
+        rows = rows[:n_rows // D].contiguous()
     k = kernels.fingerprint_rows(rows)
     p = engine.row_fingerprints(rows)
     torch.cuda.synchronize()
@@ -4712,6 +4744,230 @@ def phase_chaos(torch, mods):
     return launches
 
 
+# The ranks phase: the compiled packed flagship over RankMesh ranks
+# (tpu/ranks.py), one shard per rank, at the sharded phase's caps with
+# chunk_per_device 4096 // width: two gloo ranks sharing the card, and
+# NCCL ranks across the cards where there are two or more.  The fatal
+# fault fires in rank 1 at the level-RANK_FATAL_LEVEL superstep (dispatch
+# 2 * level - 1 of the rung's init, (superstep, promote)* sequence).
+RANK_WIDTH = 2
+RANK_CUT_DEPTH = 6
+RANK_FATAL_LEVEL = 5
+RANK_DEADLINE = 300.0
+RANK_PG_TIMEOUT = 120.0
+
+
+def rank_caps(width: int) -> dict:
+    return dict(chunk_per_device=SHARD_ROWS // width, **SHARD_CAPS)
+
+
+def rank_record(o) -> dict:
+    """A RankMesh run's per-rank numbers, and the checks every rank's
+    launches must meet: kernel 2 once per chunk step and once at the
+    root; kernel 1 once per chunk step and twice at the root."""
+    per = []
+    for r in o.ranks:
+        k = r["chunk_steps"]
+        want = {"fingerprint_rows": k + 2, "insert": k + 1}
+        check(r["launches"] == want,
+              f"rank {r['rank']} launches {r['launches']}, want {want}")
+        per.append(dict(rank=r["rank"], device=r["device"],
+                        chunk_steps=k, launches=r["launches"],
+                        peak_mem_bytes=r["peak_bytes"], secs=r["secs"],
+                        collectives=r["exchange_calls"],
+                        bytes_sent=r["exchange_bytes"]))
+    return {"ranks": per,
+            "bytes_sent_per_level": [lv["exchange"]["bytes_sent"]
+                                     for lv in o.levels],
+            "collectives_per_level": [lv["exchange"]["calls"]
+                                      for lv in o.levels]}
+
+
+def ckpt_depth(path: str):
+    from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
+
+    return ckpt_mod.peek_depth(path)
+
+
+def _rank_key(o):
+    return [o.end_condition, o.unique_states, o.states_explored, o.depth]
+
+
+def _rank_lanes(o):
+    return [(lv["per_device"]["frontier"], lv["per_device"]["explored"])
+            for lv in o.levels]
+
+
+def ranks_flagship(torch, mods, mesh, cut=None):
+    """One launch over ``mesh``: the flagship to depth 8 (with ``cut``, a
+    path, its depth-6 dump written there: the state a run cut at depth 6
+    leaves), then the audit of the engine's sites. Checks the pins,
+    every level's per-shard lanes against the LocalExchange run at the
+    mesh's width on cuda:0 (whose inputs hold both kernels against their
+    plain versions at a rank's shapes), and every rank's sharded sites
+    at their sync budgets. Returns (the launch's results, its record)."""
+    from dslabs_tpu_torch.tpu import ranks
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SHARD_DEPTH]
+    w = mesh.width
+    caps = rank_caps(w)
+    dump = (dict(checkpoint_path=cut, checkpoint_every=RANK_CUT_DEPTH)
+            if cut else {})
+    jobs = [ranks.search_job(**WARDEN_FLAGSHIP, max_depth=SHARD_DEPTH,
+                             **dump, **caps),
+            dict(ranks.search_job(**WARDEN_FLAGSHIP, **caps), kind="audit")]
+    t0 = time.time()
+    res = ranks.launch(mesh, jobs, deadline=RANK_DEADLINE,
+                       pg_timeout=RANK_PG_TIMEOUT)
+    launch_secs = time.time() - t0
+    o = ranks.outcome_of(res, 0)
+    check(_rank_key(o) == pinned,
+          f"ranks flagship over {mesh}: {_rank_key(o)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The LocalExchange run at the same width, its inputs captured for
+    # both kernels at a rank's shapes: kernel 1 on one shard's rows.
+    t0 = time.time()
+    kchecks = sharded_kernel_checks(
+        torch, mods, None, D=w, one_shard=True, ts=ShardedTensorSearch(
+            flagship_protocol(), make_mesh(w), max_depth=SHARD_DEPTH,
+            **caps))
+    ref = mods.pop("captured_outcome")
+    local_secs = time.time() - t0
+    check(_rank_key(ref) == pinned and _rank_lanes(o) == _rank_lanes(ref)
+          and o.dropped == ref.dropped == 0,
+          f"ranks vs LocalExchange D={w}: {_rank_key(o)} {_rank_key(ref)}; "
+          f"lanes {_rank_lanes(o)} vs {_rank_lanes(ref)}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The audit: the syncs of one superstep (one chunk step) and of every
+    # other site on each rank (gloo ranks on a card stage every
+    # collective through the host; NCCL ranks do not).
+    audits = [r["results"][1] for r in res]
+    for a in audits:
+        check(a["staged"] == (mesh.backend == "gloo")
+              and a["findings"] == [],
+              f"rank audit: staged {a['staged']}, {a['findings']}")
+        for tag, rep in a["report"].items():
+            if tag.startswith("sharded."):
+                check(rep["syncs"] == rep["budget"],
+                      f"rank audit {tag}: {rep['syncs']} syncs, budget "
+                      f"{rep['budget']}")
+    rec = dict(width=w, backend=mesh.backend,
+               devices=[str(d) for d in mesh.devices], key=_rank_key(o),
+               launch_secs=launch_secs, secs=o.ranks[0]["secs"],
+               local_secs=local_secs, kernels=kchecks,
+               frontier_per_shard=[x for x, _ in _rank_lanes(o)],
+               syncs={tag: dict(syncs=rep["syncs"], budget=rep["budget"])
+                      for tag, rep in audits[0]["report"].items()
+                      if tag.startswith("sharded.")},
+               **rank_record(o))
+    return res, rec
+
+
+def phase_ranks(torch, mods, gloo: bool = True):
+    """The sharded engine over ranks (module docstring); ``gloo=False``
+    runs the NCCL part alone.  Returns the kernels' launches of the
+    ranks' flagship runs, summed over the ranks (their own counts)."""
+    from dslabs_tpu_torch.tpu import ranks
+    from dslabs_tpu_torch.tpu import supervisor as S
+    from dslabs_tpu_torch.tpu.chaos import ChaosError
+    from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh
+    from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch, make_mesh
+    from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+    t_phase = time.time()
+    pinned = ["DEPTH_EXHAUSTED", FLAGSHIP_D8_UNIQUE, FLAGSHIP_D8_EXPLORED,
+              SHARD_DEPTH]
+    total = {"fingerprint_rows": 0, "insert": 0}
+
+    def count(rec):
+        for r in rec["ranks"]:
+            for k in total:
+                total[k] += r["launches"][k]
+
+    out = {"phase": "ranks"}
+    mesh = RankMesh(["cuda:0"] * RANK_WIDTH, "gloo")
+    caps = rank_caps(RANK_WIDTH)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        if gloo:
+            cut = os.path.join(tmp, "cut.npz")
+            res, rec = ranks_flagship(torch, mods, mesh, cut=cut)
+            count(rec)
+            out["gloo"] = rec
+            # ---- the ranks' dump at depth 6 resumed in-process on
+            # LocalExchange at width 1.
+            check(ckpt_depth(cut) == RANK_CUT_DEPTH,
+                  f"ranks dump depth {ckpt_depth(cut)}")
+            rs = ShardedTensorSearch(flagship_protocol(), make_mesh(1),
+                                     max_depth=SHARD_DEPTH,
+                                     checkpoint_path=cut, **rank_caps(1))
+            t0 = time.time()
+            ro = rs.run(resume=True)
+            torch.cuda.synchronize()
+            check(_rank_key(ro) == pinned
+                  and ro.resumed_from_depth == RANK_CUT_DEPTH,
+                  f"ranks dump resumed at D=1: {_rank_key(ro)} from "
+                  f"{ro.resumed_from_depth}")
+            out["resume_d1"] = dict(key=_rank_key(ro), secs=time.time() - t0,
+                                    resumed_from_depth=ro.resumed_from_depth)
+            del rs
+            gc.collect()
+            torch.cuda.empty_cache()
+            # ---- rank 1 raises a fatal error at the level-5 superstep;
+            # the elastic supervisor's next rung resumes the ranks' last
+            # dump.
+            tel = Telemetry()
+            at = 2 * RANK_FATAL_LEVEL - 1
+            sup = S.SearchSupervisor(
+                flagship_protocol(), ladder=("sharded", "device", "host"),
+                mesh=mesh, elastic=True, strict=True, max_depth=SHARD_DEPTH,
+                telemetry=tel, protocol_factory=WARDEN_FLAGSHIP["factory"],
+                factory_kwargs=WARDEN_FLAGSHIP["factory_kwargs"],
+                protocol_transform=WARDEN_FLAGSHIP["transform"],
+                fault_plan=S.FaultPlan().raise_at(at, error=ChaosError,
+                                                  engine="sharded", rank=1),
+                policy=S.RetryPolicy(max_retries=0),
+                checkpoint_path=os.path.join(tmp, "fatal.npz"),
+                checkpoint_every=1, chunk=caps["chunk_per_device"],
+                frontier_cap=SUP_CAPS["frontier_cap"],
+                visited_cap=SHARD_CAPS["visited_cap"])
+            t0 = time.time()
+            so = sup.run()
+            torch.cuda.synchronize()
+            rungs = [(e["engine"], e["width"]) for e in tel.events
+                     if e.get("kind") == "rung"]
+            check(_rank_key(so) == pinned and so.engine == "device"
+                  and so.failovers == 1
+                  and [f.kind for f in sup.failures] == ["fatal"]
+                  and "rank 1 of 2" in str(sup.failures[0])
+                  and 0 < so.resumed_from_depth < RANK_FATAL_LEVEL
+                  and rungs == [("sharded", RANK_WIDTH), ("device", 1)],
+                  f"ranks killed rank: {_rank_key(so)} {so.engine} failures "
+                  f"{[str(f)[:200] for f in sup.failures]} rungs {rungs} "
+                  f"from {so.resumed_from_depth}")
+            out["killed_rank"] = dict(
+                key=_rank_key(so), secs=time.time() - t0, at=at,
+                rungs=rungs, failure=str(sup.failures[0])[:300],
+                engine=so.engine, resumed_from_depth=so.resumed_from_depth)
+    # ---- NCCL ranks across the cards.
+    n = torch.cuda.device_count()
+    if n >= 2:
+        _, rec = ranks_flagship(
+            torch, mods, RankMesh([f"cuda:{i}" for i in range(n)], "nccl"))
+        count(rec)
+        out["nccl"] = rec
+    else:
+        emit({"phase": "ranks", "nccl": "not run: 1 card"})
+        out["nccl"] = "not run: 1 card"
+    out.update(secs=time.time() - t_phase, launches=total)
+    emit(out)
+    return total
+
+
 def phase_search(torch, mods, max_secs: float):
     engine = mods["engine"]
     ts = engine.TensorSearch(flagship_protocol(), visited_cap=1 << 24,
@@ -4816,6 +5072,7 @@ def main() -> int:
     shard_launches = run(phase_sharded)
     elastic_launches = run(phase_elastic)
     chaos_launches = run(phase_chaos)
+    rank_launches = run(phase_ranks)
 
     replaces = {
         "fingerprint_rows": ("dslabs_tpu_torch/csrc/fingerprint.cu",
@@ -4831,7 +5088,8 @@ def main() -> int:
                       + sup_launches[k] + tel_launches[k]
                       + ana_launches[k] + lane_launches[k]
                       + memo_launches[k] + shard_launches[k]
-                      + elastic_launches[k] + chaos_launches[k]),
+                      + elastic_launches[k] + chaos_launches[k]
+                      + rank_launches[k]),
          "launches_by_path": {"search": launches[k],
                               "swarm": swarm_launches[k],
                               "labtests": lab_launches[k],
@@ -4844,7 +5102,8 @@ def main() -> int:
                               "memo": memo_launches[k],
                               "sharded": shard_launches[k],
                               "elastic": elastic_launches[k],
-                              "chaos": chaos_launches[k]},
+                              "chaos": chaos_launches[k],
+                              "ranks": rank_launches[k]},
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"], "bound_ms": kres[k]["bound_ms"],
          "bound_by": kres[k]["bound_by"], "library_ms": None}

@@ -583,10 +583,12 @@ def build_audit_engines(device=None, with_swarm: bool = True,
     canonicalize sites register), the pingpong spill variant, and the
     one-device ``SwarmSearch``, a two-lane pingpong ``LaneSearch`` and a
     two-shard pingpong ``ShardedTensorSearch`` (the reference's set
-    holds the same), on small caps.  Rule J4's real content, a collective
-    in a site declared single-device, waits for the process-group form of
-    the sharded exchange (ROADMAP Queue A): the port's shards and swarm
-    groups share one card, so no site here issues a collective."""
+    holds the same), on small caps.  These engines run in one process,
+    where no site issues a collective; rule J4's real content, a
+    collective in a site declared single-device, shows on the ranks of a
+    ``RankMesh``, where the sharded and swarm sites are declared
+    multi-device and every other site single-device (an audit job of
+    ``tpu/ranks.py`` runs this audit on each rank)."""
     from dslabs_tpu_torch.tpu._build import resolve_device
     from dslabs_tpu_torch.tpu.engine import TensorSearch
     from dslabs_tpu_torch.tpu.protocols.pingpong import \

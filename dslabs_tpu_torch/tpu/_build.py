@@ -23,6 +23,7 @@ their ops out on the CPU, as it cannot see the kernels on the card.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import glob
 import hashlib
@@ -91,12 +92,22 @@ def lib_path() -> str:
 def build(force: bool = False) -> str:
     """Compile ``csrc/*.cu`` (one ``nvcc`` each, in parallel) and link the
     shared library; returns its path.  Raises with the compiler output if
-    any step fails."""
-    global BUILD_SECS, BUILD_LOG
+    any step fails.  Processes that build at once (the ranks of one card)
+    take turns on a file lock in the build directory; a process that
+    waited finds the library built."""
     out = lib_path()
     if os.path.exists(out) and not force:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out) and not force:
+            return out
+        return _build_locked(out)
+
+
+def _build_locked(out: str) -> str:
+    global BUILD_SECS, BUILD_LOG
     t0 = time.time()
     cc = nvcc()
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)

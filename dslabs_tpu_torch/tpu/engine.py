@@ -265,6 +265,10 @@ class SearchOutcome:
     lane: Optional[int] = None
     lane_width: Optional[int] = None
     lane_share: Optional[float] = None
+    # A RankMesh run (tpu/ranks.py): one record per rank, rank order
+    # (its kernel launches, peak device memory, seconds, collectives and
+    # their bytes).  None outside ranks.
+    ranks: Optional[list] = None
 
     @property
     def dropped_states(self) -> int:

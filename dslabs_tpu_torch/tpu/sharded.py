@@ -1,18 +1,27 @@
-"""The owner-sharded BFS engine: D shards of the search on one device.
+"""The owner-sharded BFS engine: D shards of the search, on one device or
+one per rank.
 
 Counterpart of ``dslabs_tpu/tpu/sharded.py``.  The search is split into D
 shards, each with its own frontier shard, next-frontier accumulator and
 visited table; a successor's key decides its **owner** (key lane 0 mod
 D), and only the owner deduplicates it against its table.  The shards'
-collectives go through one interface (``tpu/mesh_exchange.py``): here
-:class:`~dslabs_tpu_torch.tpu.mesh_exchange.LocalExchange`, which holds
-the D shards as the leading dimension of every carry tensor on one
-device.
+collectives go through one interface (``tpu/mesh_exchange.py``), and the
+mesh picks it: a ``ShardMesh``'s
+:class:`~dslabs_tpu_torch.tpu.mesh_exchange.LocalExchange` holds the D
+shards as the leading dimension of every carry tensor on one device; a
+``RankMesh``'s ``ProcessGroupExchange`` runs in each of D ranks
+(``tpu/ranks.py``), where the leading dimension is the rank's one shard.
+The mesh's width D sets every capacity (the frontier quantum, the
+bucket, the ``D * bucket`` received keys, the owner hash), so a rank
+overflows and aborts where the same shard of ``LocalExchange`` does;
+the shards a process holds (``n_local``, from ``shard0``) set the carry's
+leading dimension and every host loop over shards.
 
-* **Carry.**  ``cur`` / ``nxt`` ``[D, F + 1, plane]`` (frontier shards and
-  accumulators, ``F`` rows per shard plus a dump row), ``visited``
-  ``[D, V + 1, 4]`` (one table per shard), the per-shard counters
-  ``[D]``, ``flag_cnt`` ``[D, nf]`` and ``flag_rows`` ``[D, nf, lanes]``;
+* **Carry.**  ``cur`` / ``nxt`` ``[L, F + 1, plane]`` (frontier shards and
+  accumulators of the L = ``n_local`` shards held here, ``F`` rows per
+  shard plus a dump row), ``visited`` ``[L, V + 1, 4]`` (one table per
+  shard), the per-shard counters ``[L]``, ``flag_cnt`` ``[L, nf]`` and
+  ``flag_rows`` ``[L, nf, lanes]``;
   with ``record_trace`` the per-row trace meta ``tmeta`` and
   ``flag_meta``; in spill mode the abort code ``f_full`` and the table
   snapshot ``vis_snap``; with delta lanes the level bases ``pb_cur`` /
@@ -21,20 +30,23 @@ device.
   shard's chunk loop in step.  :data:`CARRY_PARTITION_RULES` says which
   leaves carry the shard dimension.
 * **Chunk step** (:meth:`ShardedTensorSearch._make_local_step`), over all
-  shards at once: chunk ``j`` of every shard is unpacked with its level
-  base and expanded by ``_expand_chunk`` over the flat ``[D * C]`` batch
-  (one launch of kernel 1); terminal flags per shard; each shard routes
-  its unique successors by owner with a stable sort into ``[D, bucket]``
-  buckets (``C * ne`` rows when D = 1, else ``(C * ne // D + 1) * 2``,
-  overflow counted as route drops); the exchange delivers every
-  destination's buckets in source order; kernel 2 runs once per shard on
-  its own table with the ``D * bucket`` received keys; fresh rows are
+  shards held here at once: chunk ``j`` of every shard is unpacked with
+  its level base and expanded by ``_expand_chunk`` over the flat
+  ``[L * C]`` batch (one launch of kernel 1); terminal flags per shard;
+  each shard routes its unique successors by owner with a stable sort
+  into ``[D, bucket]`` buckets (``C * ne`` rows when D = 1, else
+  ``(C * ne // D + 1) * 2``, overflow counted as route drops); the
+  exchange delivers every destination's buckets in source order (one
+  ``all_to_all_many`` of the valid flags, keys and rows: one collective
+  on a rank); kernel 2 runs once per shard on its own table with the
+  ``D * bucket`` received keys; fresh rows are
   appended to the owner's ``nxt``.  Under the fused row exchange (the
   default) the rows ride with their keys; the legacy exchange returns
   each key's fresh flag to its producer, which appends locally.
 * **Drivers.**  ``sharded.superstep`` is one dispatch per level: the host
   issues the level's chunk steps (window passes included) and the
-  dispatch returns the fused stats vector.  The legacy driver
+  dispatch returns the fused stats vector (one all-gather of every
+  shard's lanes, reduced on the device).  The legacy driver
   (``superstep=False``) dispatches one ``sharded.step`` per chunk, reads
   ``sharded.sync`` once per level and rebalances the frontier at the
   promote (``sharded.promote``): the width-parity oracle.
@@ -47,10 +59,24 @@ device.
   (``sharded.steal``); visited tables never move, so counts are unchanged.
 * **Checkpoints** in the unified format (``tpu/checkpoint.py``): the
   frontier of every shard and the occupied lines of every table.  A dump
-  resumes at any width, on the solo engine, and in either package.
+  resumes at any width, on the solo engine, and in either package.  On
+  ranks, rank 0 gathers every shard's part (``gather_np``) and writes the
+  one dump; every rank reads a dump and keeps its own shard's share.
+* **Ranks.**  Every host branch reads replicated values only (the
+  all-gathered stats, the psum'd or pmax'd counts, the flag rank 0
+  decides with ``agree``: the clock, the cancel event, the dump
+  writer's skip), so that every rank issues the same collectives in the
+  same order; the steal plan is computed on every rank from the
+  all-gathered occupancy; terminal flags and trace meta are gathered.
+  Each level record gains ``exchange``: the rank's collectives and the
+  bytes it handed them.
 * **Spill** (``spill=``): the chunk step aborts globally on a full
-  frontier or table, and the host drains, evicts and reinjects through
-  ``tpu/spill.py``, as the solo engine does.
+  frontier or table (on ranks the abort code is pmax'd), and the host
+  drains, evicts and reinjects through ``tpu/spill.py``, as the solo
+  engine does.  On ranks the host tier is replicated: each drain's rows,
+  keys and keep mask and each eviction's lines are gathered from every
+  rank, so every rank's tier, spool and decisions equal the one-process
+  engine's, and each rank injects its own share of a segment.
 
 Dispatch tags: ``sharded.init`` (from the root, or a dump),
 ``sharded.superstep``, ``sharded.step`` and ``sharded.sync`` (legacy
@@ -60,14 +86,17 @@ superstep dispatches the engine publishes ``_dispatch_deadline_scales =
 {"superstep": max(1, min(budget, 2 * chunks))}``, which the supervisor's
 watchdog and the telemetry spans read.
 
-Deliberate differences from the reference: the D shards share one
-device; the exchange is a transpose; kernel 2 runs once per shard; the
-superstep's chunk loop is issued from the host, one chunk index for every
-shard, so a shard that is done with its chunks or its window passes
-steps through empty ones; the reference's ``DSLABS_*`` environment knobs
-are constructor arguments; packed successors are the valid rows, packed
-after one host sync (``torch.nonzero``), where the reference packs every
-row; the root's key goes into its owner's table through kernel 2.
+Deliberate differences from the reference: on a ``ShardMesh`` the D
+shards share one device and the exchange is a transpose; a mesh over
+distinct devices runs one process per device (``tpu/ranks.py``), not one
+program, and there every rank keeps the whole host spill tier; kernel 2
+runs once per shard; the superstep's chunk loop is issued from the host,
+one chunk index for every shard, so a shard that is done with its chunks
+or its window passes steps through empty ones; the reference's
+``DSLABS_*`` environment knobs are constructor arguments; packed
+successors are the valid rows, packed after one host sync
+(``torch.nonzero``), where the reference packs every row; the root's key
+goes into its owner's table through kernel 2.
 """
 
 from __future__ import annotations
@@ -91,7 +120,7 @@ from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          TensorSearch, _lex_order,
                                          flatten_state, host_copy,
                                          read_only, to_host)
-from dslabs_tpu_torch.tpu.mesh_exchange import (LocalExchange, ShardMesh,
+from dslabs_tpu_torch.tpu.mesh_exchange import (RankMesh, ShardMesh,
                                                 card_count)
 
 __all__ = ["ShardedTensorSearch", "make_mesh", "CARRY_PARTITION_RULES",
@@ -209,12 +238,16 @@ class ShardedTensorSearch(TensorSearch):
                  steal_threshold: float = 0.0,
                  sanitize: Optional[str] = None,
                  levels_dir: Optional[str] = None):
-        if not isinstance(mesh, ShardMesh):
-            raise TypeError(f"mesh must be a ShardMesh (make_mesh), got "
-                            f"{type(mesh).__name__}")
+        if not isinstance(mesh, (ShardMesh, RankMesh)):
+            raise TypeError(f"mesh must be a ShardMesh (make_mesh) or a "
+                            f"RankMesh, got {type(mesh).__name__}")
         self.mesh = mesh
         self.n_devices = mesh.width
-        self.exchange = LocalExchange(mesh)
+        self.exchange = mesh.exchange()
+        # The shards this process holds: global ids shard0 .. shard0 +
+        # n_local - 1 (all D on a ShardMesh, its own one on a rank).
+        self.n_local = self.exchange.local_width
+        self.shard0 = self.exchange.rank * self.n_local
         quantum = math.lcm(chunk_per_device, self.n_devices)
         if frontier_cap % quantum:
             frontier_cap += quantum - frontier_cap % quantum
@@ -232,7 +265,7 @@ class ShardedTensorSearch(TensorSearch):
                          checkpoint_path=checkpoint_path,
                          checkpoint_every=checkpoint_every, spill=spill,
                          telemetry=telemetry, packed=False,
-                         symmetry=symmetry, device=mesh.device,
+                         symmetry=symmetry, device=self.exchange.device,
                          sanitize=sanitize, levels_dir=levels_dir)
         self.mesh_pack = bool(mesh_pack)
         pk = (packing_mod.derive_packing(protocol, self.lanes, delta=True)
@@ -329,8 +362,8 @@ class ShardedTensorSearch(TensorSearch):
     # ----------------------------------------------------------- carry
 
     def _empty_carry_sh(self) -> dict:
-        """The carry with every shard empty."""
-        D, F, V = self.n_devices, self.f_cap, self.v_cap
+        """The carry with every shard this process holds empty."""
+        D, F, V = self.n_local, self.f_cap, self.v_cap
         dev = self.device
         nf = len(self._flag_names)
 
@@ -378,7 +411,7 @@ class ShardedTensorSearch(TensorSearch):
         the canonicalize pass) goes into its owner's table through kernel
         2, its row (packed, against its own delta values as the level-0
         base) into its owner's frontier; no host sync."""
-        D, F = self.n_devices, self.f_cap
+        D, L, g0 = self.n_devices, self.n_local, self.shard0
         dev = self.device
         pk, delta = self._pk, self._mesh_delta
 
@@ -386,19 +419,18 @@ class ShardedTensorSearch(TensorSearch):
             carry = self._empty_carry_sh()
             fp0 = kernels.fingerprint_rows(self._canon_rows(row0))
             owner = (fp0[0, 0].to(torch.int64) & 0xFFFFFFFF) % D
-            mine = torch.arange(D, device=dev) == owner
-            for d in range(D):
+            mine = torch.arange(g0, g0 + L, device=dev) == owner
+            for d in range(L):
                 visited_mod.insert(carry["visited"][d], fp0, mine[d:d + 1])
             if delta:
                 pb0 = row0[0].index_select(0, self._delta_idx)
-                carry["pb_cur"].copy_(pb0.expand(D, -1))
+                carry["pb_cur"].copy_(pb0.expand(L, -1))
                 row0s = pk.pack(row0, self._base_vec(pb0))
             elif pk is not None:
                 row0s = pk.pack(row0)
             else:
                 row0s = row0
-            carry["cur"].view(D * (F + 1), -1).index_copy_(
-                0, (owner * (F + 1)).reshape(1), row0s)
+            carry["cur"][:, 0].copy_(torch.where(mine[:, None], row0s, 0))
             carry["cur_n"].copy_(mine)
             carry["vis_n"].copy_(mine)
             return carry
@@ -417,6 +449,7 @@ class ShardedTensorSearch(TensorSearch):
         pack when packed; the abort code in spill mode."""
         p = self.p
         D, C, F = self.n_devices, self.cpd, self.f_cap
+        L = self.n_local
         ne = self._num_events()
         N = C * ne
         bucket = self._bucket
@@ -428,30 +461,31 @@ class ShardedTensorSearch(TensorSearch):
         rec = self.record_trace
         spill_on = self._spill_on
         nf = len(self._flag_names)
-        shard_ids = torch.arange(D, device=dev)
+        # Local shard indices (rows of the carry), and every destination.
+        shard_ids = torch.arange(L, device=dev)
         seg = shard_ids.repeat_interleave(N)
         col = torch.arange(C, device=dev)
         slots = torch.arange(bucket, device=dev)
-        dest = shard_ids.expand(D, D).contiguous()
+        dest = torch.arange(D, device=dev).expand(L, D).contiguous()
 
         def step(carry, j: int, ev_pass: int):
             self.chunk_steps += 1
             start = j * C
             rows_chunk = carry["cur"][:, start:start + C].reshape(
-                D * C, plane)
+                L * C, plane)
             base_cur = (self._base_vec(carry["pb_cur"][0]) if delta
                         else None)
             if pk is not None:
                 rows_chunk = pk.unpack(rows_chunk, base_cur)
             valid = ((start + col)[None, :]
-                     < carry["cur_n"][:, None]).reshape(D * C)
+                     < carry["cur_n"][:, None]).reshape(L * C)
             (rows, valids, fp, unique, overs, ev_rem, event_ids,
              flags) = self._expand_chunk(rows_chunk, valid, ev_pass,
                                          self._rt_masks, dedup=False,
                                          per_row=True)
             if self._in_chunk_dedup:
                 unique = _first_of_each_key_seg(fp, valids, seg)
-            rem = ev_rem.reshape(D, C).sum(1)
+            rem = ev_rem.reshape(L, C).sum(1)
             if rec:
                 # Child key, parent key (the parent row's own fingerprint)
                 # and grid event id of every successor row.
@@ -466,8 +500,8 @@ class ShardedTensorSearch(TensorSearch):
                 hit_list.append(valids & ~flags[f"inv:{n}"])
             for n in p.goals:
                 hit_list.append(flags[f"goal:{n}"])
-            hits = torch.stack(hit_list).reshape(nf, D, N)
-            cnts = hits.sum(2).t()                              # [D, nf]
+            hits = torch.stack(hit_list).reshape(nf, L, N)
+            cnts = hits.sum(2).t()                              # [L, nf]
             first = (torch.argmax(hits.to(torch.int32), dim=2).t()
                      + shard_ids[:, None] * N)
             fresh_flag = (carry["flag_cnt"] == 0) & (cnts > 0)
@@ -478,12 +512,12 @@ class ShardedTensorSearch(TensorSearch):
             # ---- encode the valid successors once: the same packed rows
             # ride the exchange and the nxt store; out-of-domain values
             # count into the overflow.
-            pack_bad = torch.zeros((D,), dtype=torch.int64, device=dev)
+            pack_bad = torch.zeros((L,), dtype=torch.int64, device=dev)
             if pk is not None:
                 idx = torch.nonzero(valids).squeeze(1)
                 packed, bad = pk.pack(rows.index_select(0, idx), base_cur,
                                       count_bad=True)
-                rows_store = torch.zeros((D * N, plane), dtype=torch.int32,
+                rows_store = torch.zeros((L * N, plane), dtype=torch.int32,
                                          device=dev).index_copy_(0, idx,
                                                                  packed)
                 pack_bad.index_add_(0, torch.div(idx, N,
@@ -492,45 +526,45 @@ class ShardedTensorSearch(TensorSearch):
             else:
                 rows_store = rows
             if delta:
-                dv = rows.index_select(1, self._delta_idx).reshape(D, N, -1)
-                dv = torch.where(valids.reshape(D, N, 1), dv, PB_EMPTY)
+                dv = rows.index_select(1, self._delta_idx).reshape(L, N, -1)
+                dv = torch.where(valids.reshape(L, N, 1), dv, PB_EMPTY)
                 pb_nxt = ex.pmin(torch.minimum(carry["pb_nxt"],
                                                dv.amin(1)))
 
             # ---- route each shard's unique successors by owner.
             owner = torch.where(
                 unique, (fp[:, 0].to(torch.int64) & 0xFFFFFFFF) % D,
-                D).reshape(D, N)
+                D).reshape(L, N)
             owner_s, order = torch.sort(owner, dim=1, stable=True)
             starts = torch.searchsorted(owner_s, dest, side="left")
             ends = torch.searchsorted(owner_s, dest, side="right")
-            src = starts[:, :, None] + slots                # [D, D, bkt]
+            src = starts[:, :, None] + slots                # [L, D, bkt]
             send_valid = src < ends[:, :, None]
-            gidx = (order.gather(1, src.clamp(max=N - 1).reshape(D, -1))
-                    .reshape(D, D, bucket) + (shard_ids * N)[:, None, None])
-            send_keys = fp[gidx]                          # [D, D, bkt, 4]
+            gidx = (order.gather(1, src.clamp(max=N - 1).reshape(L, -1))
+                    .reshape(L, D, bucket) + (shard_ids * N)[:, None, None])
+            send = [send_valid, fp[gidx]]                 # [L, D, bkt, 4]
             route_drop = (ends - starts - bucket).clamp(min=0).sum(1)
             if route_rows:
                 parts = [rows_store, pruned[:, None].to(torch.int32)]
                 if rec:
                     parts.append(meta)
-                send_rows = torch.cat(parts, dim=1)[gidx]
+                send.append(torch.cat(parts, dim=1)[gidx])
 
             # ---- the exchange: each owner receives its buckets from
             # every shard, source order.
-            recv_valid = ex.all_to_all(send_valid).reshape(D, rb)
-            recv_keys = torch.where(
-                recv_valid[:, :, None],
-                ex.all_to_all(send_keys).reshape(D, rb, 4), EMPTY)
+            recv = ex.all_to_all_many(send)
+            recv_valid = recv[0].reshape(L, rb)
+            recv_keys = torch.where(recv_valid[:, :, None],
+                                    recv[1].reshape(L, rb, 4), EMPTY)
             if route_rows:
-                recv_rows = ex.all_to_all(send_rows).reshape(D, rb, -1)
+                recv_rows = recv[2].reshape(L, rb, -1)
 
             # ---- owner-side dedup: kernel 2 once per shard, on its own
             # table; unresolved keys are treated as fresh.
             if spill_on:
                 carry["vis_snap"].copy_(carry["visited"])
             ins, unres = [], []
-            for d in range(D):
+            for d in range(L):
                 _, a, b = visited_mod.insert(carry["visited"][d],
                                              recv_keys[d], recv_valid[d])
                 ins.append(a)
@@ -549,17 +583,17 @@ class ShardedTensorSearch(TensorSearch):
                 # Each key's fresh flag back to its producer, mapped onto
                 # the producer's rows (max, so a clipped slot's write
                 # never clears a true flag).
-                back = ex.all_to_all(fresh_s.reshape(D, D, bucket))
-                fresh_rows = torch.zeros((D * N,), dtype=torch.int32,
+                back = ex.all_to_all(fresh_s.reshape(L, D, bucket))
+                fresh_rows = torch.zeros((L * N,), dtype=torch.int32,
                                          device=dev).scatter_reduce_(
                     0, gidx.reshape(-1),
                     (back & send_valid).reshape(-1).to(torch.int32),
                     reduce="amax")
-                app_rows = rows_store.reshape(D, N, plane)
-                app_pruned = pruned.reshape(D, N)
-                app_fresh = fresh_rows.reshape(D, N) > 0
+                app_rows = rows_store.reshape(L, N, plane)
+                app_pruned = pruned.reshape(L, N)
+                app_fresh = fresh_rows.reshape(L, N) > 0
                 if rec:
-                    app_meta = meta.reshape(D, N, 9)
+                    app_meta = meta.reshape(L, N, 9)
 
             # ---- append fresh successors to the owner's (fused) or the
             # producer's (legacy) next frontier; none on the final
@@ -570,8 +604,12 @@ class ShardedTensorSearch(TensorSearch):
             n_sel = sel.sum(1)
             nxt_n = carry["nxt_n"]
             if spill_on:
-                code = int((nxt_n + n_sel > F).any().to(torch.int64)
-                           + 2 * unres_s.any().to(torch.int64))
+                # Any shard's full frontier (bit 0) or table (bit 1)
+                # aborts every shard: one readback of the agreed bits.
+                c = ex.pmax(torch.stack([
+                    (nxt_n + n_sel > F).to(torch.int64),
+                    unres_s.any(1).to(torch.int64)], 1))
+                code = int(c[0] + 2 * c[1])
                 if code:
                     carry["visited"], carry["vis_snap"] = (
                         carry["vis_snap"], carry["visited"])
@@ -585,10 +623,10 @@ class ShardedTensorSearch(TensorSearch):
                 dst = nxt_n[:, None] + spos
                 sdst = (torch.where(sel & (dst < F), dst, F)
                         + shard_ids[:, None] * (F + 1)).reshape(-1)
-                carry["nxt"].view(D * (F + 1), plane).index_copy_(
+                carry["nxt"].view(L * (F + 1), plane).index_copy_(
                     0, sdst, app_rows.reshape(-1, plane))
                 if rec:
-                    carry["tmeta"].view(D * (F + 1), 9).index_copy_(
+                    carry["tmeta"].view(L * (F + 1), 9).index_copy_(
                         0, sdst, app_meta.reshape(-1, 9))
                 f_drop = (nxt_n + n_sel - F).clamp(min=0)
                 carry["nxt_n"] += n_sel - f_drop
@@ -600,8 +638,8 @@ class ShardedTensorSearch(TensorSearch):
                     carry["flag_meta"]))
             carry["flag_cnt"] += cnts
             carry["vis_n"] += ins_s.sum(1)
-            carry["explored"] += valids.reshape(D, N).sum(1)
-            carry["overflow"] += overs.reshape(D, N).sum(1) + pack_bad
+            carry["explored"] += valids.reshape(L, N).sum(1)
+            carry["overflow"] += overs.reshape(L, N).sum(1) + pack_bad
             carry["vis_over"] += unres_s.sum(1)
             carry["drops"] += route_drop + f_drop + (
                 0 if self.ev_spill else rem)
@@ -609,9 +647,9 @@ class ShardedTensorSearch(TensorSearch):
                 carry["fault_cnt"] += torch.stack([
                     self._fault_chunk_counts(
                         event_ids[d * C:(d + 1) * C],
-                        valids[d * N:(d + 1) * N]) for d in range(D)])
+                        valids[d * N:(d + 1) * N]) for d in range(L)])
             if delta:
-                carry["pb_nxt"].copy_(pb_nxt.expand(D, -1))
+                carry["pb_nxt"].copy_(pb_nxt.expand(L, -1))
             return rem, 0
 
         return step
@@ -620,24 +658,34 @@ class ShardedTensorSearch(TensorSearch):
         """The fused stats vector on the device (layout:
         :meth:`_stat_idx`); the host fills the ``j`` and ``steps`` slots
         after the readback."""
-        ex = self.exchange
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        core = torch.stack([
-            ex.psum(carry["overflow"]), ex.psum(carry["drops"]),
-            ex.psum(carry["vis_over"]), ex.psum(carry["explored"]),
-            ex.pmax(carry["vis_n"]), ex.psum(carry["vis_n"]),
-            ex.pmax(carry["nxt_n"]), zero])
-        tail = torch.stack([
-            (carry["cur_n"] > j * self.cpd).sum(), zero,
-            zero if rem is None else (rem > 0).sum()])
-        parts = [core, ex.psum(carry["flag_cnt"]), tail]
+        # Every shard's lanes in one all-gather; the sums and maxima over
+        # shards are taken from the gathered [D, k] block.
+        zero = torch.zeros_like(carry["cur_n"])
+        lanes = [carry["overflow"], carry["drops"], carry["vis_over"],
+                 carry["explored"], carry["vis_n"], carry["nxt_n"],
+                 (carry["cur_n"] > j * self.cpd).to(torch.int64),
+                 zero if rem is None else (rem > 0).to(torch.int64)]
         if self._spill_on:
-            parts.append(ex.pmax(carry["f_full"]).reshape(1))
+            lanes.append(carry["f_full"])
+        cols = [torch.stack(lanes, 1), carry["flag_cnt"]]
         if self._ev_flt:
-            parts.append(ex.psum(carry["fault_cnt"]))
-        per = torch.stack([carry["explored"], carry["vis_n"],
-                           carry["nxt_n"], carry["drops"]], 1)
-        parts.append(ex.all_gather(per).t().reshape(-1))
+            cols.append(carry["fault_cnt"])
+        g = self.exchange.all_gather(torch.cat(cols, 1))
+        nf = len(self._flag_names)
+        zero = g.new_zeros(())
+        core = torch.stack([g[:, 0].sum(), g[:, 1].sum(), g[:, 2].sum(),
+                            g[:, 3].sum(), g[:, 4].amax(), g[:, 4].sum(),
+                            g[:, 5].amax(), zero])
+        k = len(lanes)
+        tail = torch.stack([g[:, 6].sum(), zero, g[:, 7].sum()])
+        parts = [core, g[:, k:k + nf].sum(0), tail]
+        if self._spill_on:
+            parts.append(g[:, 8].amax().reshape(1))
+        if self._ev_flt:
+            parts.append(g[:, k + nf:].sum(0))
+        # The per-shard lanes: explored, vis_n, nxt_n, drops; D each.
+        parts.append(torch.stack([g[:, 3], g[:, 4], g[:, 5], g[:, 1]])
+                     .reshape(-1))
         return torch.cat(parts)
 
     def _build_superstep(self):
@@ -658,7 +706,8 @@ class ShardedTensorSearch(TensorSearch):
                 steps += 1
                 if code:
                     break
-                if passes and bool((rem > 0).any()):
+                if passes and bool(self.exchange.pmax(
+                        (rem > 0).to(torch.int64)) > 0):
                     carry["evp"] += 1
                 else:
                     carry["j"] += 1
@@ -693,6 +742,7 @@ class ShardedTensorSearch(TensorSearch):
         rows of every shard re-encode against the next level's base.
         ``n_rows`` is the host's bound on a shard's promoted rows."""
         D, F = self.n_devices, self.f_cap
+        L = self.n_local
         plane = self.plane
         pk, delta = self._pk, self._mesh_delta
         ex = self.exchange
@@ -706,19 +756,21 @@ class ShardedTensorSearch(TensorSearch):
                 carry["cur_n"].copy_(carry["nxt_n"])
             else:
                 ids = torch.arange(D, device=dev)
+                lids = torch.arange(L, device=dev)
                 r = torch.arange(share, device=dev)
                 nxt_n = carry["nxt_n"]
                 per = torch.div(nxt_n + D - 1, D, rounding_mode="floor")
                 src = per[:, None, None] * ids[None, :, None] + r
                 sv = (r < per[:, None, None]) & (src < nxt_n[:, None, None])
-                flat = src.clamp(max=F) + (ids * (F + 1))[:, None, None]
-                send = carry["nxt"].view(D * (F + 1), plane)[flat]
-                recv = ex.all_to_all(send).reshape(D, D * share, plane)
-                rv = ex.all_to_all(sv).reshape(D, D * share)
+                flat = src.clamp(max=F) + (lids * (F + 1))[:, None, None]
+                send = carry["nxt"].view(L * (F + 1), plane)[flat]
+                recv, rv = ex.all_to_all_many([send, sv])
+                recv = recv.reshape(L, D * share, plane)
+                rv = rv.reshape(L, D * share)
                 pos = torch.cumsum(rv.to(torch.int64), 1) - 1
                 dst = (torch.where(rv, pos, F)
-                       + ids[:, None] * (F + 1)).reshape(-1)
-                carry["cur"].view(D * (F + 1), plane).index_copy_(
+                       + lids[:, None] * (F + 1)).reshape(-1)
+                carry["cur"].view(L * (F + 1), plane).index_copy_(
                     0, dst, recv.reshape(-1, plane))
                 carry["cur_n"].copy_(rv.sum(1))
             if delta:
@@ -727,17 +779,17 @@ class ShardedTensorSearch(TensorSearch):
                 pb_new = torch.where(pb_nxt == PB_EMPTY, pb_old, pb_nxt)
                 n = min(int(n_rows), F)
                 if n:
-                    blk = carry["cur"][:, :n].reshape(D * n, plane)
+                    blk = carry["cur"][:, :n].reshape(L * n, plane)
                     raw = pk.unpack(blk, self._base_vec(pb_old))
                     rep, bad = pk.pack(raw, self._base_vec(pb_new),
                                        count_bad=True)
                     occ = (torch.arange(n, device=dev)[None, :]
                            < carry["cur_n"][:, None])
                     carry["cur"][:, :n] = torch.where(
-                        occ[:, :, None], rep.reshape(D, n, plane), 0)
+                        occ[:, :, None], rep.reshape(L, n, plane), 0)
                     carry["overflow"] += torch.where(
-                        occ, bad.reshape(D, n).to(torch.int64), 0).sum(1)
-                carry["pb_cur"].copy_(pb_new.expand(D, -1))
+                        occ, bad.reshape(L, n).to(torch.int64), 0).sum(1)
+                carry["pb_cur"].copy_(pb_new.expand(L, -1))
                 carry["pb_nxt"].fill_(PB_EMPTY)
             carry["nxt_n"].zero_()
             carry["j"] = 0
@@ -757,24 +809,28 @@ class ShardedTensorSearch(TensorSearch):
         ``frontier_cap`` drops the excess, counted (the plan never builds
         one)."""
         D, F, K = self.n_devices, self.f_cap, self.cpd
+        L, g0 = self.n_local, self.shard0
         plane = self.plane
         ex = self.exchange
         dev = self.device
 
         def steal(carry, plan):
-            give = torch.as_tensor(plan, device=dev).to(torch.int64)
-            ids = torch.arange(D, device=dev)
+            # This process's donor rows of the [D, D] plan.
+            give = torch.as_tensor(np.asarray(plan)[g0:g0 + L],
+                                   device=dev).to(torch.int64)
+            ids = torch.arange(L, device=dev)
             offs = torch.arange(K, device=dev)
             cur_n = carry["cur_n"]
             cum = torch.cumsum(give, 1)
             starts = (cur_n[:, None] - cum).clamp(min=0)
             flat = ((starts[:, :, None] + offs).clamp(0, F - 1)
                     + (ids * (F + 1))[:, None, None])
-            cur = carry["cur"].view(D * (F + 1), plane)
-            send = cur[flat]                              # [D, D, K, plane]
+            cur = carry["cur"].view(L * (F + 1), plane)
+            send = cur[flat]                              # [L, D, K, plane]
             sv = offs[None, None, :] < give[:, :, None]
-            recv = ex.all_to_all(send).reshape(D, D * K, plane)
-            rv = ex.all_to_all(sv).reshape(D, D * K)
+            recv, rv = ex.all_to_all_many([send, sv])
+            recv = recv.reshape(L, D * K, plane)
+            rv = rv.reshape(L, D * K)
             keep_n = cur_n - cum[:, -1]
             pos = torch.cumsum(rv.to(torch.int64), 1) - 1
             dst = torch.where(rv, keep_n[:, None] + pos, F)
@@ -898,8 +954,14 @@ class ShardedTensorSearch(TensorSearch):
         reduces.  The superstep's budget is this engine's: the stats
         readback, and per chunk step the count before the pack (packed),
         the window check (finite window with ``ev_spill``) and the abort
-        code (spill); the audited call runs one chunk step."""
+        code (spill); the audited call runs one chunk step.  On a rank
+        whose gloo exchange stages card tensors through the host, each
+        collective of a site adds its staging's syncs (the copy out and
+        the copy back)."""
         C, D, dev = self.cpd, self.n_devices, self.device
+        stage = 2 * int(self.exchange.staged)
+        window = int(self._windowed and self.ev_spill)
+        delta = int(self._mesh_delta)
         row0 = flatten_state(self.initial_state())
         init = self._build_init()
         carry = init(row0)
@@ -920,15 +982,21 @@ class ShardedTensorSearch(TensorSearch):
                 builder=lambda: visited_mod.insert),
         }
         if self.use_superstep:
+            # Collectives: the level base's pmin (delta lanes), the
+            # exchange, the abort code's pmax (spill), the window check's
+            # pmax, the stats all-gather.
             sites["sharded.superstep"] = dict(
                 fn=self._build_superstep(), args=(carry, 1 << 30, 1),
-                syncs=1 + step_syncs + int(self._windowed
-                                           and self.ev_spill),
+                syncs=1 + step_syncs + window
+                + stage * (delta + 2 + window + int(self._spill_on)),
                 builder=self._build_superstep)
         else:
+            # Collectives: the pmin, the exchange of keys, the fresh
+            # flags' way back, the stats all-gather.
             sites["sharded.step"] = dict(
                 fn=self._build_chunk_step(), args=(carry, 0, 0),
-                syncs=step_syncs, builder=self._build_chunk_step)
+                syncs=step_syncs + stage * (delta + 3),
+                builder=self._build_chunk_step)
             sites["sharded.sync"] = dict(
                 fn=to_host, args=(self._stats_vec(carry, None, 0),))
         if self._steal_on:
@@ -938,7 +1006,9 @@ class ShardedTensorSearch(TensorSearch):
                                           args=(carry, plan),
                                           builder=self._build_steal)
         if self._spill_on:
-            counts = [1] + [0] * (D - 1)
+            # One row to drain from every shard (so that each rank's
+            # fetch copies rows).
+            counts = [1] * D
             seg = host_copy(carry["cur"][0, :1])
             if self._mesh_delta:
                 seg = self._pk.unpack_np(seg, self._np_base(
@@ -949,12 +1019,18 @@ class ShardedTensorSearch(TensorSearch):
                 dict(name="reset", fn=_sh_reset_nxt, args=(carry,),
                      syncs=0)]
             sites["sharded.spill_evict"] = [
-                dict(name="fetch", fn=_sh_fetch_occupied, args=(carry,)),
+                dict(name="fetch", fn=self._sh_fetch_occupied,
+                     args=(carry,)),
                 dict(name="reset", fn=_sh_reset_tables, args=(carry,),
                      syncs=0)]
             sites["sharded.spill_reinject"] = dict(
                 fn=self._sh_inject_rows, args=(carry, seg),
                 syncs=1 + int(self._mesh_delta))
+            hg = self.exchange.host_gather_syncs
+            if hg:
+                # An NCCL rank's host gathers pass through its card.
+                sites["sharded.spill_drain"][0]["syncs"] = 3 + 3 * hg
+                sites["sharded.spill_evict"][0]["syncs"] = 1 + hg
         if self._pk is not None:
             pk = self._pk
             rows = row0.expand(C, -1).contiguous()
@@ -978,6 +1054,13 @@ class ShardedTensorSearch(TensorSearch):
             sites["symmetry.canonicalize"] = dict(
                 fn=self._canon, args=(rows,),
                 builder=lambda: build_canonicalizer(self.p, self._off))
+        if stage:
+            # A staging rank's sites over the registry's budgets: the
+            # legacy promote's exchange, the steal's exchange.
+            sites["sharded.promote"]["syncs"] = stage * int(
+                D > 1 and not self.row_exchange)
+            if "sharded.steal" in sites:
+                sites["sharded.steal"]["syncs"] = 1 + stage
         return sites
 
     # ------------------------------------------------------ verdicts
@@ -990,11 +1073,13 @@ class ShardedTensorSearch(TensorSearch):
         recording, meta); with ``record_trace`` its trace is walked back
         through the fingerprint map."""
         nf = len(self._flag_names)
-        cnts = to_host(carry["flag_cnt"]).reshape(self.n_devices, nf)
+        ex = self.exchange
+        cnts = to_host(ex.all_gather(carry["flag_cnt"])).reshape(
+            self.n_devices, nf)
         if not cnts.any():
             return None
-        rows = to_host(carry["flag_rows"])
-        metas = (to_host(carry["flag_meta"]).view(np.uint32)
+        rows = to_host(ex.all_gather(carry["flag_rows"]))
+        metas = (to_host(ex.all_gather(carry["flag_meta"])).view(np.uint32)
                  if self.record_trace else None)
         for fi, fname in enumerate(self._flag_names):
             devs = np.nonzero(cnts[:, fi])[0]
@@ -1102,7 +1187,7 @@ class ShardedTensorSearch(TensorSearch):
                        t0: float) -> SearchOutcome:
         """A TIME / DEPTH outcome from the carry's counters (one
         readback)."""
-        c = to_host(torch.stack([carry[k].sum() for k in (
+        c = to_host(torch.stack([self.exchange.psum(carry[k]) for k in (
             "explored", "vis_n", "drops", "vis_over")]))
         unique = int(c[1])
         if self._spill_on:
@@ -1120,8 +1205,9 @@ class ShardedTensorSearch(TensorSearch):
         sample a few of their traces (``samples``)."""
         counts = self._last_per_device["frontier"]
         meta = to_host(carry["tmeta"]).view(np.uint32)
-        rows = np.concatenate([meta[d, :counts[d]]
-                               for d in range(self.n_devices)])
+        g0 = self.shard0
+        rows = np.concatenate(self.exchange.gather_np(
+            [meta[d, :counts[g0 + d]] for d in range(self.n_local)]))
         if not len(rows):
             return
         children = list(map(tuple, rows[:, :4].tolist()))
@@ -1166,17 +1252,19 @@ class ShardedTensorSearch(TensorSearch):
         frontier prefix, in its native encoding, and every table's
         occupied lines, shard order) and write the unified dump in the
         background; skipped while the previous dump is still being
-        written."""
-        if self._ckpt_writer.busy():
+        written.  On ranks, rank 0 gathers every shard's part and writes
+        the one dump (and decides the skip)."""
+        ex = self.exchange
+        if ex.agree(self._ckpt_writer.busy()):
             return
-        D = self.n_devices
+        L = self.n_local
         cur_n = to_host(carry["cur_n"])
-        frontier = np.concatenate(
-            [host_copy(carry["cur"][d, :int(cur_n[d])]) for d in range(D)])
+        frontier = np.concatenate(ex.gather_np(
+            [host_copy(carry["cur"][d, :int(cur_n[d])]) for d in range(L)]))
         table = to_host(carry["visited"])
-        keys = np.concatenate([visited_mod.host_occupied(table[d])
-                               for d in range(D)])
-        c = to_host(torch.stack([carry[k].sum() for k in (
+        keys = np.concatenate(ex.gather_np(
+            [visited_mod.host_occupied(table[d]) for d in range(L)]))
+        c = to_host(torch.stack([ex.psum(carry[k]) for k in (
             "explored", "vis_over", "drops")]))
         extra = None
         if self._pk is not None:
@@ -1195,6 +1283,8 @@ class ShardedTensorSearch(TensorSearch):
             explored=int(c[0]), elapsed=elapsed, frontier=frontier,
             visited_keys=keys, vis_over=int(c[1]), dropped=int(c[2]),
             fp_map=fp_map, extra=extra)
+        if ex.rank != 0:
+            return
         self._ckpt_writer.kick(
             lambda: ckpt_mod.save(self.checkpoint_path, ck,
                                   levels_dir=self.levels_dir))
@@ -1232,8 +1322,10 @@ class ShardedTensorSearch(TensorSearch):
         """The carry of a dump at this width: the frontier rows (raw,
         re-encoded here, with a fresh delta base: the minimum over the
         rows) split into contiguous per-shard shares, each key inserted
-        into its owner's table by kernel 2, the counters on shard 0."""
+        into its owner's table by kernel 2, the counters on shard 0.  A
+        rank keeps its own shard's share."""
         D, F, lanes = self.n_devices, self.f_cap, self.lanes
+        L, g0 = self.n_local, self.shard0
         n = len(ck.frontier)
         if -(-n // D) > F:
             raise CapacityOverflow(
@@ -1259,19 +1351,19 @@ class ShardedTensorSearch(TensorSearch):
         carry = self._empty_carry_sh()
         dev = self.device
         per = max(1, -(-n // D))
-        buf = np.zeros((D, per, self.plane), np.int32)
-        for d in range(D):
-            part = frontier[d * per:(d + 1) * per]
+        buf = np.zeros((L, per, self.plane), np.int32)
+        for d in range(L):
+            part = frontier[(g0 + d) * per:(g0 + d + 1) * per]
             buf[d, :len(part)] = part
         carry["cur"][:, :per] = torch.from_numpy(buf).to(dev)
         carry["cur_n"].copy_(torch.clamp(
-            n - torch.arange(D, device=dev) * per, 0, per))
+            n - torch.arange(g0, g0 + L, device=dev) * per, 0, per))
         keys = np.ascontiguousarray(ck.visited_keys, dtype=np.uint32)
         owner = (keys[:, 0].astype(np.uint64) % np.uint64(D)).astype(
             np.int64)
         counts = []
-        for d in range(D):
-            g = keys[owner == d]
+        for d in range(L):
+            g = keys[owner == g0 + d]
             if not len(g):
                 counts.append(torch.zeros((2,), dtype=torch.int64,
                                           device=dev))
@@ -1282,19 +1374,20 @@ class ShardedTensorSearch(TensorSearch):
                 torch.ones((len(g),), dtype=torch.bool, device=dev))
             counts.append(torch.stack([ins.sum(), unres.sum()]))
         c = torch.stack(counts)
-        n_unres = int(c[:, 1].sum())
+        n_unres = int(self.exchange.psum(c[:, 1]))
         if n_unres:
             raise CapacityOverflow(
                 f"{self.p.name}: visited_cap={self.v_cap}/shard too small "
                 f"to rebuild the checkpoint's visited set ({n_unres} keys "
                 "unresolved); raise visited_cap")
         carry["vis_n"].copy_(c[:, 0])
-        carry["explored"][0] = ck.explored
-        carry["vis_over"][0] = ck.vis_over
-        carry["drops"][0] = ck.dropped
+        if g0 == 0:
+            carry["explored"][0] = ck.explored
+            carry["vis_over"][0] = ck.vis_over
+            carry["drops"][0] = ck.dropped
         if self._mesh_delta:
             carry["pb_cur"].copy_(torch.from_numpy(pb0).to(dev).expand(
-                D, -1))
+                L, -1))
         return carry
 
     # ------------------------------------------- host-RAM spill tier
@@ -1307,12 +1400,15 @@ class ShardedTensorSearch(TensorSearch):
     @read_only
     def _sh_spill_fetch(self, carry, counts):
         """Every shard's first ``counts[d]`` nxt rows (one batch), their
-        keys (kernel 1) and keep mask, on the host (three copies).  The
-        rows come back in the spool's encoding: packed where the
-        descriptor has no delta lanes, raw otherwise."""
-        D = self.n_devices
-        rows_d = torch.cat([carry["nxt"][d, :int(counts[d])]
-                            for d in range(D)])
+        keys (kernel 1) and keep mask, on the host (three copies), in
+        shard order; on ranks each rank's part is gathered, so that every
+        rank's host tier sees the whole batch.  The rows come back in the
+        spool's encoding: packed where the descriptor has no delta lanes,
+        raw otherwise."""
+        g0 = self.shard0
+        mine = [int(counts[g0 + d]) for d in range(self.n_local)]
+        rows_d = torch.cat([carry["nxt"][d, :mine[d]]
+                            for d in range(self.n_local)])
         pk = self._pk
         if pk is None:
             raw = rows_d
@@ -1322,9 +1418,23 @@ class ShardedTensorSearch(TensorSearch):
             raw = pk.unpack(rows_d)
         spool = rows_d if (pk is not None and not self._mesh_delta) \
             else raw
-        return (host_copy(spool),
-                self._spill_keys_of(raw, D * self.f_cap).cpu().numpy(),
-                self._spill_keep_mask(raw).cpu().numpy())
+        out = (host_copy(spool),
+               self._spill_keys_of(raw, self.n_devices * self.f_cap)
+               .cpu().numpy(),
+               self._spill_keep_mask(raw).cpu().numpy())
+        cuts = np.cumsum(mine)[:-1]
+        return tuple(np.concatenate(self.exchange.gather_np(
+            np.split(a, cuts))) for a in out)
+
+    @read_only
+    def _sh_fetch_occupied(self, carry) -> np.ndarray:
+        """The eviction's fetch: every shard's occupied table lines (one
+        readback of the tables), shard order; gathered from every rank on
+        ranks."""
+        table = to_host(carry["visited"])
+        return np.concatenate(self.exchange.gather_np(
+            [visited_mod.host_occupied(table[d])
+             for d in range(self.n_local)]))
 
     def _sh_spill_drain(self, carry) -> None:
         """Drain every shard's nxt through the host tier's refilter into
@@ -1350,7 +1460,7 @@ class ShardedTensorSearch(TensorSearch):
         """Every shard's occupied table lines to the host tier; every
         table restarts empty."""
         sp = self._spill
-        occ = self._dispatch("sharded.spill_evict", _sh_fetch_occupied,
+        occ = self._dispatch("sharded.spill_evict", self._sh_fetch_occupied,
                              carry)
         sp.submit_drain(lambda: sp.evict(occ))
         self._last_vis_max = 0
@@ -1358,10 +1468,11 @@ class ShardedTensorSearch(TensorSearch):
 
     def _sh_inject_rows(self, carry, rows: np.ndarray) -> int:
         """A host segment (the spool's encoding) becomes the live cur, in
-        contiguous per-shard shares; returns the largest share.  A delta
-        segment re-encodes against the current level base (a value
-        outside its window raises)."""
+        contiguous per-shard shares (a rank takes its own shard's);
+        returns the largest share.  A delta segment re-encodes against
+        the current level base (a value outside its window raises)."""
         D, F, lanes = self.n_devices, self.f_cap, self.lanes
+        L, g0 = self.n_local, self.shard0
         dev = self.device
         n = len(rows)
         per = max(1, -(-n // D))
@@ -1384,13 +1495,13 @@ class ShardedTensorSearch(TensorSearch):
                     "base; raise the Field(delta=) bits (spill defers "
                     "re-basing, so deep spilled runs need wider windows)")
             rows = self._pk.pack_np(rows, self._np_base(pb))
-        buf = np.zeros((D, per, self.plane), np.int32)
-        for d in range(D):
-            part = rows[d * per:(d + 1) * per]
+        buf = np.zeros((L, per, self.plane), np.int32)
+        for d in range(L):
+            part = rows[(g0 + d) * per:(g0 + d + 1) * per]
             buf[d, :len(part)] = part
         carry["cur"][:, :per] = torch.from_numpy(buf).to(dev)
         carry["cur_n"].copy_(torch.clamp(
-            n - torch.arange(D, device=dev) * per, 0, per))
+            n - torch.arange(g0, g0 + L, device=dev) * per, 0, per))
         carry["j"] = 0
         carry["evp"] = 0
         carry["f_full"].zero_()
@@ -1406,9 +1517,9 @@ class ShardedTensorSearch(TensorSearch):
         table with the host tier, frontier = the spooled next level (the
         encoding marker when the spool is packed)."""
         sp = self._spill
-        table = to_host(carry["visited"])
-        occ = np.concatenate([visited_mod.host_occupied(table[d])
-                              for d in range(self.n_devices)])
+        occ = self._sh_fetch_occupied(carry)
+        if self.exchange.rank != 0:
+            return
         spool_packed = self._pk is not None and not self._mesh_delta
         extra = dict(sp.checkpoint_extra() or {})
         if spool_packed:
@@ -1480,23 +1591,27 @@ class ShardedTensorSearch(TensorSearch):
                     "verdict covers a narrowed space: raise frontier_cap "
                     "or enable the spill tier for zero-drop coverage",
                     RuntimeWarning, stacklevel=2)
-            return out
         finally:
             self._join_ckpt_writer()
+        # No rank leaves before rank 0's last dump is on disk (a next job
+        # or rung of the same ranks may read it).
+        self.exchange.agree(True)
+        return out
 
     def _run_levels(self, t0: float, state, resume: bool) -> SearchOutcome:
         resumed = self._load_checkpoint() if resume else None
         if resumed is not None:
             carry, depth, prev_elapsed = resumed
             t0 = time.time() - prev_elapsed
+            ex = self.exchange
             c = to_host(torch.stack([
-                carry["cur_n"].max(), carry["explored"].sum(),
-                carry["vis_n"].sum(), carry["drops"].sum()]))
+                ex.pmax(carry["cur_n"]), ex.psum(carry["explored"]),
+                ex.psum(carry["vis_n"]), ex.psum(carry["drops"])]))
             max_n, explored, vis_total, drops = (int(x) for x in c)
             if self._spill_on:
                 vis_total = self._spill.unique(vis_total)
             self._last_per_device = {"frontier": to_host(
-                carry["cur_n"]).tolist()}
+                ex.all_gather(carry["cur_n"])).tolist()}
             self._pd_prev_explored = [explored] + [0] * (self.n_devices - 1)
         else:
             if self._spill_on:
@@ -1514,9 +1629,7 @@ class ShardedTensorSearch(TensorSearch):
             if self.max_depth is not None and depth >= self.max_depth:
                 return self._limit_outcome("DEPTH_EXHAUSTED", carry, depth,
                                            t0)
-            if (self.max_secs is not None
-                    and time.time() - t0 > self.max_secs) \
-                    or self._cancelled():
+            if self._time_up(t0):
                 out = self._limit_outcome("TIME_EXHAUSTED", carry, depth,
                                           t0)
                 out.cancelled = self._cancelled()
@@ -1555,7 +1668,7 @@ class ShardedTensorSearch(TensorSearch):
             if noapp_level and self._spill_on:
                 self._sh_spill_drain(carry)
                 vis_total = self._spill.unique(int(to_host(
-                    carry["vis_n"].sum())))
+                    self.exchange.psum(carry["vis_n"]))))
                 self._spill.barrier()
                 remained = sum(len(r) for r in
                                self._spill.spool_next.segments)
@@ -1578,7 +1691,8 @@ class ShardedTensorSearch(TensorSearch):
                 self._sh_spill_drain(carry)
                 if sp.should_evict(self._last_vis_max, self.v_cap):
                     self._sh_spill_evict(carry)
-                vis_total = sp.unique(int(to_host(carry["vis_n"].sum())))
+                vis_total = sp.unique(int(to_host(
+                    self.exchange.psum(carry["vis_n"]))))
                 sp.advance_level()
                 if not sp.spool_cur.segments:
                     return SearchOutcome(
@@ -1627,6 +1741,14 @@ class ShardedTensorSearch(TensorSearch):
                                pdev["frontier"])}
         if self.p.fault is not None:
             rec["faults"] = self._fault_block()
+        ex = self.exchange
+        if self.n_local != self.n_devices:
+            # A rank's collectives over the level and the bytes it handed
+            # them (its own share included).
+            prev = getattr(self, "_ex_prev", (0, 0))
+            self._ex_prev = (ex.calls, ex.bytes_sent)
+            rec["exchange"] = {"calls": ex.calls - prev[0],
+                               "bytes_sent": ex.bytes_sent - prev[1]}
         tel = self._telemetry
         if tel is not None:
             hbm = tel_mod.device_memory_stats([self.device])
@@ -1635,6 +1757,19 @@ class ShardedTensorSearch(TensorSearch):
         self._level_records.append(rec)
         if tel is not None:
             tel.on_level("sharded", rec)
+
+    def _time_up(self, t0: float, cancel: bool = True) -> bool:
+        """The clock's (and, with ``cancel``, the portfolio's) cut: past
+        ``max_secs``, or cancelled.  On ranks, rank 0's clock decides for
+        every rank; a run with neither a budget nor a cancel event issues
+        no collective."""
+        if self.max_secs is None and (not cancel
+                                      or self._cancel_event is None):
+            return False
+        up = ((self.max_secs is not None
+               and time.time() - t0 > self.max_secs)
+              or (cancel and self._cancelled()))
+        return self.exchange.agree(up)
 
     def _n_chunks(self, max_n: int) -> int:
         return -(-(max_n + self._rebalance_slack()) // self.cpd)
@@ -1686,9 +1821,7 @@ class ShardedTensorSearch(TensorSearch):
                 continue
             if int(s[idx["remaining"]]) == 0:
                 return None, explored, vis_total, drops, nxt_max, chunks
-            if (self.max_secs is not None
-                    and time.time() - t0 > self.max_secs) \
-                    or self._cancelled():
+            if self._time_up(t0):
                 out = self._limit_outcome("TIME_EXHAUSTED", carry, depth,
                                           t0)
                 out.cancelled = self._cancelled()
@@ -1719,7 +1852,7 @@ class ShardedTensorSearch(TensorSearch):
             j += 1
             ev_pass = 0
             if (self.max_secs is not None and j < n_chunks
-                    and time.time() - t0 > self.max_secs):
+                    and self._time_up(t0, cancel=False)):
                 if s is None:
                     s = self._dispatch("sharded.sync", to_host, sdev)
                 res = self._sync_checks(carry, s, depth, t0)
@@ -1734,15 +1867,6 @@ class ShardedTensorSearch(TensorSearch):
 
 
 # ------------------------------------------------- spill round trips
-
-@read_only
-def _sh_fetch_occupied(carry) -> np.ndarray:
-    """The eviction's fetch: every shard's occupied table lines (one
-    readback of the tables), shard order."""
-    table = to_host(carry["visited"])
-    return np.concatenate([visited_mod.host_occupied(table[d])
-                           for d in range(table.shape[0])])
-
 
 def _sh_reset_nxt(carry) -> None:
     """The drain's reset: every nxt restarts empty, the abort code

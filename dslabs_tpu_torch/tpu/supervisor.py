@@ -88,10 +88,14 @@ ladder's events (``rung``, ``failover``, ``capacity_retry``,
 ``knobs_shrunk``, ``lane``, ``lane_winner``); the verdict carries the
 recorder's ``trace_id``.
 
-The sharded rung's full width is its ``ShardMesh``'s, or the number of
-cards (1 on one H100, 1 on the CPU) when no mesh is given; its D shards
-share one card (``tpu/mesh_exchange.py``), and a mesh over several
-distinct devices raises until the process-group exchange is ported.
+The sharded rung's full width is its mesh's, or the number of cards (1
+on one H100, 1 on the CPU) when no mesh is given.  Over a ``ShardMesh``
+its D shards share one card (``tpu/mesh_exchange.py``); over a
+``RankMesh`` (distinct devices, or gloo ranks that share one) the rung
+runs one process per rank through ``tpu/ranks.py run_sharded``, which
+rebuilds the protocol from ``protocol_factory`` (a live protocol cannot
+cross a process boundary), and the elastic ladder's narrower rungs run
+on the mesh's first devices.
 ``aot_warmup=True`` loads the built kernels before the run and reports
 that time on ``compile_secs``.  The reference's environment knobs
 (``DSLABS_ABANDONED_WARN``, ``DSLABS_ELASTIC``, ``DSLABS_KNOB_SHRINKS``,
@@ -102,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import random
 import signal
@@ -116,6 +121,7 @@ import torch
 
 from dslabs_tpu_torch.tpu import checkpoint as ckpt_mod
 from dslabs_tpu_torch.tpu._build import resolve_device
+from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh, ShardMesh, as_mesh
 
 __all__ = ["TransientDeviceError", "DispatchTimeout", "EngineFailure",
            "SupervisorExhausted", "RetryPolicy", "FaultRule", "FaultPlan",
@@ -332,7 +338,10 @@ class FaultRule:
     ``hang_secs`` (interruptibly: the watchdog's abandon releases the
     thread).  ``count=None`` fires forever.  ``site`` (the tag suffix,
     e.g. ``"spill_drain"``) narrows the rule to one dispatch site and
-    windows ``at`` / ``count`` on that site's own dispatch index."""
+    windows ``at`` / ``count`` on that site's own dispatch index.
+    ``rank`` (None = every process) narrows it to one rank of a
+    ``RankMesh`` run (``tpu/ranks.py``); outside ranks a process is rank
+    0."""
 
     kind: str                      # "raise" | "hang"
     at: int = 0
@@ -342,6 +351,7 @@ class FaultRule:
     message: str = "injected fault"
     hang_secs: float = 3600.0
     site: Optional[str] = None
+    rank: Optional[int] = None
 
 
 class FaultPlan:
@@ -354,6 +364,8 @@ class FaultPlan:
 
     def __init__(self):
         self.rules: List[FaultRule] = []
+        # The rank this plan fires in (0 outside a RankMesh run).
+        self.rank = 0
         self.fired: int = 0
         # Every firing: (engine, site, kind, index).
         self.fired_log: List[tuple] = []
@@ -361,10 +373,11 @@ class FaultPlan:
     def raise_at(self, at: int, error: type = TransientDeviceError,
                  engine: Optional[str] = None, count: Optional[int] = 1,
                  message: str = "injected fault",
-                 site: Optional[str] = None) -> "FaultPlan":
+                 site: Optional[str] = None,
+                 rank: Optional[int] = None) -> "FaultPlan":
         self.rules.append(FaultRule("raise", at=at, count=count,
                                     engine=engine, error=error,
-                                    message=message, site=site))
+                                    message=message, site=site, rank=rank))
         return self
 
     def raise_always(self, error: type = TransientDeviceError,
@@ -385,6 +398,8 @@ class FaultPlan:
               site_index: Optional[int] = None) -> Optional[FaultRule]:
         for r in self.rules:
             if r.engine is not None and r.engine != engine:
+                continue
+            if r.rank is not None and r.rank != self.rank:
                 continue
             if r.site is not None:
                 if r.site != site or site_index is None:
@@ -669,7 +684,9 @@ class SearchSupervisor:
     installed, and resumes from the last checkpoint when a
     ``checkpoint_path`` holds a dump of its configuration.  The sharded
     rung runs ``ShardedTensorSearch`` over ``mesh`` (a ``ShardMesh``;
-    default: one shard per card) with ``chunk`` rows per shard, and with
+    default: one shard per card; a ``RankMesh`` runs it in one process
+    per rank, built from ``protocol_factory``) with ``chunk`` rows per
+    shard, and with
     ``elastic`` it degrades by halves (:func:`expand_ladder`).  A rung
     that fails past recovery (fatal error, exhausted retries, wedged or
     torn dispatch) is released and the next rung takes over; an
@@ -710,8 +727,6 @@ class SearchSupervisor:
                  elastic: bool = False,
                  device=None,
                  levels_dir: Optional[str] = None):
-        from dslabs_tpu_torch.tpu.mesh_exchange import as_mesh
-
         for rung in ladder:
             if rung not in ("sharded", "device", "host"):
                 raise ValueError(f"unknown ladder rung {rung!r}")
@@ -720,6 +735,14 @@ class SearchSupervisor:
         self.ladder = tuple(ladder)
         if mesh is not None:
             mesh = as_mesh(mesh, device)
+        if isinstance(mesh, RankMesh) and ("sharded" in ladder
+                                           or portfolio) \
+                and not protocol_factory:
+            raise ValueError(
+                "a sharded rung (or a portfolio's swarm lane) over a "
+                "RankMesh runs in one process per rank, and a live "
+                "protocol object cannot cross a process boundary: pass "
+                "protocol_factory='module:callable' (+ factory_kwargs)")
         self.mesh = mesh
         self.device = (mesh.device if device is None and mesh is not None
                        else resolve_device(device))
@@ -802,10 +825,10 @@ class SearchSupervisor:
         """The mesh a sharded rung runs on: the configured (or full) mesh
         for ``width=None``, else a narrower one on the same device, the
         elastic ladder's step down (its engine is cached by width)."""
-        from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
-
         if width is None and self.mesh is not None:
             return self.mesh
+        if isinstance(self.mesh, RankMesh):
+            return self.mesh.narrowed(width)
         return ShardMesh(width or self._full_width(), self.device)
 
     def _build(self, rung: str, spill=None, width: Optional[int] = None,
@@ -839,8 +862,17 @@ class SearchSupervisor:
         if rung == "sharded":
             from dslabs_tpu_torch.tpu.sharded import ShardedTensorSearch
 
-            return ShardedTensorSearch(
-                self.protocol, self._mesh_for(width),
+            mesh = self._mesh_for(width)
+            cls = ShardedTensorSearch
+            if isinstance(mesh, RankMesh):
+                from dslabs_tpu_torch.tpu import ranks
+
+                cls = functools.partial(
+                    ranks.RankSearch, factory=self.protocol_factory,
+                    factory_kwargs=self.factory_kwargs,
+                    transform=self.protocol_transform)
+            return cls(
+                self.protocol, mesh,
                 chunk_per_device=chunk,
                 superstep_chunks=max(1, SUPERSTEP_CHUNKS >> shrink),
                 frontier_cap=self.frontier_cap,
@@ -1056,6 +1088,15 @@ class SearchSupervisor:
             kw.setdefault("checkpoint_path",
                           self.checkpoint_path + ".swarm")
             kw.setdefault("checkpoint_every", self.checkpoint_every)
+        if isinstance(kw["mesh"], RankMesh):
+            # One walker group per rank, rebuilt from the factory.
+            from dslabs_tpu_torch.tpu import ranks
+
+            kw.pop("device", None)
+            return ranks.RankSwarm(
+                self.protocol, kw.pop("mesh"), self.protocol_factory,
+                factory_kwargs=self.factory_kwargs,
+                transform=self.protocol_transform, **kw)
         return SwarmSearch(self.protocol, **kw)
 
     def _run_portfolio(self, resume, initial, check_initial):
@@ -1151,6 +1192,8 @@ class SearchSupervisor:
         wkw = dict(self.warden_kwargs or {})
         wkw.setdefault("elastic", self.elastic)
         wkw.setdefault("mesh_width", self._full_width())
+        if isinstance(self.mesh, RankMesh):
+            wkw.setdefault("rank_mesh", self.mesh.spec())
         warden = Warden(
             factory=self.protocol_factory,
             factory_kwargs=self.factory_kwargs,

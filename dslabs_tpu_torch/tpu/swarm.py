@@ -14,7 +14,12 @@ a BFS cannot reach inside a budget.  This module is the second half.
   table (``[D, V + 1, 4]``), seed pool, counters and first-hit captures,
   as each reference device does; the reference's ``psum`` / ``pmax`` /
   ``all_gather`` over devices are the exchange's (``tpu/
-  mesh_exchange.py``) over the group dimension.
+  mesh_exchange.py``) over the group dimension.  Over a ``RankMesh``
+  each rank (``tpu/ranks.py``) holds one group (``n_local`` groups from
+  ``shard0``) with its own generator, seeded ``seed + RANK_SEED_STRIDE *
+  rank``; the first-hit scalar, the round stats and the captures go
+  through the rank exchange, rank 0's clock decides for every rank, and
+  the witness is minimized and replay-verified on rank 0.
 * **Walk steps.**  A fleet of D * K walkers keeps state rows, depths and
   per-walker event histories on the device.  One walk
   step builds each walker's event table, picks one event per walker,
@@ -77,9 +82,12 @@ from arguments only (no ``DSLABS_SWARM_*`` environment knobs); and the
 D groups share one card.  A dump cut at another group or walker count
 redistributes onto this fleet (:meth:`SwarmSearch._redistribute_swarm`,
 the reference's: sound, with the uncut run's verdict, not bit-exact);
-one at this shape resumes bit-exact.  A mesh naming two distinct
-devices raises ``NotImplementedError``: it needs the process-group
-exchange, which is not ported yet.
+one at this shape resumes bit-exact.  On ranks, rank 0 gathers the
+round dump: every group's arrays, as one process holds them, and every
+rank's generator state (``extra__gen_states``); ranks resume it
+bit-exact, one process continues rank 0's generator, and ranks resuming
+a one-process dump continue it on rank 0 and start the other ranks from
+their seeds.  A ``RankMesh`` builds a swarm only inside its ranks.
 
 Telemetry (``telemetry=``, ``tpu/telemetry.py``): the warm-up is a
 ``compile`` event (the kernel library's load and the zero-step round),
@@ -125,7 +133,7 @@ from dslabs_tpu_torch.tpu.engine import (VISITED_WARN, CapacityOverflow,
                                          SearchOutcome, TensorProtocol,
                                          TensorSearch, flatten_state,
                                          host_copy, read_only)
-from dslabs_tpu_torch.tpu.mesh_exchange import LocalExchange, as_mesh
+from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh, as_mesh
 
 __all__ = ["SwarmSearch", "Witness", "minimize_event_trace",
            "replay_events", "build_witness"]
@@ -133,6 +141,8 @@ __all__ = ["SwarmSearch", "Witness", "minimize_event_trace",
 # Warn thresholds of the loud-degradation counters: any overflow restart
 # is worth a warning; ordinary restarts are the walkers' job.
 RESTART_WARN = 1 << 20
+# A rank's generator seed is ``seed + RANK_SEED_STRIDE * rank``.
+RANK_SEED_STRIDE = 1_000_003
 OVERFLOW_WARN = 0
 
 # Candidate traces replayed side by side per minimization batch, by
@@ -409,15 +419,6 @@ def _split_pool(rows: np.ndarray, D: int, fallback: np.ndarray):
     return seeds, seeds_n
 
 
-@read_only
-def _hit_captures(carry: dict) -> tuple:
-    """The first-hit capture arrays on the host, one entry per group:
-    counts, rows, histories, depths, seed indices and the seed pools."""
-    return tuple(host_copy(carry[k]) for k in (
-        "hit_cnt", "hit_rows", "hit_hist", "hit_depth", "hit_seed",
-        "seeds"))
-
-
 class SwarmSearch(TensorSearch):
     """Diversified random-walk fleet of D groups (module docstring).
     ``run()`` returns the standard :class:`SearchOutcome`:
@@ -452,10 +453,14 @@ class SwarmSearch(TensorSearch):
                  device=None,
                  sanitize: Optional[str] = None):
         self.mesh = as_mesh(mesh, device)
-        if device is None:
-            device = self.mesh.device
-        self.exchange = LocalExchange(self.mesh)
+        self.exchange = self.mesh.exchange()
         self.n_devices = self.mesh.width
+        # The groups this process holds: global ids shard0 .. shard0 +
+        # n_local - 1 (all D on a ShardMesh, its own one on a rank).
+        self.n_local = self.exchange.local_width
+        self.shard0 = self.exchange.rank * self.n_local
+        if device is None or isinstance(self.mesh, RankMesh):
+            device = self.exchange.device
         self.walkers = int(walkers_per_device or 128)
         self.max_steps = int(max_steps or 96)
         self.min_steps = int(min_steps if min_steps is not None
@@ -473,8 +478,8 @@ class SwarmSearch(TensorSearch):
         self.minimize = minimize
         self.replay_verify = replay_verify
         super().__init__(protocol,
-                         frontier_cap=max(self.n_devices * self.walkers, 2),
-                         chunk=self.n_devices * self.walkers,
+                         frontier_cap=max(self.n_local * self.walkers, 2),
+                         chunk=self.n_local * self.walkers,
                          max_secs=max_secs,
                          ev_budget=ev_budget, visited_cap=visited_cap,
                          strict=strict, checkpoint_path=checkpoint_path,
@@ -482,8 +487,8 @@ class SwarmSearch(TensorSearch):
                          telemetry=telemetry, device=device,
                          sanitize=sanitize)
         self.compile_secs = 0.0
-        # Each of the D * K walkers' group.
-        self._group = torch.arange(self.n_devices, device=self.device
+        # Each of this process's L * K walkers' group (local index).
+        self._group = torch.arange(self.n_local, device=self.device
                                    ).repeat_interleave(self.walkers)
         # Walk steps, and the host seconds of the rounds that ran them,
         # over every run of this search.
@@ -497,21 +502,34 @@ class SwarmSearch(TensorSearch):
         built from the root by ``swarm.init`` itself."""
         state = self.initial_state()
         carry = self._init_carry(state)
-        return {
+        sites = {
             "swarm.init": dict(fn=self._init_carry, args=(state,)),
             "swarm.step": dict(fn=self._walk_and_check, args=(carry,),
                                builder=lambda: self._walk_and_check),
             "swarm.sync": dict(fn=self._round_stats, args=(carry, 1)),
-            "swarm.flags": dict(fn=_hit_captures, args=(carry,)),
+            "swarm.flags": dict(fn=self._hit_captures, args=(carry,)),
         }
+        if self.n_local != self.n_devices:
+            # On a rank the init's seeding count, the step's first-hit
+            # psum, the round's stats (eight reductions and a gather) and
+            # the captures (six gathers) are collectives; a gloo rank on a
+            # card stages each through the host (two syncs).
+            stage = 2 * int(self.exchange.staged)
+            for tag, base, n in (("swarm.init", 3, 1), ("swarm.step", 1, 1),
+                                 ("swarm.sync", 1, 9),
+                                 ("swarm.flags", 6, 6)):
+                sites[tag].update(multi=True, syncs=base + stage * n)
+        return sites
 
     # --------------------------------------------------- diversification
 
     def _schedules(self):
         """Per-walker diversification arrays over the whole fleet: depth
         bounds, temperatures, kind affinities.  Deterministic functions of
-        the configuration."""
+        the configuration; a rank takes its groups' slice."""
         n = self.n_devices * self.walkers
+        mine = slice(self.shard0 * self.walkers,
+                     (self.shard0 + self.n_local) * self.walkers)
         bounds = np.linspace(self.min_steps, self.max_steps, n)
         bounds = np.ceil(bounds).astype(np.int32).clip(1, self.max_steps)
         t_lo, t_hi = self.temperature
@@ -522,12 +540,12 @@ class SwarmSearch(TensorSearch):
         # every temperature rung.
         affin = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
         affin = (affin * self.kind_affinity).astype(np.float32)
-        return bounds, temps, affin
+        return bounds[mine], temps[mine], affin[mine]
 
     def _seed_pool(self, state) -> Tuple[torch.Tensor, np.ndarray,
                                          np.ndarray]:
-        """-> (seeds [D, P, lanes] restart rows, seeds_n [D] live rows per
-        group, preseed keys [M, 4] uint32).
+        """-> (seeds [L, P, lanes] restart rows, seeds_n [L] live rows per
+        group, preseed keys [M, 4] uint32), for this process's L groups.
 
         Root mode: every group's pool is the one root row and no key is
         pre-seeded.  Frontier mode (``frontier_seed`` = a BFS
@@ -535,21 +553,22 @@ class SwarmSearch(TensorSearch):
         contiguously over the groups (a group with no share falls back to
         the root), and the dump's visited keys pre-seed every group's
         table, so the walkers probe past the region the BFS covered."""
-        D = self.n_devices
+        D, L, g0 = self.n_devices, self.n_local, self.shard0
         root = flatten_state(state)
         if not self.frontier_seed:
-            return (root[None].expand(D, -1, -1).contiguous(),
-                    np.ones((D,), np.int64), np.zeros((0, 4), np.uint32))
+            return (root[None].expand(L, -1, -1).contiguous(),
+                    np.ones((L,), np.int64), np.zeros((0, 4), np.uint32))
         ck = self._load_bfs_seed(self.frontier_seed)
         R = len(ck.frontier)
         per = max(1, -(-R // D))
-        live = [min(per, max(0, R - d * per)) for d in range(D)]
-        seeds = torch.zeros((D * per, self.lanes), dtype=torch.int32,
+        live = [min(per, max(0, R - d * per)) for d in range(g0, g0 + L)]
+        mine = np.asarray(ck.frontier[g0 * per:(g0 + L) * per])
+        seeds = torch.zeros((L * per, self.lanes), dtype=torch.int32,
                             device=self.device)
-        if R:
-            seeds[:R] = torch.as_tensor(ck.frontier, device=self.device)
-        seeds = seeds.view(D, per, self.lanes)
-        for d in range(D):
+        if len(mine):
+            seeds[:len(mine)] = torch.as_tensor(mine, device=self.device)
+        seeds = seeds.view(L, per, self.lanes)
+        for d in range(L):
             if not live[d]:
                 seeds[d, 0] = root[0]
         return (seeds, np.maximum(np.asarray(live, np.int64), 1),
@@ -584,13 +603,14 @@ class SwarmSearch(TensorSearch):
     def _fleet_carry(self, rows, depths, hists, streak, seed_idx, seeds,
                      seeds_n, keys: np.ndarray, vdev, counters) -> dict:
         """The fleet carry on the device around the given walker arrays
-        (``[D * K, ...]``, group by group), with group d's table built
-        from its ``vdev[d]`` consecutive keys of ``keys`` [M, 4] by
-        kernel 2 (the pre-seeded BFS keys, every group the same, or a
-        swarm dump's per-group tables), the counters from ``counters``
-        [7, D] and the hit captures empty.  ``rows`` and ``seed_idx`` None
-        place each group's walkers round-robin over its pool."""
-        D, S, V = self.n_devices, self.max_steps, self.visited_cap
+        (``[L * K, ...]``, group by group, this process's L groups), with
+        group d's table built from its ``vdev[d]`` consecutive keys of
+        ``keys`` [M, 4] by kernel 2 (the pre-seeded BFS keys, every group
+        the same, or a swarm dump's per-group tables), the counters from
+        ``counters`` [7, L] and the hit captures empty.  ``rows`` and
+        ``seed_idx`` None place each group's walkers round-robin over its
+        pool."""
+        D, S, V = self.n_local, self.max_steps, self.visited_cap
         dev = self.device
         nf = len(self._flag_names)
         bounds, temps, affin = self._schedules()
@@ -606,8 +626,8 @@ class SwarmSearch(TensorSearch):
                 table[d], part, torch.ones((part.shape[0],),
                                            dtype=torch.bool, device=dev))
             counts += [ins.sum(), unres.sum()]
-        n_ins, n_unres = (int(x) for x in
-                          torch.stack(counts).view(D, 2).sum(0).cpu())
+        n_ins, n_unres = (int(x) for x in self.exchange.psum(
+            torch.stack(counts).view(D, 2)).cpu())
         if n_unres:
             raise CapacityOverflow(
                 f"{self.p.name}: visited_cap={V} per group too small to "
@@ -653,12 +673,15 @@ class SwarmSearch(TensorSearch):
         round-robin over its seed pool, empty histories, every table
         pre-seeded with the BFS keys in frontier mode (empty in root
         mode), and zero counters."""
-        D, K, S = self.n_devices, self.walkers, self.max_steps
+        D, K, S = self.n_local, self.walkers, self.max_steps
         N = D * K
         dev = self.device
         seeds, seeds_n, keys = self._seed_pool(state)
         self._gen = torch.Generator(device=dev)
-        self._gen.manual_seed(self.seed)
+        # A rank's group draws from its own generator, seeded from the
+        # seed and the rank.
+        self._gen.manual_seed(self.seed
+                              + RANK_SEED_STRIDE * self.exchange.rank)
         return self._fleet_carry(
             None, torch.zeros((N,), dtype=torch.int64, device=dev),
             torch.full((N, S), -1, dtype=torch.int32, device=dev),
@@ -669,10 +692,11 @@ class SwarmSearch(TensorSearch):
     # --------------------------------------------------------- walk step
 
     def _walk(self, c: dict) -> None:
-        """One walk step of every walker of every group, updating the
-        carry ``c`` in place on the device with no host sync."""
+        """One walk step of every walker of every group this process
+        holds, updating the carry ``c`` in place on the device with no
+        host sync."""
         p = self.p
-        D, K, S = self.n_devices, self.walkers, self.max_steps
+        D, K, S = self.n_local, self.walkers, self.max_steps
         N = D * K
         dev = self.device
         rows, depths, hists = c["rows"], c["depths"], c["hists"]
@@ -795,7 +819,9 @@ class SwarmSearch(TensorSearch):
         k = 0
         t0 = time.time()
         while k < budget:
-            if deadline is not None and time.time() > deadline:
+            # Rank 0's clock decides for every rank.
+            if deadline is not None and self.exchange.agree(
+                    time.time() > deadline):
                 break
             k += 1
             if self._dispatch("swarm.step", self._walk_and_check, carry):
@@ -850,12 +876,23 @@ class SwarmSearch(TensorSearch):
             out = self._run_rounds(state, resume)
         finally:
             self._join_ckpt_writer()
+        # No rank leaves before rank 0's last dump is on disk.
+        self.exchange.agree(True)
         tel = self._telemetry
         if tel is not None:
             if out.trace_id is None:
                 out.trace_id = tel.trace_id
             tel.on_outcome(out, engine="swarm")
         return out
+
+    @read_only
+    def _hit_captures(self, carry: dict) -> tuple:
+        """The first-hit capture arrays of every group on the host (one
+        all-gather each): counts, rows, histories, depths, seed indices
+        and the seed pools."""
+        return tuple(host_copy(self.exchange.all_gather(carry[k]))
+                     for k in ("hit_cnt", "hit_rows", "hit_hist",
+                               "hit_depth", "hit_seed", "seeds"))
 
     def _run_rounds(self, state, resume: bool = False) -> SearchOutcome:
         t_c = time.time()
@@ -882,10 +919,13 @@ class SwarmSearch(TensorSearch):
         stats = None
         nf = len(self._flag_names)
         while True:
-            timed_out = deadline is not None and time.time() > deadline
+            stop = ((deadline is not None and time.time() > deadline)
+                    or self._cancelled())
+            if deadline is not None or self._cancel_event is not None:
+                stop = self.exchange.agree(stop)
             round_cap = (self.max_rounds is not None
                          and rounds >= self.max_rounds)
-            if timed_out or round_cap or self._cancelled():
+            if stop or round_cap:
                 out = self._exhaust_outcome(stats, rounds, t0)
                 out.cancelled = self._cancelled()
                 return out
@@ -965,24 +1005,43 @@ class SwarmSearch(TensorSearch):
         depths, histories, streaks, seed indices, the seed pools
         ``[D * P, lanes]`` and their live sizes, the generator state,
         each group's occupied table lines with their counts ``vdev`` and
-        the counters ``[7, D]``), written in the background."""
+        the counters ``[7, D]``), written in the background.  On ranks,
+        rank 0 gathers every group's arrays (in group order, as one
+        process holds them) and every rank's generator state
+        (``gen_states`` ``[D, ...]``; ``gen_state`` is rank 0's) and
+        writes the one dump."""
+        ex = self.exchange
+        if ex.agree(self._ckpt_writer.busy()):
+            return
+
+        def whole(a):
+            # This process's groups' rows, then every group's.
+            return np.concatenate(ex.gather_np(np.split(a, self.n_local)))
+
         table = host_copy(carry["visited"])
-        groups = [visited_mod.host_occupied(t) for t in table]
+        groups = ex.gather_np([visited_mod.host_occupied(t) for t in table])
         keys = np.concatenate(groups)
-        extra = {k: host_copy(carry[k]) for k in (
+        extra = {k: whole(host_copy(carry[k])) for k in (
             "depths", "hists", "streak", "seed_idx", "seeds_n")}
-        counters = host_copy(torch.stack([carry[k]
-                                          for k in self._COUNTERS]))
+        counters = whole(host_copy(torch.stack(
+            [carry[k] for k in self._COUNTERS])).T).T
+        seeds = whole(host_copy(carry["seeds"]))
+        rows = whole(host_copy(carry["rows"]))
+        gen = self._gen.get_state().numpy()
+        if self.n_local != self.n_devices:
+            extra["gen_states"] = np.stack(ex.gather_np([gen[None]]))[:, 0]
         extra.update({
-            "seeds": host_copy(carry["seeds"]).reshape(-1, self.lanes),
-            "gen_state": self._gen.get_state().numpy(),
+            "seeds": seeds.reshape(-1, self.lanes),
+            "gen_state": extra.get("gen_states", gen[None])[0],
             "vdev": np.asarray([len(g) for g in groups], np.int64),
             "counters": counters,
         })
+        if ex.rank != 0:
+            return
         ck = ckpt_mod.SearchCheckpoint(
             fingerprint=self._ckpt_fingerprint(), depth=rounds,
             explored=int(counters[0].sum()), elapsed=elapsed,
-            frontier=host_copy(carry["rows"]), visited_keys=keys,
+            frontier=rows, visited_keys=keys,
             vis_over=int(counters[5].sum()), extra=extra)
         self._ckpt_writer.kick(
             lambda: ckpt_mod.save(self.checkpoint_path, ck,
@@ -1060,28 +1119,48 @@ class SwarmSearch(TensorSearch):
             raise ckpt_mod.CheckpointCorrupt(
                 f"{self.checkpoint_path}: swarm checkpoint has no "
                 "extra__ walker arrays")
-        D = self.n_devices
+        D, K = self.n_devices, self.walkers
         if (len(np.asarray(x["vdev"]).reshape(-1)) != D
-                or len(ck.frontier) != D * self.walkers):
+                or len(ck.frontier) != D * K):
             ck, x = self._redistribute_swarm(ck, x)
         dev = self.device
+        # This process's groups: all of them, or a rank's own.
+        L, g0 = self.n_local, self.shard0
+        walkers = slice(g0 * K, (g0 + L) * K)
 
         def t(name, dtype):
-            return torch.as_tensor(np.asarray(x[name]), device=dev
-                                   ).to(dtype)
+            return torch.as_tensor(np.asarray(x[name])[walkers],
+                                   device=dev).to(dtype)
 
         self._gen = torch.Generator(device=dev)
-        self._gen.set_state(torch.as_tensor(
-            np.asarray(x["gen_state"], np.uint8)))
+        states = x.get("gen_states")
+        if states is None or len(states) != D:
+            # A dump without a state per rank: rank 0 (or the one
+            # process) continues the dump's generator, other ranks start
+            # their own seeds.
+            if self.exchange.rank == 0:
+                self._gen.set_state(torch.as_tensor(
+                    np.asarray(x["gen_state"], np.uint8)))
+            else:
+                self._gen.manual_seed(self.seed + RANK_SEED_STRIDE
+                                      * self.exchange.rank)
+        else:
+            self._gen.set_state(torch.as_tensor(
+                np.asarray(states[self.exchange.rank], np.uint8)))
         seeds_n = np.asarray(x["seeds_n"], np.int64).reshape(-1)
+        vdev = np.asarray(x["vdev"], np.int64).reshape(-1)
+        offs = np.concatenate([[0], np.cumsum(vdev)]).astype(np.int64)
+        seeds = np.asarray(x["seeds"], np.int32).reshape(D, -1, self.lanes)
+        counters = np.asarray(x["counters"], np.int64).reshape(
+            len(self._COUNTERS), D)
         carry = self._fleet_carry(
-            torch.as_tensor(ck.frontier, device=dev),
+            torch.as_tensor(np.asarray(ck.frontier)[walkers], device=dev),
             t("depths", torch.int64), t("hists", torch.int32),
             t("streak", torch.int64), t("seed_idx", torch.int64),
-            t("seeds", torch.int32).reshape(D, -1, self.lanes), seeds_n,
-            ck.visited_keys, np.asarray(x["vdev"], np.int64).reshape(-1),
-            np.asarray(x["counters"], np.int64).reshape(
-                len(self._COUNTERS), D))
+            torch.as_tensor(seeds[g0:g0 + L], device=dev),
+            seeds_n[g0:g0 + L],
+            np.asarray(ck.visited_keys)[offs[g0]:offs[g0 + L]],
+            vdev[g0:g0 + L], counters[:, g0:g0 + L])
         return carry, ck.depth, ck.elapsed
 
     def _stats_dict(self, stats, rounds: int, elapsed: float) -> dict:
@@ -1133,7 +1212,7 @@ class SwarmSearch(TensorSearch):
         checkState flag order, then the witness pipeline (minimize +
         replay-verify) before the verdict is returned."""
         cnts, rows, hist, depth, seed_i, pool = self._dispatch(
-            "swarm.flags", _hit_captures, carry)
+            "swarm.flags", self._hit_captures, carry)
         elapsed = time.time() - t0
         sd = self._stats_dict(stats, rounds, elapsed)
         for fi, fname in enumerate(self._flag_names):
@@ -1155,9 +1234,13 @@ class SwarmSearch(TensorSearch):
                 end = ("INVARIANT_VIOLATED" if kind == "inv"
                        else "GOAL_FOUND")
                 code = 0
-            wit = build_witness(self, seed_row, raw, end, pname, code,
-                                minimize=self.minimize,
-                                verify=self.replay_verify)
+            if self.exchange.rank == 0:
+                wit = build_witness(self, seed_row, raw, end, pname, code,
+                                    minimize=self.minimize,
+                                    verify=self.replay_verify)
+            else:
+                # Witness minimization runs on rank 0 alone.
+                wit = Witness(end, pname, code, raw, raw, False, False)
             out = SearchOutcome(
                 end, sd["explored"], sd["unique"], int(depth[d, fi]),
                 elapsed,

@@ -68,7 +68,9 @@ module constants here; the profiler window is ``torch.profiler``, not
 ``jax.profiler``; :data:`DISPATCH_SITES` lists the port's own tags with
 the audit fields (``in_place`` for the reference's ``donated``, and
 ``syncs``; the sharded engine's nine ``sharded.*`` sites are those of
-``tpu/sharded.py``, whose shards share one card); a span's ``scale`` is
+``tpu/sharded.py``, multi-device whether its shards share one card or
+run as ranks, where a gloo rank on a card adds its staging's syncs to a
+site's budget); a span's ``scale`` is
 its site's published deadline scale, as in the reference (the sharded
 superstep's; the swarm's walk step is one step and publishes none, so
 its spans read 1.0); per-device lanes have one entry per shard of the
@@ -179,7 +181,8 @@ DISPATCH_SITES = {
     "lanes.flags": dict(hot=False, in_place=False, multi=False,
                         program=False, syncs=1),       # one lane's rows
     # The owner-sharded engine (tpu/sharded.py; multi: its exchange is the
-    # collective of the reference's shard_map programs).  The superstep is
+    # collective of the reference's shard_map programs, a torch.distributed
+    # op on the ranks of a RankMesh).  The superstep is
     # one level: its stats readback, and per chunk step the count before
     # the pack (packed), the window check (finite ev_budget with ev_spill)
     # and the abort code (spill mode), so its budget, like the legacy

@@ -15,7 +15,10 @@ runs each rung in a process of its own instead:
   ``dslabs_tpu_torch.tpu.protocols.pingpong:make_pingpong_protocol``,
   and runs a single-rung :class:`SearchSupervisor` on the spec's
   ``device``; a ``sharded`` child builds its ``ShardMesh`` from the
-  spec's ``mesh_width``.
+  spec's ``mesh_width``, or, when the spec carries a ``rank_mesh``
+  (device list and backend), the ``RankMesh`` over its first
+  ``mesh_width`` devices, and runs the ranks itself
+  (``tpu/ranks.py``), relaying rank 0's dispatches as its heartbeats.
 * **Heartbeats from the dispatch seam.**  The child installs a dispatch
   observer at ``TensorSearch._dispatch`` and writes one JSON line per
   dispatch attempt: tag, dispatch index, live BFS depth and the last
@@ -241,7 +244,9 @@ class Warden:
     ``device`` (the card unless the caller names another) is where every
     rung but the last runs; the last runs on the CPU.  A ``sharded`` rung
     runs ``mesh_width`` shards (default: the number of cards), halved per
-    dead child with ``elastic``.  ``fault`` injects
+    dead child with ``elastic``; with ``rank_mesh`` (``RankMesh.spec()``:
+    ``{"devices": [...], "backend": ...}``) it runs them as ranks, one
+    process per device (default width: the mesh's).  ``fault`` injects
     a deterministic child-side fault: ``{"kind": "hang"|"die"|"exit"|
     "raise", "at": k}`` fires at dispatch index ``k`` of the first rung
     it matches (optional ``"engine"`` restricts the rung, ``"spawns":
@@ -280,7 +285,8 @@ class Warden:
                  device=None,
                  levels_dir: Optional[str] = None,
                  elastic: bool = False,
-                 mesh_width: Optional[int] = None):
+                 mesh_width: Optional[int] = None,
+                 rank_mesh: Optional[dict] = None):
         from dslabs_tpu_torch.tpu._build import resolve_device
         from dslabs_tpu_torch.tpu.mesh_exchange import card_count
 
@@ -293,6 +299,9 @@ class Warden:
         self.ladder = tuple(ladder)
         self.device = str(resolve_device(device))
         self.elastic = bool(elastic)
+        self.rank_mesh = rank_mesh
+        if mesh_width is None and rank_mesh is not None:
+            mesh_width = len(rank_mesh["devices"])
         self.mesh_width = int(mesh_width or card_count(self.device))
         self.policy = policy or RetryPolicy()
         self.checkpoint_path = checkpoint_path
@@ -350,6 +359,7 @@ class Warden:
             "transform": self.transform,
             "rung": rung,
             "mesh_width": width,
+            "rank_mesh": self.rank_mesh,
             "resume": resume,
             "strict": self.strict,
             "max_depth": self.max_depth,
@@ -670,12 +680,18 @@ def _child_main() -> int:
         except Exception:  # noqa: BLE001 - observability is optional
             child_tel = None
     # A sharded child builds its mesh at the spec's width and resumes the
-    # checkpoint re-sharded to that owner map.
+    # checkpoint re-sharded to that owner map; over a rank mesh it runs
+    # one process per rank, rebuilt from the same factory.
     mesh = None
     if rung == "sharded" and spec.get("mesh_width"):
-        from dslabs_tpu_torch.tpu.mesh_exchange import ShardMesh
+        from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh, ShardMesh
 
-        mesh = ShardMesh(int(spec["mesh_width"]), spec.get("device"))
+        rm = spec.get("rank_mesh")
+        if rm:
+            mesh = RankMesh(rm["devices"], rm["backend"]).narrowed(
+                int(spec["mesh_width"]))
+        else:
+            mesh = ShardMesh(int(spec["mesh_width"]), spec.get("device"))
     try:
         sup = SearchSupervisor(
             proto, ladder=(rung,), mesh=mesh, policy=policy,
@@ -689,7 +705,10 @@ def _child_main() -> int:
             visited_cap=spec.get("visited_cap", 1 << 20),
             ev_budget=ev, aot_warmup=spec.get("aot_warmup", False),
             dispatch_observer=observer, telemetry=child_tel,
-            device=spec.get("device"), levels_dir=spec.get("levels_dir"))
+            device=spec.get("device"), levels_dir=spec.get("levels_dir"),
+            protocol_factory=spec["factory"],
+            factory_kwargs=spec.get("factory_kwargs"),
+            protocol_transform=spec.get("transform"))
         out = sup.run(resume=bool(spec.get("resume")))
     except BaseException as e:  # noqa: BLE001 - reported over the pipe
         kind = "failed"

@@ -254,6 +254,85 @@ def test_j4_collective_on_a_one_rank_gloo_group():
         dist.destroy_process_group()
 
 
+RANK_AUDITS = {
+    "superstep": dict(spec="pingpong_spec", args=[2], goals="prune"),
+    "steal": dict(spec="clientserver_spec", args=[2, 2], goals="prune"),
+    "legacy": dict(spec="pingpong_spec", args=[2], goals="prune"),
+    "delta": dict(spec="paxos_spec", args=[3], goals="drop"),
+    "spill": dict(spec="clientserver_spec", args=[2, 2], goals="prune"),
+}
+RANK_AUDIT_KW = {"steal": dict(steal_threshold=1.05),
+                 "legacy": dict(superstep=False),
+                 "delta": dict(frontier_cap=1 << 10, visited_cap=1 << 12),
+                 "spill": dict(spill=True, visited_cap=1 << 6)}
+
+
+@pytest.fixture(scope="module")
+def rank_audit():
+    """One launch of two gloo ranks (tpu/ranks.py): the J4 probe, then
+    the audit of the sharded engine's sites in four configurations."""
+    from dslabs_tpu_torch.tpu import ranks
+    from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh
+
+    jobs = [{"kind": "call", "fn": "tests.torch_harness_cases:j4_probe"}]
+    for name, case in RANK_AUDITS.items():
+        kw = dict(chunk_per_device=16, frontier_cap=1 << 8,
+                  visited_cap=1 << 10)
+        kw.update(RANK_AUDIT_KW.get(name, {}))
+        job = ranks.search_job("tests.torch_harness_cases:spec_twin", case,
+                               **kw)
+        jobs.append(dict(job, kind="audit"))
+    jobs.append(dict(ranks.swarm_job(
+        "dslabs_tpu_torch.tpu.protocols.pingpong:make_pingpong_protocol",
+        {"workload_size": 2}, walkers_per_device=8, max_steps=16,
+        visited_cap=1 << 10), kind="audit", swarm=True))
+    res = ranks.launch(RankMesh(["cpu", "cpu"], "gloo"), jobs,
+                       deadline=240.0, pg_timeout=60.0)
+    return {name: [r["results"][i] for r in res]
+            for i, name in enumerate(["j4"] + list(RANK_AUDITS)
+                                     + ["swarm"])}
+
+
+def test_rank_swarm_sites_clean(rank_audit):
+    """The swarm's four sites on two gloo ranks (one walker group per
+    rank): declared multi-device there, so its collectives are no J4,
+    and no site exceeds its budget."""
+    for r in rank_audit["swarm"]:
+        assert r["findings"] == []
+        assert {k for k in r["report"] if k.startswith("swarm.")} == {
+            "swarm.init", "swarm.step", "swarm.sync", "swarm.flags"}
+
+
+def test_j4_collective_in_two_gloo_ranks(rank_audit):
+    """On each of two ranks a collective of the exchange is J4 in a site
+    declared single-device and clean in one declared multi-device."""
+    for r in rank_audit["j4"]:
+        single, multi = r["value"]["single"], r["value"]["multi"]
+        assert [f["code"] for f in single] == ["J4"]
+        assert "allreduce" in single[0]["message"]
+        assert multi == []
+
+
+@pytest.mark.parametrize("name", list(RANK_AUDITS))
+def test_rank_sites_clean_with_syncs_at_budget(rank_audit, name):
+    """The sharded sites on a gloo rank over the CPU: no finding (their
+    collectives are declared), and each site's measured syncs equal its
+    configured budget (no staging on the CPU: LocalExchange's counts)."""
+    for r in rank_audit[name]:
+        assert r["findings"] == [] and r["staged"] is False
+        sharded = {k: v for k, v in r["report"].items()
+                   if k.startswith("sharded.")}
+        assert sharded and all(v["syncs"] == v["budget"]
+                               for v in sharded.values()), sharded
+        if name == "steal":
+            assert "sharded.steal" in sharded
+        if name == "legacy":
+            assert "sharded.step" in sharded
+        if name == "spill":
+            assert {"sharded.spill_drain:fetch", "sharded.spill_evict:fetch",
+                    "sharded.spill_reinject"} <= set(sharded)
+
+
 # ------------------------------------------------------------------ J5
 
 def test_j5_per_build_random_constants_and_stable_twin():

@@ -318,7 +318,7 @@ def test_port_imports_no_jax():
                  "service/__main__.py", "service/queue.py",
                  "service/scheduler.py", "service/server.py",
                  "service/memo.py", "tpu/sharded.py",
-                 "tpu/mesh_exchange.py", "tpu/chaos.py"):
+                 "tpu/mesh_exchange.py", "tpu/chaos.py", "tpu/ranks.py"):
         assert REPO / "dslabs_tpu_torch" / name in files, name
     for f in files:
         for mod in _import_roots(f):

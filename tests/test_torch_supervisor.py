@@ -29,6 +29,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
@@ -488,7 +489,7 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 @pytest.mark.parametrize("build,slice_name", [
     (lambda t: _tsup(t_pp(2), ladder=("sharded", "device"),
                      mesh=["cpu", "cuda:0"]),
-     "process-group"),
+     "protocol_factory"),
     (lambda t: _tsup(t_pp(2), telemetry=t), None),
     (lambda t: tsup.DispatchBoundary(telemetry=t), None),
     (lambda t: __import__("dslabs_tpu_torch.tpu.warden",
@@ -497,17 +498,18 @@ def test_knob_shrink_relevel_on_cuda_oom(tmp_path, jpp):
 ], ids=["sharded_rung", "supervisor_telemetry", "boundary_telemetry",
         "warden_telemetry"])
 def test_unported_options_raise_naming_their_slice(build, slice_name):
-    """A sharded rung over a mesh of two distinct devices raises, naming
-    the process-group slice (a mesh of shards on one device runs:
-    tests/test_torch_elastic.py); ``telemetry=``, which the telemetry and
-    tracing slice ported, builds and keeps the recorder."""
+    """A sharded rung over a mesh of two distinct devices (a RankMesh,
+    run in one process per rank: tests/test_torch_ranks.py) without a
+    protocol factory raises a ValueError naming ``protocol_factory``: a
+    live protocol cannot cross into the ranks; ``telemetry=``, which the
+    telemetry and tracing slice ported, builds and keeps the recorder."""
     from dslabs_tpu_torch.tpu.telemetry import Telemetry
 
     tel = Telemetry()
     if slice_name is None:
         assert build(tel).telemetry is tel
         return
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(ValueError, match=slice_name):
         build(tel)
 
 
@@ -597,3 +599,57 @@ def test_portfolio_exhaustive_bfs_verdict_wins(jpp):
     assert sup.lanes["winner"] == "bfs"
     assert sup.lanes["swarm"].cancelled
     assert sup.lanes["swarm"].end_condition == "TIME_EXHAUSTED"
+
+
+def _rank_portfolio(**kw):
+    """A portfolio supervisor over two gloo ranks, its protocol rebuilt
+    in each rank from the pingpong factory."""
+    from dslabs_tpu_torch.tpu.mesh_exchange import RankMesh
+
+    swarm_kw = dict(walkers_per_device=8, max_steps=16, steps_per_round=16,
+                    seed=1, visited_cap=1 << 10)
+    swarm_kw.update(kw.pop("swarm_kwargs", {}))
+    return _tsup(_pruned(t_pp(2)), ladder=("sharded",), portfolio=True,
+                 mesh=RankMesh(["cpu", "cpu"], "gloo"), max_secs=60.0,
+                 protocol_factory="dslabs_tpu_torch.tpu.protocols.pingpong:"
+                                  "make_pingpong_protocol",
+                 factory_kwargs={"workload_size": 2},
+                 protocol_transform="tests.torch_harness_cases:"
+                                    "pruned_without_jax",
+                 swarm_kwargs=swarm_kw, **kw)
+
+
+def test_portfolio_over_a_rank_mesh(jpp):
+    """Both lanes over two gloo ranks (tpu/ranks.py): the sharded rung's
+    exhaustive verdict wins with the JAX BFS's counts, and the swarm
+    lane's launch is killed and reported cancelled."""
+    _, jbase = jpp
+    t0 = time.time()
+    sup = _rank_portfolio()
+    out = sup.run()
+    assert _key(out) == _key(jbase)
+    assert (out.engine, out.mesh_width) == ("sharded", 2)
+    assert sup.lanes["winner"] == "bfs"
+    assert sup.lanes["swarm"].cancelled
+    assert sup.lanes["swarm"].end_condition == "TIME_EXHAUSTED"
+    assert time.time() - t0 < 60.0
+
+
+def test_portfolio_swarm_lane_dumps_over_a_rank_mesh(tmp_path):
+    """The portfolio's swarm lane over two gloo ranks writes its round
+    dumps beside the BFS dump, as the one-process lane does: rank 0's
+    dump holds both walker groups and both ranks' generator states."""
+    from dslabs_tpu_torch.tpu import ranks
+
+    ckpt = str(tmp_path / "port.npz")
+    sup = _rank_portfolio(checkpoint_path=ckpt, checkpoint_every=1,
+                          swarm_kwargs=dict(max_rounds=1))
+    sw = sup._build_swarm()
+    assert isinstance(sw, ranks.RankSwarm)
+    out = sw.run(check_initial=False)
+    assert out.end_condition == "TIME_EXHAUSTED"
+    assert out.swarm["rounds"] == 1
+    assert tck.peek_depth(ckpt + ".swarm") == 1
+    ck = np.load(ckpt + ".swarm")
+    assert ck["extra__gen_states"].shape[0] == 2
+    assert len(ck["extra__vdev"]) == 2

@@ -312,21 +312,22 @@ def test_walker_overflow_counted_and_warned():
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(frontier_seed="bfs.npz"), None),
     (dict(checkpoint_path="swarm.npz", checkpoint_every=1), None),
-    (dict(mesh=["cpu", "cuda:0"]), "process-group"),
-    (dict(mesh=["cuda:0", "cuda:1"]), "process-group"),
+    (dict(mesh=["cpu", "cuda:0"]), "inside its ranks"),
+    (dict(mesh=["cuda:0", "cuda:1"]), "inside its ranks"),
     (dict(telemetry=True), None),
 ], ids=["frontier_seed", "checkpoint", "mesh", "mesh_devices",
         "telemetry"])
 def test_unported_options_raise_naming_their_slice(kw, slice_name,
                                                    tmp_path):
-    """Options of later slices raise, naming the slice: a mesh over two
-    distinct devices needs the process-group exchange (a mesh of groups
-    on one device runs: tests/test_torch_swarm_mesh.py); the options the
-    spill + checkpoint slice ported (``frontier_seed``, round
-    checkpoints) and ``telemetry`` (the telemetry and tracing slice: one
-    round record) build and run."""
+    """A mesh over two distinct devices (a RankMesh) builds no swarm
+    outside its ranks, and says where it runs (one group per rank:
+    tests/test_torch_ranks.py; a mesh of groups on one device runs:
+    tests/test_torch_swarm_mesh.py); the options the spill + checkpoint
+    slice ported (``frontier_seed``, round checkpoints) and
+    ``telemetry`` (the telemetry and tracing slice: one round record)
+    build and run."""
     if slice_name is not None:
-        with pytest.raises(NotImplementedError, match=slice_name):
+        with pytest.raises(RuntimeError, match=slice_name):
             tsw.SwarmSearch(t_pp(2), device="cpu", **kw)
         return
     proto = _goal_pruned(t_pp(2))

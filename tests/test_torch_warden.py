@@ -355,6 +355,51 @@ def test_sigkill_mid_checkpoint_write_resume_parity(tmp_path,
     assert resumed._resumed_from_depth == 2
 
 
+def _marked_processes(mark: str):
+    """Live processes whose environment carries ``mark``."""
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if mark.encode() in f.read():
+                    found.append(int(pid))
+        except OSError:
+            continue
+    return found
+
+
+def test_sharded_child_runs_its_ranks(tmp_path, base_pingpong):
+    """A sharded child over a rank mesh (two gloo ranks on the CPU) runs
+    the ranks itself and relays rank 0's dispatches as its heartbeats; a
+    SIGKILL of that child once a dump is on disk takes its ranks with it,
+    and the host rung resumes the ranks' dump to the straight run's
+    verdict."""
+    from dslabs_tpu_torch.tpu.telemetry import Telemetry
+
+    mark = f"DSLABS_RANK_TEST_{os.getpid()}_{time.time_ns()}"
+    tel = Telemetry()
+    w = _warden(PINGPONG, ladder=("sharded", "host"),
+                rank_mesh={"devices": ["cpu", "cpu"], "backend": "gloo"},
+                env={**CHILD_ENV, mark: "1"}, telemetry=tel,
+                checkpoint_path=str(tmp_path / "ranks.npz"),
+                checkpoint_every=1,
+                fault={"kind": "die", "at": 5, "spawns": [0],
+                       "after_ckpt": True})
+    assert w.mesh_width == 2
+    out = w.run()
+    assert _key(out) == _key(base_pingpong)
+    assert out.engine == "host" and out.resumed_from_depth > 0
+    assert [d.kind for d in w.deaths] == ["oom"]
+    tags = {e.get("tag") for e in tel.events if e.get("kind") == "heartbeat"}
+    assert "sharded.superstep" in tags
+    t_end = time.time() + 10.0
+    while _marked_processes(mark) and time.time() < t_end:
+        time.sleep(0.1)
+    assert _marked_processes(mark) == []
+
+
 def test_outcome_round_trips_through_the_pipe_format():
     """outcome_to_dict / outcome_from_dict keep every recovery field and
     the terminal state."""

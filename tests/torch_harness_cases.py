@@ -521,3 +521,100 @@ def pruned_without_jax(proto):
     if loaded:
         raise RuntimeError(f"warden child loaded {loaded[:5]}")
     return pruned(proto)
+
+
+# ------------------------------------------------ rank runs (tpu/ranks.py)
+#
+# Module-level factories and transforms that a rank process imports by
+# reference ("tests.torch_harness_cases:spec_twin"): a rank builds its
+# protocol itself, and imports neither JAX nor the JAX package.
+
+def spec_twin(spec: str = "pingpong_spec", args=(2,), goals: str = "prune",
+              root: str = "dslabs_tpu_torch"):
+    """A generated spec's compiled twin under either package: ``goals`` is
+    ``"prune"`` (the first goal as a prune: the search runs the whole
+    space) or ``"drop"`` (no goal: the depth-limited Paxos runs)."""
+    p = getattr(importlib.import_module(f"{root}.tpu.specs"), spec)(
+        *args).compile()
+    if goals == "drop":
+        return dataclasses.replace(p, goals={})
+    name = next(iter(p.goals))
+    return dataclasses.replace(p, goals={}, prunes={name: p.goals[name]})
+
+
+def lab0_violation_protocol():
+    """The bound lab 0 twin of :func:`lab0_violation` under the port (its
+    runtime masks deliver everything, so the protocol alone is the run)."""
+    from dslabs_tpu_torch.tpu import backend as tback
+
+    case = lab0_violation(Pkg("dslabs_tpu_torch"))
+    binding = tback.resolve_binding(case.state)
+    proto, _, _ = tback._bind_protocol(binding, case.settings,
+                                       *binding.initial_caps())
+    return proto
+
+
+def exchange_inputs(width: int, seed: int = 0) -> dict:
+    """Seeded inputs of every exchange operation over ``width`` shards:
+    the full ``[D, ...]`` arrays (a rank takes its slice)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D = width
+    return {
+        "all_to_all": rng.integers(-9, 9, (D, D, 3, 2)).astype(np.int32),
+        "all_to_all_bool": rng.integers(0, 2, (D, D, 5)).astype(bool),
+        "psum": rng.integers(-50, 50, (D, 4)).astype(np.int64),
+        "pmax": rng.integers(-50, 50, (D, 3)).astype(np.int32),
+        "pmin": rng.integers(-50, 50, (D, 3)).astype(np.int32),
+        "all_gather": rng.integers(0, 99, (D, 2, 3)).astype(np.int64),
+        "gather_np": [rng.integers(0, 2 ** 32, (d + 1, 4), dtype=np.uint64)
+                      .astype(np.uint32) for d in range(D)],
+    }
+
+
+def exchange_ops(exchange, seed: int = 0) -> dict:
+    """Every exchange operation on this process's slice of
+    :func:`exchange_inputs` (a rank's call job)."""
+    import torch
+
+    x = exchange_inputs(exchange.width, seed)
+    g0, L = exchange.rank * exchange.local_width, exchange.local_width
+
+    def mine(a):
+        return torch.from_numpy(a[g0:g0 + L])
+
+    many = exchange.all_to_all_many([mine(x["all_to_all"]),
+                                     mine(x["all_to_all_bool"][..., :3])])
+    return {
+        "all_to_all": exchange.all_to_all(mine(x["all_to_all"])).tolist(),
+        "all_to_all_bool": exchange.all_to_all(
+            mine(x["all_to_all_bool"])).tolist(),
+        "all_to_all_many": [t.tolist() for t in many],
+        "psum": exchange.psum(mine(x["psum"])).tolist(),
+        "pmax": exchange.pmax(mine(x["pmax"])).tolist(),
+        "pmin": exchange.pmin(mine(x["pmin"])).tolist(),
+        "all_gather": exchange.all_gather(mine(x["all_gather"])).tolist(),
+        "gather_np": [a.tolist() for a in exchange.gather_np(
+            x["gather_np"][g0:g0 + L])],
+        "agree": [exchange.agree(exchange.rank == 0),
+                  exchange.agree(exchange.rank != 0)],
+    }
+
+
+def j4_probe(exchange) -> dict:
+    """The hot-path audit's rule J4 on a rank (a call job): a reduction
+    through the rank's exchange in a site declared single-device, then
+    declared multi-device."""
+    import torch
+
+    from dslabs_tpu_torch.analysis import hotpath_audit as H
+
+    x = torch.ones((1, 8), dtype=torch.int64)
+    out = {}
+    for multi in (False, True):
+        found = H.audit_sites({"device.promote": dict(
+            fn=exchange.psum, args=(x,), in_place=False, multi=multi,
+            syncs=0)}, "Fixture")
+        out["multi" if multi else "single"] = [f.as_dict() for f in found]
+    return out
